@@ -4,13 +4,16 @@
     python3 chip_smoke.py            # from the root of the repository
 
 Phases (any failure exits non-zero, before the result line):
-  1. build   -- compile every CUDA kernel of the deploy path from
+  1. build   -- compile every CUDA kernel of the deploy paths from
                 mscnn_torch/csrc/ (one nvcc per source, in parallel);
   2. nms     -- the NMS kernel against its plain version at the deploy
                 path's two shapes and in each IoU mode: exactly equal;
   3. conv1   -- the fused conv1 kernel against its plain version at
                 [4, 768, 2560, 3] and at an odd size: atol 0.02 * max|ref|;
-  4. deploy  -- the flagship kitti_car/mscnn-8s-768-trainval deploy graph
+  4. int8    -- the int8 GEMM kernel (raw int32) against its exact plain
+                version at the TPU probe's three matmul shapes and at every
+                int8 conv / dense shape of the int8 deploy path: equal;
+  5. deploy  -- the flagship kitti_car/mscnn-8s-768-trainval deploy graph
                 (bf16, fused conv1, batch 4 of seeded random uint8
                 768x2560 images, seeded random weights) through the
                 end-to-end forward, to KITTI label text; every kernel's
@@ -18,8 +21,20 @@ Phases (any failure exits non-zero, before the result line):
                 is held against its plain version on the tensors that run
                 gave it; a tiny float32 config is run on the card and on
                 the CPU (plain kernels) and must agree;
-  5. timing  -- CUDA-event medians of each kernel and its plain version at
-                the path's shapes, a per-stage breakdown and deploy img/s.
+  6. deploy int8 -- the same graph in its int8 deploy configuration
+                (`mscnn detect --bf16 --int8 --int8-heads`: conv1 unfused,
+                int8 trunk with conv1, int8 roi_c1 + fc6), calibrated as
+                bench.py and the CLI do, through the end-to-end forward to
+                KITTI text: 17 int8 launches and 2 NMS launches a step,
+                each int8 launch equal to its plain version on that run's
+                own tensors, and no host sync in the int8 layers; a tiny
+                int8 config on the card and on the CPU must give bit-equal
+                trunk features;
+  7. timing  -- CUDA-event medians of each kernel and its plain version at
+                the paths' shapes, each int8 layer beside cuDNN's bf16 conv
+                at its shape, the int8 trunk split, per-stage breakdowns
+                and deploy img/s of the bf16 control, the int8 trunk and the
+                int8 trunk + heads.
 
 The lines before the last give the card's name and power limit
 (nvidia-smi) and one JSON object listing every kernel; the last line is
@@ -29,6 +44,7 @@ repository, the script exits non-zero and prints no result.
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -39,6 +55,13 @@ import time
 BATCH = 4
 SEED = 0
 MEAN = (104.0, 117.0, 123.0)
+# examples/profile_int8_mxu.py:97-99 (name, M, K, F)
+K4_PROBES = (("im2col_conv2_1", 491520, 576, 128), ("tapdot_c64", 491520, 64, 128),
+             ("big_control", 8192, 512, 512))
+INT8_LAYERS = ("conv1_1", "conv1_2", "conv2_1", "conv2_2", "conv3_1", "conv3_2",
+               "conv3_3", "conv4_1", "conv4_2", "conv4_3", "conv5_1", "conv5_2",
+               "conv5_3", "conv6_1", "loss1_conv1", "roi_c1", "fc6")
+POOL_INPUTS = ("conv1_2", "conv2_2", "conv3_3", "conv4_3", "conv5_3", "conv6_1")
 
 
 def fail(msg):
@@ -86,17 +109,136 @@ def random_candidates(gen, p, n, img=2560.0):
     return torch.cat([xy, wh], -1), scores, valid
 
 
+def int8_shapes(batch, H, W, rois):
+    """(name, x [B, H, W, C], w [F, kh, kw, C], pad) of every int8 launch of
+    the flagship int8 deploy path, in launch order; fc6 is the 1x1-over-1x1
+    (dense) case."""
+    from mscnn_torch.models import mscnn as M
+    rows, c, h, w = [], 3, H, W
+    for name, f in M.VGG_BLOCKS:
+        rows.append((name, (batch, h, w, c), (f, 3, 3, c), 1))
+        c = f
+        if name in M.POOL_AFTER:
+            h, w = math.ceil(h / 2), math.ceil(w / 2)
+    rows.append(("conv6_1", (batch, h, w, 512), (512, 3, 3, 512), 1))
+    rows.append(("loss1_conv1", (batch, H // 8, W // 8, 512), (512, 3, 3, 512), 1))
+    rows.append(("roi_c1", (rois, 7, 7, 1024), (512, 3, 3, 1024), 0))
+    rows.append(("fc6", (rois, 1, 1, 5 * 5 * 512), (4096, 1, 1, 5 * 5 * 512), 0))
+    assert tuple(r[0] for r in rows) == INT8_LAYERS
+    return rows
+
+
+def stage_breakdown(M, I, params, cfg, imgs, mean, ratios, orig_wh):
+    """Median CUDA-event ms of each deploy stage over 3 passes after a
+    warm-up."""
+    import torch
+    stage_ms = {k: [] for k in ("input", "trunk", "heads", "propose",
+                                "roi_head", "postprocess")}
+    B = imgs.shape[0]
+    R = cfg.proposal.max_out
+    with torch.inference_mode():
+        for it in range(4):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+            ev[0].record()
+            x = imgs.float() - mean
+            ev[1].record()
+            feats = M.trunk(params, x, cfg)
+            ev[2].record()
+            outs = M.heads(params, feats, cfg)
+            ev[3].record()
+            prop = M.propose(outs, cfg)
+            ev[4].record()
+            bidx, rb, rs, rv = M.flatten_proposals(prop)
+            cls, bbox = M.roi_head(params, feats["conv4_3"], bidx, rb, rv, cfg)
+            ev[5].record()
+            per = {"rois": rb.reshape(B, R, 4), "roi_scores": rs.reshape(B, R),
+                   "roi_valid": rv.reshape(B, R), "cls_pred": cls.reshape(B, R, -1),
+                   "bbox_pred": bbox.reshape(B, R, -1)}
+            I.postprocess_batch(per, ratios, orig_wh, cfg, I.DetectSpec())
+            ev[6].record()
+            ev[6].synchronize()
+            if it:   # the first pass is a warm-up
+                for j, k in enumerate(stage_ms):
+                    stage_ms[k].append(ev[j].elapsed_time(ev[j + 1]))
+            del feats, outs, prop
+    return {k: statistics.median(v) for k, v in stage_ms.items()}
+
+
+def deploy_step(fwd, params, imgs, ratios, orig_wh):
+    """(median s/step over 5 synchronised steps after 2 warm-ups, peak GiB)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        fwd(params, imgs, ratios, orig_wh)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fwd(params, imgs, ratios, orig_wh)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def check_kitti(I, out, batch):
+    """Write the batch's detections as KITTI label files; fail on a malformed
+    line. Returns (line count, first line)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        names = I.KITTI_CLASS_NAMES["kitti_car"]
+        lines, first = 0, None
+        for i in range(batch):
+            det = {k: out[k][i] for k in ("boxes", "scores", "valid")}
+            I.write_kitti_labels(I.detections_to_kitti(det, names), tmp, i)
+            with open(os.path.join(tmp, f"{i:06d}.txt")) as f:
+                rows = f.read().splitlines()
+            if any(len(r.split()) != 16 or r.split()[0] not in names for r in rows):
+                fail(f"malformed KITTI label line in {i:06d}.txt")
+            lines += len(rows)
+            first = first or (rows[0] if rows else None)
+    return lines, first
+
+
+def check_deploy_out(out, cfg, batch):
+    import torch
+    nc = cfg.num_classes
+    if tuple(out["boxes"].shape) != (batch, nc - 1, 100, 4) or \
+            tuple(out["rois"].shape) != (batch, cfg.proposal.max_out, 4):
+        fail(f"deploy output shapes {tuple(out['boxes'].shape)}, "
+             f"{tuple(out['rois'].shape)}")
+    for k in ("boxes", "scores", "rois", "roi_scores"):
+        if not torch.isfinite(out[k]).all():
+            fail(f"deploy output {k} is not finite")
+
+
+def calibrate_int8(Q, params, cfg, cal):
+    """Trunk scales (conv1 included, percentile 99.9, bench.py:45-59), then
+    the ROI-head scales on the int8 trunk (cli.py:530-543); returns the
+    quantized params."""
+    fcfg = dataclasses.replace(cfg, int8_trunk=False, int8_roi_head=False)
+    scales = Q.calibrate_trunk_scales(params, fcfg, cal, include_conv1=True)
+    params = Q.quantize_trunk(params, scales)
+    hcfg = dataclasses.replace(cfg, int8_trunk=True, int8_roi_head=False)
+    hscales = Q.calibrate_roi_head_scales(params, hcfg, cal)
+    return Q.quantize_roi_heads(params, hscales), scales, hscales
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
     try:
+        import numpy as np
+        import torch.nn.functional as F
+
         from mscnn_torch import inference as I
         from mscnn_torch.models import mscnn as M
         from mscnn_torch.models import zoo
+        from mscnn_torch.ops import conv as C
         from mscnn_torch.ops import nms as nms_ops
+        from mscnn_torch.ops import quant as Q
         from mscnn_torch.ops.kernels import build
         from mscnn_torch.ops.kernels import conv1_kernel as CK
+        from mscnn_torch.ops.kernels import int8_kernel as IK
         from mscnn_torch.ops.kernels import nms_kernel as NK
     except ImportError as e:
         fail(f"mscnn_torch not importable ({e}); run from the repository root")
@@ -122,6 +264,13 @@ def main():
                 log(f"  ptxas {k}: {line.strip()}")
 
     gen = torch.Generator().manual_seed(SEED)
+
+    def counts():
+        return {"nms": NK.launches, "conv1_pool": CK.launches,
+                "int8_gemm": IK.launches}
+
+    def zero_counts():
+        NK.launches = CK.launches = IK.launches = 0
 
     # -- 2. NMS kernel vs plain ----------------------------------------------
     nms_cases = [(4, 2000, 256, 0.65, "iou"), (16, 256, 100, 0.5, "iou")] + [
@@ -171,42 +320,87 @@ def main():
     conv1_check((torch.randn((1, 19, 37, 3), generator=gen) * 50)
                 .to(dev).bfloat16(), "odd size")
 
-    # -- 4. deploy main path ---------------------------------------------------
+    # -- 4. int8 kernel vs plain, raw int32 ------------------------------------
+    int8_max_err = 0.0
+    dgen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand_i8(shape, lo=-127, hi=128):
+        return torch.randint(lo, hi, shape, generator=dgen, device=dev,
+                             dtype=torch.int8)
+
+    def int8_exact(got, want, what):
+        nonlocal int8_max_err
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"int8 kernel gave {got.dtype} {tuple(got.shape)} at {what}, "
+                 f"plain {want.dtype} {tuple(want.shape)}")
+        g, w = got.reshape(-1), want.reshape(-1)
+        step = 1 << 26   # float64 differences, a chunk at a time
+        err = max((g[i:i + step].double() - w[i:i + step].double()).abs().max().item()
+                  for i in range(0, g.numel(), step))
+        int8_max_err = max(int8_max_err, err)
+        if err != 0 or not torch.equal(got, want):
+            fail(f"int8 kernel != plain at {what}: max_abs_err {err}")
+
+    probe_args = {}
+    for name, m, k, f in K4_PROBES:
+        x, w = rand_i8((m, k)), rand_i8((f, k), -16, 17)   # the probe's ranges
+        int8_exact(IK.mm_int8(x, w), IK.mm_int8_plain(x, w), f"{name} {m}x{k}x{f}")
+        probe_args[name] = (x, w)
+        log(f"int8 probe {name}: [{m}, {k}] x [{f}, {k}]^T -> int32: equal")
+    rois = BATCH * cfg.proposal.max_out
+    shapes = int8_shapes(BATCH, H, W, rois)
+    for name, xs, ws, pad in shapes:
+        x, w = rand_i8(xs), rand_i8(ws)
+        int8_exact(IK.int8_conv(x, w, padding=(pad, pad)),
+                   IK.int8_conv_plain(x, w, padding=(pad, pad)), f"{name} {xs}")
+        log(f"int8 shape {name}: x {xs} w {ws} pad {pad} -> int32: equal")
+        del x, w
+    torch.cuda.empty_cache()
+
+    # -- 5. deploy main path (bf16) ---------------------------------------------
     ratios = torch.ones((BATCH, 2))
     orig_wh = torch.tensor([[float(W), float(H)]] * BATCH)
     fwd = I.make_e2e_forward(params, cfg, I.DetectSpec(), mean_values=MEAN)
-    calls = {"nms": [], "conv1": []}
-    nms_cuda, conv1_cuda = NK.nms_xywh_cuda, CK.conv1_pool_cuda
+    sink = calls = {"nms": [], "conv1": [], "int8": []}
+    nms_cuda, conv1_cuda, int8_cuda = NK.nms_xywh_cuda, CK.conv1_pool_cuda, \
+        IK.int8_conv_cuda
 
     def rec_nms(*a, **kw):
         out = nms_cuda(*a, **kw)
-        calls["nms"].append((a, kw, out))
+        sink["nms"].append((a, kw, out))
         return out
 
     def rec_conv1(*a):
         out = conv1_cuda(*a)
-        calls["conv1"].append((a, out))
+        sink["conv1"].append((a, out))
         return out
 
-    NK.nms_xywh_cuda, CK.conv1_pool_cuda = rec_nms, rec_conv1
-    NK.launches = 0
-    CK.launches = 0
+    def rec_int8(*a, **kw):
+        out = int8_cuda(*a, **kw)
+        sink["int8"].append((a, kw, out))
+        return out
+
+    def recording(on):
+        if on:
+            NK.nms_xywh_cuda, CK.conv1_pool_cuda, IK.int8_conv_cuda = \
+                rec_nms, rec_conv1, rec_int8
+        else:
+            NK.nms_xywh_cuda, CK.conv1_pool_cuda, IK.int8_conv_cuda = \
+                nms_cuda, conv1_cuda, int8_cuda
+
+    recording(True)
+    zero_counts()
     t0 = time.perf_counter()
     out = fwd(params, imgs, ratios, orig_wh)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"nms": NK.launches, "conv1_pool": CK.launches}
-    NK.nms_xywh_cuda, CK.conv1_pool_cuda = nms_cuda, conv1_cuda
+    launches = counts()
+    recording(False)
     log(f"deploy: first call {first_s:.2f} s, launches {launches}")
 
+    check_deploy_out(out, cfg, BATCH)
     nc = cfg.num_classes
-    if tuple(out["boxes"].shape) != (BATCH, nc - 1, 100, 4) or \
-            tuple(out["rois"].shape) != (BATCH, cfg.proposal.max_out, 4):
-        fail(f"deploy output shapes {tuple(out['boxes'].shape)}, "
-             f"{tuple(out['rois'].shape)}")
-    for k in ("boxes", "scores", "rois", "roi_scores"):
-        if not torch.isfinite(out[k]).all():
-            fail(f"deploy output {k} is not finite")
     if launches["conv1_pool"] < 1 or launches["nms"] < 2:
         fail(f"the main path did not launch every kernel: {launches}")
     problems = sorted(a[0].shape[0] for a, _, _ in calls["nms"])
@@ -215,21 +409,8 @@ def main():
              f"expected {BATCH} + {BATCH * (nc - 1)}")
     log(f"deploy: {int(out['roi_valid'].sum())} proposals, "
         f"{int(out['valid'].sum())} detections over {BATCH} images")
-
-    with tempfile.TemporaryDirectory() as tmp:
-        names = I.KITTI_CLASS_NAMES["kitti_car"]
-        lines = 0
-        for i in range(BATCH):
-            det = {k: out[k][i] for k in ("boxes", "scores", "valid")}
-            I.write_kitti_labels(I.detections_to_kitti(det, names), tmp, i)
-            with open(os.path.join(tmp, f"{i:06d}.txt")) as f:
-                rows = f.read().splitlines()
-            if any(len(r.split()) != 16 or r.split()[0] not in names
-                   for r in rows):
-                fail(f"malformed KITTI label line in {i:06d}.txt")
-            lines += len(rows)
-        log(f"kitti: {BATCH} label files, {lines} lines, first: "
-            f"{rows[0] if rows else '(none)'}")
+    lines, first = check_kitti(I, out, BATCH)
+    log(f"kitti: {BATCH} label files, {lines} lines, first: {first or '(none)'}")
 
     # the kernels against their plain versions on the main path's tensors
     for a, kw, got in calls["nms"]:
@@ -256,10 +437,11 @@ def main():
     timg = torch.randint(0, 256, (2, *tiny.input_hw, 3),
                          generator=torch.Generator().manual_seed(1),
                          dtype=torch.uint8)
+    tx = timg.float() - torch.tensor(MEAN)
     with torch.inference_mode():
-        ref = M.deploy_forward(tp, timg.float() - torch.tensor(MEAN), tiny)
+        ref = M.deploy_forward(tp, tx, tiny)
         dp = {k: {n: t.to(dev) for n, t in p.items()} for k, p in tp.items()}
-        got = M.deploy_forward(dp, timg.to(dev).float() - mean, tiny)
+        got = M.deploy_forward(dp, tx.to(dev), tiny)
     if not torch.equal(got["roi_valid"].cpu(), ref["roi_valid"]):
         fail("tiny config: proposal valid flags differ between card and CPU")
     for k in ("rois", "cls_pred", "bbox_pred"):
@@ -269,7 +451,121 @@ def main():
             fail(f"tiny config: {k} differs between card and CPU ({err})")
     log("tiny config: card agrees with the CPU plain path")
 
-    # -- 5. timing ---------------------------------------------------------------
+    # -- 6. int8 deploy path ---------------------------------------------------
+    cfg8 = dataclasses.replace(cfg, pallas_conv1=False, int8_trunk=True,
+                               int8_roi_head=True)
+    cfg8t = dataclasses.replace(cfg8, int8_roi_head=False)   # bench.py's default
+    t0 = time.perf_counter()
+    p32 = M.init_params(torch.Generator().manual_seed(SEED), cfg8, device=dev)
+    cal = np.random.RandomState(0).randn(1, H, W, 3).astype(np.float32) * 40.0
+    q32, scales, hscales = calibrate_int8(Q, p32, cfg8, cal)
+    params8 = M.cast_params(q32, torch.bfloat16)
+    del p32, q32
+    torch.cuda.empty_cache()
+    log(f"int8 calibration: {len(scales)} trunk layers + {sorted(hscales)} in "
+        f"{time.perf_counter() - t0:.1f} s; x_s conv1_1 {scales['conv1_1']:.5g}, "
+        f"conv3_3 {scales['conv3_3']:.5g}, roi_c1 {hscales['roi_c1']:.5g}, "
+        f"fc6 {hscales['fc6']:.5g}")
+    fwd8 = I.make_e2e_forward(params8, cfg8, I.DetectSpec(), mean_values=MEAN)
+    sink = calls8 = {"nms": [], "conv1": [], "int8": []}
+    recording(True)
+    zero_counts()
+    t0 = time.perf_counter()
+    out8 = fwd8(params8, imgs, ratios, orig_wh)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches8 = counts()
+    recording(False)
+    log(f"deploy int8: first call {first_s:.2f} s, launches {launches8}")
+    check_deploy_out(out8, cfg8, BATCH)
+    if launches8["int8_gemm"] != len(INT8_LAYERS) or launches8["nms"] != 2 \
+            or launches8["conv1_pool"] != 0:
+        fail(f"the int8 path launched {launches8}, expected 17 int8, 2 nms, "
+             f"0 conv1")
+    problems = sorted(a[0].shape[0] for a, _, _ in calls8["nms"])
+    if problems != sorted([BATCH, BATCH * (nc - 1)]):
+        fail(f"int8 path: nms launches covered problems {problems}")
+    got_shapes = [(tuple(a[0].shape), tuple(a[1].shape), kw["padding"][0])
+                  for a, kw, _ in calls8["int8"]]
+    if got_shapes != [(xs, ws, pad) for _, xs, ws, pad in shapes]:
+        fail(f"int8 launches had shapes {got_shapes}")
+    log(f"deploy int8: {int(out8['roi_valid'].sum())} proposals, "
+        f"{int(out8['valid'].sum())} detections over {BATCH} images")
+    lines, first = check_kitti(I, out8, BATCH)
+    log(f"kitti int8: {BATCH} label files, {lines} lines, first: {first or '(none)'}")
+    for name, (a, kw, got) in zip(INT8_LAYERS, calls8["int8"]):
+        int8_exact(got, IK.int8_conv_plain(*a, **kw), f"{name} on the int8 path")
+        log(f"int8 on path: {name} x {tuple(a[0].shape)} -> {got.dtype} "
+            f"relu={kw['relu']}: equal")
+    for a, kw, got in calls8["nms"]:
+        want = nms_ops.nms_xywh_plain(*a, **kw)
+        if not nms_equal(got, want):
+            fail(f"nms kernel != plain on the int8 path's P={a[0].shape[0]}")
+    log("nms on the int8 path: equal")
+    # the int8 layers make no host sync: the int8 trunk, and roi_c1 + fc6 on
+    # the path's own inputs, under PyTorch's sync debug mode
+    (ra, rkw, _), (fa, fkw, _) = calls8["int8"][-2:]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            M.trunk(params8, imgs.float() - mean, cfg8)
+            int8_cuda(*ra, **rkw)
+            int8_cuda(*fa, **fkw)
+            Q.quantize_act(torch.zeros((8, 8), device=dev), ra[2])
+    except RuntimeError as e:
+        fail(f"the int8 path synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("int8 trunk and ROI-head layers: no host sync (sync debug mode 'error')")
+
+    # the tiny int8 config on the card and on the CPU (plain kernels)
+    tcal = np.random.RandomState(0).randn(1, *tiny.input_hw, 3).astype(np.float32) * 40
+    tiny8 = dataclasses.replace(tiny, int8_trunk=True, int8_roi_head=True)
+    tq, _, _ = calibrate_int8(Q, tp, tiny8, tcal)
+    dq = {k: {n: t.to(dev) for n, t in p.items()} for k, p in tq.items()}
+    with torch.inference_mode():
+        fref = M.trunk(tq, tx, tiny8)
+        fgot = M.trunk(dq, tx.to(dev), tiny8)
+        ref = M.deploy_forward(tq, tx, tiny8)
+        got = M.deploy_forward(dq, tx.to(dev), tiny8)
+    for k in fref:
+        if not torch.equal(fgot[k].cpu(), fref[k]):
+            err = (fgot[k].cpu() - fref[k]).abs().max().item()
+            fail(f"tiny int8 config: trunk feature {k} differs between card and "
+                 f"CPU ({err})")
+    if not torch.equal(got["roi_valid"].cpu(), ref["roi_valid"]):
+        fail("tiny int8 config: proposal valid flags differ between card and CPU")
+    if not torch.allclose(got["rois"].cpu(), ref["rois"], rtol=1e-4, atol=1e-3):
+        fail("tiny int8 config: rois differ between card and CPU")
+    # The int8 ROI head on the CPU's own upsampled map and rois: its only
+    # inexact step is then the float cls/bbox dense (f32 tolerance).
+    with torch.inference_mode():
+        feat = M.upsampled_roi_feature(tq, fref["conv4_3"], tiny8)
+        hargs = (ref["batch_idx"], ref["rois"], ref["roi_valid"])
+        want = M.roi_head(tq, None, *hargs, tiny8, feat=feat)
+        have = M.roi_head(dq, None, *(a.to(dev) for a in hargs), tiny8,
+                          feat=feat.to(dev))
+    for k, g_, w_ in zip(("cls_pred", "bbox_pred"), have, want):
+        if not torch.allclose(g_.cpu(), w_, rtol=1e-4, atol=1e-3):
+            err = (g_.cpu() - w_).abs().max().item()
+            fail(f"tiny int8 config: ROI head {k} differs between card and CPU "
+                 f"on the same inputs ({err})")
+    # End to end, the 2x upsample (float) sums in another order on the card;
+    # an ulp there can move roi_c1's quantized input by one step, which the
+    # int8 head carries to cls/bbox (0.0072 of max|cls| 8.3 when the CPU
+    # recomputes only the upsample in float64): 1% of max|ref|.
+    errs = {}
+    for k in ("cls_pred", "bbox_pred"):
+        errs[k] = (got[k].cpu() - ref[k]).abs().max().item()
+        if errs[k] > 0.01 * ref[k].abs().max().item():
+            fail(f"tiny int8 config: {k} differs between card and CPU ({errs[k]})")
+    log(f"tiny int8 config: {len(fref)} trunk features bit-equal between card and "
+        f"CPU; ROI head equal to f32 tolerance on the same inputs; end to end "
+        f"max abs err cls {errs['cls_pred']:.4g}, bbox {errs['bbox_pred']:.4g}")
+    del tq, dq, fref, fgot, feat
+
+    # -- 7. timing ---------------------------------------------------------------
     kernels_ms = {}
     (pa, pkw, _), (qa, qkw, _) = sorted(calls["nms"], key=lambda c: c[0][0].shape[1],
                                         reverse=True)
@@ -286,52 +582,87 @@ def main():
     log(f"time conv1 {tuple(ca[0].shape)}: kernel {k_ms:.4f} ms, "
         f"plain {p_ms:.4f} ms")
 
-    stage_ms = {k: [] for k in ("input", "trunk", "heads", "propose",
-                                "roi_head", "postprocess")}
-    with torch.inference_mode():
-        for it in range(4):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
-            ev[0].record()
-            x = imgs.float() - mean
-            ev[1].record()
-            feats = M.trunk(params, x, cfg)
-            ev[2].record()
-            outs = M.heads(params, feats, cfg)
-            ev[3].record()
-            prop = M.propose(outs, cfg)
-            ev[4].record()
-            bidx, rb, rs, rv = M.flatten_proposals(prop)
-            cls, bbox = M.roi_head(params, feats["conv4_3"], bidx, rb, rv, cfg)
-            ev[5].record()
-            R = cfg.proposal.max_out
-            per = {"rois": rb.reshape(BATCH, R, 4), "roi_scores": rs.reshape(BATCH, R),
-                   "roi_valid": rv.reshape(BATCH, R), "cls_pred": cls.reshape(BATCH, R, -1),
-                   "bbox_pred": bbox.reshape(BATCH, R, -1)}
-            I.postprocess_batch(per, ratios, orig_wh, cfg, I.DetectSpec())
-            ev[6].record()
-            ev[6].synchronize()
-            if it:   # the first pass is a warm-up
-                for j, k in enumerate(stage_ms):
-                    stage_ms[k].append(ev[j].elapsed_time(ev[j + 1]))
-            del feats, outs, prop
-    stages = {k: statistics.median(v) for k, v in stage_ms.items()}
-    log("stages_ms " + json.dumps(stages))
+    for name, m, k, f in K4_PROBES:
+        x, w = probe_args.pop(name)
+        xb, wb = x.bfloat16(), w.t().contiguous().bfloat16()
+        k_ms = cuda_ms(lambda: int8_cuda(x.view(m, 1, 1, k), w.view(f, 1, 1, k)),
+                       iters=20)
+        p_ms = cuda_ms(lambda: IK.mm_int8_plain(x, w), iters=3, warmup=1)
+        b_ms = cuda_ms(lambda: torch.matmul(xb, wb), iters=20)
+        log(f"time int8 probe {name} {m}x{k}x{f}: kernel {k_ms:.4f} ms "
+            f"({2 * m * k * f / k_ms / 1e9:.1f} TOP/s), exact plain {p_ms:.4f} ms, "
+            f"bf16 matmul {b_ms:.4f} ms")
+        del x, w, xb, wb
 
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        fwd(params, imgs, ratios, orig_wh)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        fwd(params, imgs, ratios, orig_wh)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    step = statistics.median(times)
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"deploy: batch {BATCH} at {H}x{W} bf16: median {step * 1e3:.2f} ms/step "
-        f"over {len(times)} steps, {BATCH / step:.3f} img/s, "
-        f"peak {peak_gib:.2f} GiB")
+    layer_ms = {}
+    for name, (a, kw, got) in zip(INT8_LAYERS, calls8["int8"]):
+        xq, wq = a[0], a[1]
+        B_, h_, w_, c_ = xq.shape
+        f_, kh_, kw_, _ = wq.shape
+        pad = kw["padding"]
+        k_ms = cuda_ms(lambda: int8_cuda(*a, **kw), iters=10)
+        p_ms = cuda_ms(lambda: IK.int8_conv_plain(*a, **kw), iters=2, warmup=1)
+        xr = torch.randn(tuple(xq.shape), generator=dgen, device=dev,
+                         dtype=torch.bfloat16)
+        q_ms = cuda_ms(lambda: Q.quantize_act(xr, a[2]), iters=10)
+        bw = torch.randn((f_, c_, kh_, kw_), generator=dgen, device=dev,
+                         dtype=torch.bfloat16) * 0.01
+        bb = torch.zeros((f_,), device=dev, dtype=torch.bfloat16)
+        if name == "fc6":
+            x2, w2d = xr.view(B_, c_), bw.view(f_, c_)
+            b_ms = cuda_ms(lambda: torch.relu(F.linear(x2, w2d, bb)), iters=10)
+        else:
+            b_ms = cuda_ms(lambda: torch.relu(C.conv2d(xr, bw, bb, padding=pad[0])),
+                           iters=10)
+        mkf = B_ * (h_ + 2 * pad[0] - kh_ + 1) * (w_ + 2 * pad[1] - kw_ + 1) \
+            * kh_ * kw_ * c_ * f_
+        layer_ms[name] = {"kernel": k_ms, "plain": p_ms, "quantize": q_ms,
+                          "bf16_cudnn": b_ms, "gmac": mkf / 1e9}
+        log(f"time int8 {name} x {tuple(xq.shape)} F {f_}: kernel {k_ms:.4f} ms "
+            f"({2 * mkf / k_ms / 1e9:.1f} TOP/s), bf16 cuDNN {b_ms:.4f} ms, "
+            f"quantize {q_ms:.4f} ms, exact plain {p_ms:.4f} ms")
+        del xr, bw, bb
+    pool_ms = 0.0
+    for name, (a, kw, got) in zip(INT8_LAYERS, calls8["int8"]):
+        if name in POOL_INPUTS:
+            pool_ms += cuda_ms(lambda: C.max_pool(got, 2, 2), iters=10)
+    trunk_layers = INT8_LAYERS[:15]
+    split = {"kernels": sum(layer_ms[n]["kernel"] for n in trunk_layers),
+             "quantize": sum(layer_ms[n]["quantize"] for n in trunk_layers),
+             "pools": pool_ms,
+             "bf16_cudnn_same_shapes": sum(layer_ms[n]["bf16_cudnn"]
+                                           for n in trunk_layers)}
+    log("int8_trunk_split_ms " + json.dumps(split))
+    int8_ms = sum(v["kernel"] for v in layer_ms.values())
+    int8_plain_ms = sum(v["plain"] for v in layer_ms.values())
+    del calls, calls8, sink
+    torch.cuda.empty_cache()
+
+    # PTQ quality, informational: on the batch (uniform uint8 pixels, another
+    # distribution than the Gaussian calibration image) and on the
+    # calibration image itself
+    for tag, x_img in (("batch", imgs.float() - mean),
+                       ("calibration image", torch.from_numpy(cal).to(dev))):
+        with torch.inference_mode():
+            fq = M.trunk(params8, x_img, cfg8)
+            fb = M.trunk(params8, x_img, dataclasses.replace(cfg8, int8_trunk=False))
+        for blob in ("conv3_3", "conv5_3"):
+            a_, b_ = fb[blob].float(), fq[blob].float()
+            rel = ((a_ - b_).abs().mean() / a_.abs().mean().clamp_min(1e-9)).item()
+            log(f"int8 vs bf16 trunk {blob} on the {tag}: mean rel err {rel:.4f} "
+                f"(informational)")
+        del fq, fb, x_img
+
+    runs = {}
+    for tag, p_, c_ in (("bf16", params, cfg), ("int8_trunk", params8, cfg8t),
+                        ("int8_trunk_heads", params8, cfg8)):
+        stages = stage_breakdown(M, I, p_, c_, imgs, mean, ratios, orig_wh)
+        f_ = I.make_e2e_forward(p_, c_, I.DetectSpec(), mean_values=MEAN)
+        step, peak_gib = deploy_step(f_, p_, imgs, ratios, orig_wh)
+        runs[tag] = (stages, step)
+        log(f"stages_ms {tag} " + json.dumps(stages))
+        log(f"deploy {tag}: batch {BATCH} at {H}x{W}: median {step * 1e3:.2f} ms/step "
+            f"over 5 steps, {BATCH / step:.3f} img/s, peak {peak_gib:.2f} GiB")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -344,7 +675,8 @@ def main():
         {"name": "nms_xywh", "route": "cuda",
          "source": "mscnn_torch/csrc/nms.cu",
          "replaces": "mscnn_tpu/ops/pallas/nms_kernel.py:98",
-         "launches": launches["nms"], "max_abs_err": nms_max_err,
+         "launches": launches["nms"], "launches_int8_path": launches8["nms"],
+         "max_abs_err": nms_max_err,
          "ms": kernels_ms["nms_propose"][0], "plain_ms": kernels_ms["nms_propose"][1],
          "postprocess_ms": kernels_ms["nms_postprocess"][0],
          "postprocess_plain_ms": kernels_ms["nms_postprocess"][1]},
@@ -353,6 +685,13 @@ def main():
          "replaces": "mscnn_tpu/ops/pallas/conv1_kernel.py:280",
          "launches": launches["conv1_pool"], "max_abs_err": conv1_max_err,
          "ms": kernels_ms["conv1"][0], "plain_ms": kernels_ms["conv1"][1]},
+        {"name": "int8_gemm", "route": "cuda",
+         "source": "mscnn_torch/csrc/int8_gemm.cu",
+         "replaces": "examples/profile_int8_mxu.py:84",
+         "launches": launches8["int8_gemm"], "max_abs_err": int8_max_err,
+         "ms": int8_ms, "plain_ms": int8_plain_ms,
+         "bf16_cudnn_ms": sum(v["bf16_cudnn"] for v in layer_ms.values()),
+         "per_step": "sum of the 17 launches of one int8 deploy step"},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

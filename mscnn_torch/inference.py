@@ -8,6 +8,9 @@ functions and the mesh-sharded forward wait for later slices.
 
 `postprocess_batch` is the batched core: every image x class NMS problem
 of a batch goes to NMS in one call (one kernel launch on the card).
+Quantized params (`ops/quant.py`) need nothing here: their int8 leaves
+ride in the params dict, the scales stay device tensors, and the int8
+layers add no host synchronisation to the forward.
 Host-side resizing (`detect`, `detect_batch`) imports `cv2` inside the
 function; the end-to-end forward takes net-size uint8 images and needs
 no `cv2`.
@@ -156,10 +159,6 @@ def make_e2e_forward(params, cfg: M.MSCNNConfig,
     return fwd
 
 
-def _device_of(params):
-    return next(iter(params.values()))["w"].device
-
-
 def _host_result(boxes, scores, valid, rois, rscores, rvalid, ratio_h,
                  ratio_w):
     props = rois.detach().cpu().double().numpy().copy()
@@ -193,7 +192,7 @@ def detect_batch(params, images_bgr: Sequence[np.ndarray],
     import cv2
 
     net_h, net_w = cfg.input_hw
-    dev = _device_of(params)
+    dev = M.params_device(params)
     xs, ratios, origs = [], [], []
     for img in images_bgr:
         oh, ow = img.shape[:2]

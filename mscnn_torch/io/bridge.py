@@ -2,15 +2,20 @@
 
 New in the port (no JAX counterpart). `from_jax_params` turns the flat
 params of `mscnn_tpu/models/mscnn.py::init_params` (as numpy arrays,
-{layer: {"w", "b"}}) into the port's; `to_jax_params` goes back.
+{layer: {"w", "b"}}, plus the int8 leaves "w_q", "w_s", "x_s" that
+`mscnn_tpu/ops/quant.py::quantize_trunk` / `quantize_roi_heads` add) into
+the port's; `to_jax_params` goes back. Every leaf keeps its dtype (int8
+stays int8); only bfloat16, which numpy lacks, comes back as float32.
 
 Layouts:
-  * conv kernels: JAX HWIO -> port OIHW (`F.conv2d`);
+  * conv kernels "w": JAX HWIO -> port OIHW (`F.conv2d`);
+  * int8 conv kernels "w_q": JAX HWIO -> port OHWI ([out, kh, kw, in],
+    K-contiguous: the operand the int8 kernel reads);
   * the `conv4_3_2x` depthwise bilinear kernel: JAX [k, k, 1, C] ->
     port [C, 1, k, k] (`F.conv_transpose2d` with groups=C) -- the same
     permutation as any conv kernel;
-  * dense weights: JAX [in, out] -> port [out, in] (`F.linear`);
-  * biases unchanged.
+  * dense weights "w" and "w_q": JAX [in, out] -> port [out, in];
+  * biases, the scales "w_s" ([out]) and "x_s" (0-d) unchanged.
 
 fc6 needs no row permutation: the port's `roi_head` flattens roi_c1's
 output in NHWC (h, w, c) order, as the JAX `roi_head` does
@@ -22,47 +27,52 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_LEAVES = ("w", "b")
+_LEAVES = ("w", "b", "w_q", "w_s", "x_s")
 
 
-def leaf_to_port(w) -> torch.Tensor:
-    """One JAX-layout leaf -> the port's layout (see the module notes)."""
+def leaf_to_port(w, key: str = "w") -> torch.Tensor:
+    """One JAX-layout leaf named `key` -> the port's layout (see the
+    module notes)."""
     t = w if torch.is_tensor(w) else torch.from_numpy(np.array(w))
     if t.dim() == 4:
-        return t.permute(3, 2, 0, 1).contiguous()
+        perm = (3, 0, 1, 2) if key == "w_q" else (3, 2, 0, 1)
+        return t.permute(*perm).contiguous()
     if t.dim() == 2:
         return t.t().contiguous()
     return t.contiguous()
 
 
-def leaf_to_jax(t: torch.Tensor) -> np.ndarray:
-    """Inverse of `leaf_to_port`, returned as a numpy array."""
+def leaf_to_jax(t: torch.Tensor, key: str = "w") -> np.ndarray:
+    """Inverse of `leaf_to_port`, returned as a numpy array of the same
+    dtype (bfloat16 as float32)."""
     t = t.detach().cpu()
     if t.dim() == 4:
-        t = t.permute(2, 3, 1, 0)
+        t = t.permute(1, 2, 3, 0) if key == "w_q" else t.permute(2, 3, 1, 0)
     elif t.dim() == 2:
         t = t.t()
-    return np.ascontiguousarray(t.float().numpy())
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return np.array(t.contiguous().numpy())   # a copy; 0-d stays 0-d
 
 
 def from_jax_params(flat: dict, cfg=None) -> dict:
-    """JAX params {layer: {"w", "b"}} -> port params (CPU), same keys.
+    """JAX params {layer: {leaf: array}} -> port params (CPU), same keys.
 
     ``cfg`` is accepted for symmetry with the model functions; the
-    conversion depends only on each leaf's rank. The int8 leaves of the
-    quantized trunk (w_q, w_s, x_s) are not ported yet and raise.
+    conversion depends only on each leaf's name and rank. A leaf the port
+    does not know raises.
     """
     out = {}
     for name, p in flat.items():
         extra = set(p) - set(_LEAVES)
         if extra:
             raise NotImplementedError(
-                f"{name}: leaves {sorted(extra)} (int8) are not ported")
-        out[name] = {k: leaf_to_port(v) for k, v in p.items()}
+                f"{name}: leaves {sorted(extra)} are not ported")
+        out[name] = {k: leaf_to_port(v, k) for k, v in p.items()}
     return out
 
 
 def to_jax_params(params: dict) -> dict:
-    """Port params -> JAX-layout numpy params {layer: {"w", "b"}}."""
-    return {name: {k: leaf_to_jax(v) for k, v in p.items()}
+    """Port params -> JAX-layout numpy params, same keys and dtypes."""
+    return {name: {k: leaf_to_jax(v, k) for k, v in p.items()}
             for name, p in params.items()}

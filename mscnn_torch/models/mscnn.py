@@ -5,18 +5,21 @@ Ports `mscnn_tpu/models/mscnn.py`: the configuration (`VGG_BLOCKS`,
 `ProposalSpec`, `MSCNNConfig`, mscnn.py:29-166) and the deploy graph
 (`init_params`, `init_roi_head_params`, the lr/decay multipliers, `trunk`,
 `heads`, `propose`, `flatten_proposals`, `upsampled_roi_feature`,
-`roi_head`, `deploy_forward`, mscnn.py:173-583).
+`roi_head`, `deploy_forward`, mscnn.py:173-583), with the int8 trunk
+and ROI head (`int8_trunk`, `int8_roi_head`: `_cb(..., int8=)`, the int8
+branches of `roi_head` and the `captures` that calibrate them; see
+`ops/quant.py`).
 
 Not ported yet (each raises NotImplementedError where the JAX function
-would take it): the int8 trunk and ROI head (`int8_trunk`,
-`int8_roi_head`), the `s2d_conv1` rewrite, ROIAlign (`roi_align`) and the
+would take it): the `s2d_conv1` rewrite, ROIAlign (`roi_align`) and the
 training-time dropout of `roi_head`.
 
 Activations are NHWC at every function; params are {layer: {"w", "b"}}
 in the port's layouts (OIHW conv kernels, [out, in] dense weights; see
 `io/bridge.py`). With `pallas_conv1=True` the trunk's first block runs the
 fused conv1 kernel (`ops/kernels/conv1_kernel.py`); NMS runs the NMS
-kernel for CUDA tensors (`ops/nms.py`).
+kernel for CUDA tensors (`ops/nms.py`). A layer with int8 leaves
+("w_q", "w_s", "x_s") runs the int8 kernel when its int8 flag is on.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from mscnn_torch.io import bridge
 from mscnn_torch.ops import boxes as box_ops
 from mscnn_torch.ops import conv as C
 from mscnn_torch.ops import nms as nms_ops
+from mscnn_torch.ops import quant as Q
 from mscnn_torch.ops import roi as roi_ops
 from mscnn_torch.ops.kernels import conv1_kernel
 from mscnn_torch.utils import fillers
@@ -149,7 +153,7 @@ def kitti_car_branches():
 # ---------------------------------------------------------------------------
 
 def _to_port(block: dict, device) -> dict:
-    return {name: {k: bridge.leaf_to_port(v).to(device) for k, v in p.items()}
+    return {name: {k: bridge.leaf_to_port(v, k).to(device) for k, v in p.items()}
             for name, p in block.items()}
 
 
@@ -215,10 +219,19 @@ def init_roi_head_params(generator: torch.Generator, cfg: MSCNNConfig,
     }, device)
 
 
+def params_device(params: dict) -> torch.device:
+    """The device the params live on."""
+    return next(iter(params.values()))["w"].device
+
+
 def cast_params(params: dict, dtype) -> dict:
-    """Every leaf cast to ``dtype`` once (the forward functions cast
-    weights to the activation dtype per call, which then costs nothing)."""
-    return {name: {k: v.to(dtype) for k, v in p.items()}
+    """Every float weight and bias cast to ``dtype`` once (the forward
+    functions cast them to the activation dtype per call, which then costs
+    nothing). The int8 leaves (w_q, w_s, x_s) and the bias of a quantized
+    layer stay as they are: the int8 epilogue adds that bias in float32,
+    as JAX does."""
+    return {name: {k: v.to(dtype) if k == "w" or (k == "b" and "w_q" not in p)
+                   else v for k, v in p.items()}
             for name, p in params.items()}
 
 
@@ -253,8 +266,12 @@ def param_decay_multipliers(params, cfg: MSCNNConfig):
 # Forward functions
 # ---------------------------------------------------------------------------
 
-def _cb(params, name, x, relu=True):
+def _cb(params, name, x, relu=True, int8=False):
     p = params[name]
+    if int8 and "w_q" in p:
+        # int8 x int8 -> int32 conv, dequant + bias + ReLU in the epilogue
+        return Q.conv2d_int8(x, p["x_s"], p["w_q"], p["w_s"], p["b"],
+                             padding="SAME", out_dtype=x.dtype, relu=relu)
     y = C.conv2d(x, p["w"], p["b"], padding="SAME")
     return torch.relu(y) if relu else y
 
@@ -262,8 +279,6 @@ def _cb(params, name, x, relu=True):
 def trunk(params, x, cfg: MSCNNConfig):
     """VGG16 trunk + the config's extra tail layers.
     x: [B, H, W, 3] (BGR, mean-subtracted). Returns the feature dict."""
-    if cfg.int8_trunk:
-        raise NotImplementedError("int8_trunk is not ported yet")
     x = x.to(cfg.cdtype())
     feats = {}
     blocks = list(VGG_BLOCKS)
@@ -276,7 +291,7 @@ def trunk(params, x, cfg: MSCNNConfig):
     elif cfg.s2d_conv1 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
         raise NotImplementedError("s2d_conv1 is not ported yet")
     for lname, _ in blocks:
-        x = _cb(params, lname, x)
+        x = _cb(params, lname, x, int8=cfg.int8_trunk)
         feats[lname] = x
         if lname in POOL_AFTER:
             x = C.max_pool(x, 2, 2)
@@ -284,7 +299,8 @@ def trunk(params, x, cfg: MSCNNConfig):
     for spec in cfg.extra_layers:
         if spec[0] == "conv":
             _, lname, source, _, _ = spec
-            feats[lname] = _cb(params, lname, feats[source])
+            feats[lname] = _cb(params, lname, feats[source],
+                               int8=cfg.int8_trunk)
         else:
             _, lname, source, mode, k, s = spec
             pool = C.max_pool if mode == "max" else C.avg_pool
@@ -340,19 +356,21 @@ def upsampled_roi_feature(params, conv4_3, cfg: MSCNNConfig):
 
 
 def roi_head(params, conv4_3, batch_idx, rois, valid, cfg: MSCNNConfig, *,
-             train: bool = False, suffix: str = "", feat=None):
+             train: bool = False, suffix: str = "", feat=None,
+             captures: Optional[dict] = None):
     """Detection sub-network over proposals.
 
     conv4_3: [B, H/8, W/8, 512]; batch_idx: [R]; rois: [R, 4] corners;
     valid: [R]. Returns (cls_pred [R, C], bbox_pred [R, 4C]) in f32.
     roi_c1's output is flattened in NHWC (h, w, c) order, as in JAX.
+    captures: optional dict that receives the max-abs of roi_c1's and
+    fc6's inputs (0-d tensors, folded across calls), for
+    `ops/quant.py::calibrate_roi_head_scales`.
     """
     if train and cfg.dropout > 0:
         raise NotImplementedError("training-time roi_head is not ported yet")
     if cfg.roi_align:
         raise NotImplementedError("roi_align is not ported yet")
-    if cfg.int8_roi_head:
-        raise NotImplementedError("int8_roi_head is not ported yet")
     if feat is None:
         feat = upsampled_roi_feature(params, conv4_3, cfg)
     scale = cfg.roi_spatial_scale
@@ -373,11 +391,28 @@ def roi_head(params, conv4_3, batch_idx, rois, valid, cfg: MSCNNConfig, *,
         ctx = roi_ops.roi_max_pool(feat, batch_idx, rois, valid,
                                    pad_ratio=cfg.roi_pad_ratio, **kw)
     x = torch.cat([org, ctx], -1).to(cfg.cdtype())
+
+    def capture(name, a):
+        if captures is not None:
+            m = a.float().abs().amax()
+            captures[name] = torch.maximum(captures[name], m) \
+                if name in captures else m
+
+    capture(f"roi_c1{suffix}", x)
     p = params[f"roi_c1{suffix}"]
-    x = torch.relu(C.conv2d(x, p["w"], p["b"], padding="VALID"))
+    if cfg.int8_roi_head and "w_q" in p:
+        x = Q.conv2d_int8(x, p["x_s"], p["w_q"], p["w_s"], p["b"],
+                          padding="VALID", out_dtype=x.dtype, relu=True)
+    else:
+        x = torch.relu(C.conv2d(x, p["w"], p["b"], padding="VALID"))
     x = x.reshape(x.shape[0], -1)
+    capture(f"fc6{suffix}", x)
     p = params[f"fc6{suffix}"]
-    x = torch.relu(C.dense(x, p["w"], p["b"]))
+    if cfg.int8_roi_head and "w_q" in p:
+        x = Q.dense_int8(x, p["x_s"], p["w_q"], p["w_s"], p["b"],
+                         out_dtype=x.dtype, relu=True)
+    else:
+        x = torch.relu(C.dense(x, p["w"], p["b"]))
     p = params[f"cls_pred{suffix}"]
     cls = C.dense(x, p["w"], p["b"])
     p = params[f"bbox_pred{suffix}"]
@@ -393,19 +428,21 @@ def flatten_proposals(prop):
             prop["scores"].reshape(B * R), prop["valid"].reshape(B * R))
 
 
-def deploy_forward(params, images, cfg: MSCNNConfig):
+def deploy_forward(params, images, cfg: MSCNNConfig, *, captures=None):
     """Full inference graph: images -> proposals + per-roi cls/bbox preds.
 
     images: [B, H, W, 3] BGR mean-subtracted. trunk -> heads -> BoxOutput
     -> (2x deconv) -> ROI pool (org + ctx) -> FC head. The final softmax,
-    per-class decode and NMS live in `mscnn_torch.inference`.
+    per-class decode and NMS live in `mscnn_torch.inference`. captures:
+    optional dict filled with the ROI head's calibration maxima
+    (`ops/quant.py::calibrate_roi_head_scales`).
     """
     feats = trunk(params, images, cfg)
     outs = heads(params, feats, cfg)
     prop = propose(outs, cfg)
     batch_idx, boxes, scores, valid = flatten_proposals(prop)
     cls_pred, bbox_pred = roi_head(params, feats["conv4_3"], batch_idx,
-                                   boxes, valid, cfg)
+                                   boxes, valid, cfg, captures=captures)
     return {
         "proposals": prop,
         "batch_idx": batch_idx,

@@ -31,24 +31,25 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-def conv2d(x, w, b=None, *, stride: int = 1, padding="SAME"):
-    """2-D convolution, NHWC x OIHW -> NHWC.
-
-    padding: "SAME" (odd kernels), "VALID", an int (symmetric, the Caffe
-    `pad:`), or [(ph, ph), (pw, pw)] symmetric pairs.
-    """
-    kh, kw = w.shape[2], w.shape[3]
+def conv_padding(padding, kh: int, kw: int):
+    """(ph, pw) of a `kh` x `kw` kernel from "SAME" (odd kernels: k // 2),
+    "VALID", an int (symmetric, the Caffe `pad:`), or [(ph, ph), (pw, pw)]
+    symmetric pairs."""
     if padding == "SAME":
-        pad = (kh // 2, kw // 2)
-    elif padding == "VALID":
-        pad = (0, 0)
-    elif isinstance(padding, int):
-        pad = (padding, padding)
-    else:
-        (plh, phh), (plw, phw) = padding
-        if plh != phh or plw != phw:
-            raise ValueError(f"asymmetric conv padding {padding} not supported")
-        pad = (plh, plw)
+        return kh // 2, kw // 2
+    if padding == "VALID":
+        return 0, 0
+    if isinstance(padding, int):
+        return padding, padding
+    (plh, phh), (plw, phw) = padding
+    if plh != phh or plw != phw:
+        raise ValueError(f"asymmetric conv padding {padding} not supported")
+    return plh, plw
+
+
+def conv2d(x, w, b=None, *, stride: int = 1, padding="SAME"):
+    """2-D convolution, NHWC x OIHW -> NHWC; padding as `conv_padding`."""
+    pad = conv_padding(padding, w.shape[2], w.shape[3])
     y = F.conv2d(_nchw(x), w.to(x.dtype),
                  None if b is None else b.to(x.dtype), stride=stride,
                  padding=pad)

@@ -14,6 +14,7 @@ import torch
 
 from mscnn_tpu.models import mscnn as JM
 from mscnn_tpu.models import zoo as JZ
+from mscnn_tpu.ops import quant as JQ
 from mscnn_torch.io import bridge
 from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
@@ -38,6 +39,54 @@ def test_param_roundtrip_exact(jax_params):
         assert back[name].keys() == p.keys()
         for k, v in p.items():
             np.testing.assert_array_equal(back[name][k], v, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def int8_jax_params(jax_params):
+    """Every int8 leaf JAX makes (trunk convs, roi_c1 conv, fc6 dense),
+    quantized with made-up scales (the bridge does not read them)."""
+    scales = {n: 0.01 * (i + 1) for i, n in enumerate(
+        JQ.TRUNK_INT8 + JQ.CONV1_INT8 + ("roi_c1", "fc6"))}
+    q = JQ.quantize_roi_heads(JQ.quantize_trunk(jax_params, scales), scales)
+    return jax.tree.map(np.asarray, q)
+
+
+def test_int8_param_roundtrip_keeps_dtypes(int8_jax_params):
+    port = bridge.from_jax_params(int8_jax_params, _small(TZ))
+    assert port["conv3_1"]["w_q"].dtype == torch.int8
+    assert port["fc6"]["w_q"].dtype == torch.int8
+    assert port["conv3_1"]["x_s"].dtype == torch.float32
+    back = bridge.to_jax_params(port)
+    assert back.keys() == int8_jax_params.keys()
+    for name, p in int8_jax_params.items():
+        assert back[name].keys() == p.keys(), name
+        for k, v in p.items():
+            assert back[name][k].dtype == v.dtype, (name, k)
+            assert back[name][k].shape == v.shape, (name, k)
+            np.testing.assert_array_equal(back[name][k], v, err_msg=f"{name}.{k}")
+    # a bf16 leaf (numpy has no bfloat16) comes back as float32
+    bf = bridge.leaf_to_jax(port["conv1_1"]["w"].bfloat16())
+    assert bf.dtype == np.float32 and bf.shape == (3, 3, 3, 64)
+
+
+def test_int8_weight_layout(int8_jax_params):
+    """w_q: conv HWIO -> OHWI ([out, kh, kw, in], K-contiguous, what the
+    int8 kernel reads); dense [in, out] -> [out, in]; the float w stays
+    OIHW; scales unchanged."""
+    port = bridge.from_jax_params(int8_jax_params, _small(TZ))
+    j = int8_jax_params["conv2_1"]["w_q"]
+    wq = port["conv2_1"]["w_q"]
+    assert tuple(wq.shape) == (128, 3, 3, 64) and wq.is_contiguous()
+    assert tuple(port["conv2_1"]["w"].shape) == (128, 64, 3, 3)
+    np.testing.assert_array_equal(wq[7, 2, 0, 5].numpy(), j[2, 0, 5, 7])
+    assert tuple(port["roi_c1"]["w_q"].shape) == (512, 3, 3, 1024)
+    assert tuple(port["fc6"]["w_q"].shape) == (64, 5 * 5 * 512)
+    np.testing.assert_array_equal(port["fc6"]["w_q"].numpy(),
+                                  int8_jax_params["fc6"]["w_q"].T)
+    assert port["conv2_1"]["x_s"].dim() == 0
+    assert tuple(port["conv2_1"]["w_s"].shape) == (128,)
+    with pytest.raises(NotImplementedError):
+        bridge.from_jax_params({"conv1_1": {"w": j, "gamma": j}})
 
 
 def test_port_layouts(jax_params):

@@ -220,12 +220,13 @@ def test_writers_match_jax(tmp_path):
 
 
 def test_unported_branches_raise(setup):
+    # the int8 branches are ported (tests/test_torch_quant.py)
     cfg = setup["cfg_t"]
     x = t(setup["x"])
-    for field in ("int8_trunk", "s2d_conv1"):
+    for field in ("s2d_conv1",):
         with pytest.raises(NotImplementedError):
             TM.trunk(setup["pt"], x, dataclasses.replace(cfg, **{field: True}))
-    for field in ("roi_align", "int8_roi_head"):
+    for field in ("roi_align",):
         with pytest.raises(NotImplementedError):
             TM.roi_head(setup["pt"], None, None, None, None,
                         dataclasses.replace(cfg, **{field: True}), feat=x)

@@ -8,7 +8,9 @@ a machine that has only PyTorch and the CUDA toolkit:
 
 NMS must agree exactly (valid flags, boxes, scores). The conv1 kernel is
 held to atol 0.02 * max|ref|: both sides are bf16 with f32 accumulation,
-summed in different orders.
+summed in different orders. The int8 kernel must agree exactly in every
+epilogue: its int32 sums are exact, and its dequantization rounds where
+the plain version rounds.
 """
 
 import numpy as np
@@ -16,7 +18,9 @@ import pytest
 import torch
 
 from mscnn_torch.ops import nms as TN
+from mscnn_torch.ops import quant as TQ
 from mscnn_torch.ops.kernels import conv1_kernel as CK
+from mscnn_torch.ops.kernels import int8_kernel as IK
 from mscnn_torch.ops.kernels import nms_kernel as NK
 
 
@@ -105,3 +109,99 @@ def test_conv1_kernel_matches_plain(gen, cuda, b, h, w, ones):
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     err = (got.float() - want).abs().max().item()
     assert err <= 0.02 * want.abs().max().item(), err
+
+
+INT8_OUT = {"int32": (torch.int32, False), "float32": (torch.float32, False),
+            "float32_relu": (torch.float32, True),
+            "bfloat16": (torch.bfloat16, False),
+            "bfloat16_relu": (torch.bfloat16, True)}
+
+
+def int8_tensors(gen, cuda, xshape, wshape, misalign=False):
+    x = gen.randint(-127, 128, xshape).astype(np.int8)
+    w = gen.randint(-127, 128, wshape).astype(np.int8)
+    f = wshape[0]
+    xs = torch.tensor(0.0123, device=cuda)
+    ws = torch.from_numpy(gen.uniform(1e-4, 1e-2, f).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(gen.randn(f).astype(np.float32)).to(cuda)
+    xt = torch.from_numpy(x).to(cuda)
+    if misalign:   # contiguous but not 16-byte aligned: the byte-wise gather
+        buf = torch.empty(xt.numel() + 1, dtype=torch.int8, device=cuda)
+        xt = buf[1:].view(xshape)
+        xt.copy_(torch.from_numpy(x).to(cuda))
+    return xt, torch.from_numpy(w).to(cuda), xs, ws, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", sorted(INT8_OUT))
+@pytest.mark.parametrize("b,h,w,c,f,k,pad,misalign", [
+    (2, 9, 13, 16, 64, 3, 1, False),      # SAME at an odd size, 64-wide tile
+    (1, 9, 13, 3, 64, 3, 1, False),       # C = 3 (conv1_1): byte-wise gather
+    (3, 7, 7, 64, 136, 3, 0, False),      # VALID (roi_c1's form), ragged F tile
+    (1, 33, 70, 128, 256, 3, 1, False),   # many M and N tiles, K = 1152
+    (1, 10, 11, 32, 72, 3, 1, True),      # misaligned activation
+], ids=["same_odd", "c3", "valid", "tiles", "misaligned"])
+def test_int8_conv_kernel_matches_plain(gen, cuda, out, b, h, w, c, f, k, pad,
+                                        misalign):
+    dtype, relu = INT8_OUT[out]
+    args = int8_tensors(gen, cuda, (b, h, w, c), (f, k, k, c), misalign)
+    kw = dict(padding=(pad, pad), out_dtype=dtype, relu=relu)
+    want = IK.int8_conv_plain(*args, **kw)
+    before = IK.launches
+    got = IK.int8_conv(*args, **kw)
+    torch.cuda.synchronize()
+    assert IK.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,f", [(1024, 12800, 256), (300, 27, 64),
+                                   (257, 4096, 8)],
+                         ids=["fc6_deep", "k_tail", "narrow"])
+def test_int8_dense_kernel_matches_plain(gen, cuda, m, k, f):
+    x, w, xs, ws, b = int8_tensors(gen, cuda, (m, k), (f, k))
+    got = IK.mm_int8(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, IK.mm_int8_plain(x, w))
+    xf = torch.from_numpy(gen.randn(m, k).astype(np.float32) * 3).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = TQ.dense_int8(xf.to(dtype), xs, w, ws, b, out_dtype=dtype, relu=True)
+        want = TQ.dense_int8(xf.to(dtype).cpu(), xs.cpu(), w.cpu(), ws.cpu(),
+                             b.cpu(), out_dtype=dtype, relu=True)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_int8_conv2d_card_equals_cpu(gen, cuda):
+    """quantize (true division on the card) + kernel + dequant == the CPU."""
+    x = torch.from_numpy(gen.randn(2, 12, 19, 64).astype(np.float32) * 5)
+    w = torch.from_numpy(gen.randn(128, 64, 3, 3).astype(np.float32) * 0.05)
+    b = torch.from_numpy(gen.randn(128).astype(np.float32))
+    w_q, w_s = TQ.quantize_weight(w)
+    w_qc, w_sc = TQ.quantize_weight(w.to(cuda))
+    assert torch.equal(w_qc.cpu(), w_q) and torch.equal(w_sc.cpu(), w_s)
+    xs = torch.tensor(float(x.abs().max()) / 127 * 0.9)
+    for dtype in (torch.float32, torch.bfloat16):
+        want = TQ.conv2d_int8(x.to(dtype), xs, w_q, w_s, b, out_dtype=dtype)
+        got = TQ.conv2d_int8(x.to(dtype).to(cuda), xs.to(cuda), w_q.to(cuda),
+                             w_s.to(cuda), b.to(cuda), out_dtype=dtype)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_rejects_bad_input(gen, cuda):
+    x, w, xs, ws, b = int8_tensors(gen, cuda, (1, 5, 5, 16), (16, 3, 3, 16))
+    with pytest.raises(ValueError):
+        IK.int8_conv_cuda(x, w[:12].contiguous(), padding=(1, 1))   # F % 8
+    with pytest.raises(TypeError):
+        IK.int8_conv_cuda(x.float(), w, padding=(1, 1))
+    with pytest.raises(ValueError):
+        IK.int8_conv_cuda(x, w.cpu(), padding=(1, 1))
+    with pytest.raises(ValueError):
+        IK.int8_conv_cuda(x, w, padding=(1, 1), relu=True)           # int32 + ReLU
+    with pytest.raises(ValueError):
+        IK.int8_conv_cuda(x.transpose(1, 2), w, padding=(1, 1))
+    with pytest.raises(ValueError):
+        IK.int8_conv_cuda(x, w, xs, ws[:8], b, padding=(1, 1),
+                          out_dtype=torch.float32)
