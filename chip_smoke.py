@@ -10,6 +10,13 @@ Phases (any failure exits non-zero, before the result line):
                 path's two shapes and in each IoU mode: exactly equal;
   3. conv1   -- the fused conv1 kernel against its plain version at
                 [4, 768, 2560, 3] and at an odd size: atol 0.02 * max|ref|;
+  3b. conv1_v5 -- K3, the conv1 kernel with a selectable MMA schedule, in
+                each mode (serial, mc, flat, bf16) against its plain version
+                at the probe's [1, 768, 2560, 3] and at [1, 19, 37, 3], and
+                in the default mode at [4, 768, 2560, 3]: atol 0.02 *
+                max|ref| (and the share of bit-equal outputs in mode bf16);
+                serial / mc / flat within the same bound of K2's kernel on
+                the same input; bf16 measurably different from serial;
   4. int8    -- the int8 GEMM kernel (raw int32) against its exact plain
                 version at the TPU probe's three matmul shapes and at every
                 int8 conv / dense shape of the int8 deploy path: equal;
@@ -32,12 +39,28 @@ Phases (any failure exits non-zero, before the result line):
                 trunk features;
   7. timing  -- CUDA-event medians of each kernel and its plain version at
                 the paths' shapes, each int8 layer beside cuDNN's bf16 conv
-                at its shape, the int8 trunk split, per-stage breakdowns
-                and deploy img/s of the bf16 control, the int8 trunk and the
-                int8 trunk + heads.
+                at its shape, `torch._int_mm` beside K4 at the probe shapes
+                and fc6 (a yardstick only), the int8 trunk split, per-stage
+                breakdowns and deploy img/s of the bf16 control, the int8
+                trunk and the int8 trunk + heads;
+  8. conv1 probes -- K3 in each mode and tile beside K2, the plain block
+                and cuDNN's unfused conv1_1 / conv1_2 / pool1 at
+                [1, 768, 2560, 3] and [4, 768, 2560, 3]; then K3's own path,
+                `mscnn_torch.examples.profile_conv1_v5.main()`, with every
+                launch count read from that run alone, and its two sibling
+                probes (profile_conv1, profile_conv1_pallas);
+  9. trace   -- one `torch.profiler` window (utils/profiling.py::trace)
+                over two steps of the bf16 deploy graph: the device-busy
+                share of the window and the ten kernels with the most
+                device time, or "not measured" where the trace holds no
+                device time.
 
 The lines before the last give the card's name and power limit
-(nvidia-smi) and one JSON object listing every kernel; the last line is
+(nvidia-smi) and one JSON object listing every kernel, each with its
+launches on its path, time, plain time, bound (the larger of the bytes
+it must move over 3.35 TB/s and its operations over the peak of their
+type) and library-call time (null where no one PyTorch call computes the
+same function); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, the script exits non-zero and prints no result.
 """
@@ -46,6 +69,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -62,6 +86,29 @@ INT8_LAYERS = ("conv1_1", "conv1_2", "conv2_1", "conv2_2", "conv3_1", "conv3_2",
                "conv3_3", "conv4_1", "conv4_2", "conv4_3", "conv5_1", "conv5_2",
                "conv5_3", "conv6_1", "loss1_conv1", "roi_c1", "fc6")
 POOL_INPUTS = ("conv1_2", "conv2_2", "conv3_3", "conv4_3", "conv5_3", "conv6_1")
+
+
+# bound_ms: the larger of the bytes a call must move over the H100's memory
+# rate and its operations over the peak of their type (NVIDIA's data sheet,
+# SXM part at 700 W: bf16 dense tensor cores, int8 tensor cores, f32 off the
+# tensor cores)
+HBM_BPS = 3.35e12
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+CONV1_FLOP_PER_PIXEL = 2 * 27 * 64 + 2 * 576 * 64   # conv1_1 + conv1_2: 77,184
+
+
+def bound(nbytes, ops, peak):
+    """(bound_ms, bound_by) of a call moving `nbytes` and doing `ops`."""
+    ms_b, ms_o = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    return (ms_b, "bytes") if ms_b >= ms_o else (ms_o, "operations")
+
+
+def conv1_block_bound(x):
+    """Bound of the fused conv1 block (K2, K3) on x [B, H, W, 3] bf16: the
+    input and the pooled bf16 output against 77,184 FLOP a pixel."""
+    B, H, W, _ = x.shape
+    moved = B * H * W * 3 * 2 + B * ((H + 1) // 2) * ((W + 1) // 2) * 64 * 2
+    return bound(moved, CONV1_FLOP_PER_PIXEL * B * H * W, PEAK["bf16"])
 
 
 def fail(msg):
@@ -237,7 +284,12 @@ def main():
         from mscnn_torch.ops import nms as nms_ops
         from mscnn_torch.ops import quant as Q
         from mscnn_torch.ops.kernels import build
+        from mscnn_torch.examples import profile_conv1 as P1
+        from mscnn_torch.examples import profile_conv1_pallas as PP
+        from mscnn_torch.examples import profile_conv1_v5 as P5
         from mscnn_torch.ops.kernels import conv1_kernel as CK
+        from mscnn_torch.ops.kernels import conv1_v5_kernel as K3
+        from mscnn_torch.utils import profiling as PROF
         from mscnn_torch.ops.kernels import int8_kernel as IK
         from mscnn_torch.ops.kernels import nms_kernel as NK
     except ImportError as e:
@@ -259,18 +311,20 @@ def main():
         + ", ".join(f"{k} {v['seconds']:.1f} s" + (" (cached)" if v["cached"] else "")
                     for k, v in sorted(info.items())))
     for k, v in sorted(info.items()):
-        for line in v["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {k}: {line.strip()}")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", v["log"])]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", v["log"])]
+        if regs:
+            log(f"  ptxas {k}: {len(regs)} kernel(s), registers {min(regs)}-"
+                f"{max(regs)}, spill stores up to {max(spills, default=0)} bytes")
 
     gen = torch.Generator().manual_seed(SEED)
 
     def counts():
         return {"nms": NK.launches, "conv1_pool": CK.launches,
-                "int8_gemm": IK.launches}
+                "int8_gemm": IK.launches, "conv1_v5": K3.launches}
 
     def zero_counts():
-        NK.launches = CK.launches = IK.launches = 0
+        NK.launches = CK.launches = IK.launches = K3.launches = 0
 
     # -- 2. NMS kernel vs plain ----------------------------------------------
     nms_cases = [(4, 2000, 256, 0.65, "iou"), (16, 256, 100, 0.5, "iou")] + [
@@ -317,8 +371,53 @@ def main():
     imgs = torch.randint(0, 256, (BATCH, H, W, 3), generator=gen,
                          dtype=torch.uint8).to(dev)
     conv1_check((imgs.float() - mean).bfloat16(), "path shape")
-    conv1_check((torch.randn((1, 19, 37, 3), generator=gen) * 50)
-                .to(dev).bfloat16(), "odd size")
+    odd_x = (torch.randn((1, 19, 37, 3), generator=gen) * 50).to(dev).bfloat16()
+    conv1_check(odd_x, "odd size")
+
+    # -- 3b. K3 (conv1_v5) vs plain, every mode ---------------------------------
+    k3_max_err = 0.0
+
+    def k3_check(x, ws, mode, tag):
+        nonlocal k3_max_err
+        got = K3.conv1_v5(x, *ws, mode=mode).float()
+        want = K3.conv1_v5_plain(x, *ws, mode=mode).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 0.02 * want.abs().max().item()
+        eq = (got == want).float().mean().item()
+        log(f"conv1_v5 {mode} {tag}: {tuple(x.shape)} max_abs_err {err:.4g} "
+            f"(atol {tol:.4g}), bit-equal share {eq:.6f}")
+        if not (got.shape == want.shape and err <= tol):
+            fail(f"conv1_v5 kernel != plain in mode {mode} at {tag} "
+                 f"{tuple(x.shape)}: {err} > {tol}")
+        k3_max_err = max(k3_max_err, err)
+        return got, tol
+
+    probe_in = P5.make_inputs(dev)   # the probe's x [1, 768, 2560, 3] and weights
+    zero_counts()
+    for tag, x, ws in (("probe shape", probe_in[0], probe_in[1:]),
+                       ("odd size", odd_x, (w1, b1, w2, b2))):
+        k2 = CK.conv1_pool_fused(x, *ws).float()
+        outs = {}
+        for mode in P5.MODES:
+            outs[mode], tol = k3_check(x, ws, mode, tag)
+            if mode != "bf16":   # K2's function
+                e2 = (outs[mode] - k2).abs().max().item()
+                log(f"conv1_v5 {mode} {tag}: vs K2's kernel max_abs_err {e2:.4g}")
+                if e2 > tol:
+                    fail(f"conv1_v5 {mode} != K2's kernel at {tag}: {e2} > {tol}")
+        differ = (outs["bf16"] != outs["serial"]).float().mean().item()
+        log(f"conv1_v5 bf16 vs serial {tag}: {differ:.4f} of the outputs differ")
+        if differ == 0:
+            fail(f"conv1_v5 mode bf16 gave mode serial's output at {tag}")
+        del outs, k2
+    k3_check((imgs.float() - mean).bfloat16(), (w1, b1, w2, b2), "mc", "deploy batch")
+    k3_phase = K3.launches
+    if k3_phase != 2 * len(P5.MODES) + 1:
+        fail(f"the conv1_v5 phase launched K3 {k3_phase} times, expected "
+             f"{2 * len(P5.MODES) + 1}")
+    log(f"conv1_v5: {k3_phase} launches in the phase, all within atol")
+    torch.cuda.empty_cache()
 
     # -- 4. int8 kernel vs plain, raw int32 ------------------------------------
     int8_max_err = 0.0
@@ -433,7 +532,7 @@ def main():
 
     # a small input against the CPU (plain kernels), float32
     tiny = zoo.tiny_test_config()
-    tp = M.init_params(torch.Generator().manual_seed(SEED), tiny)
+    tp = M.init_params(torch.Generator().manual_seed(SEED), tiny, device="cpu")
     timg = torch.randint(0, 256, (2, *tiny.input_hw, 3),
                          generator=torch.Generator().manual_seed(1),
                          dtype=torch.uint8)
@@ -575,18 +674,41 @@ def main():
         kernels_ms[f"nms_{tag}"] = (k_ms, p_ms)
         log(f"time nms {tag} P={a[0].shape[0]} N={a[0].shape[1]} "
             f"max_out={kw['max_out']}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    # K1's bound: the bytes of its inputs and outputs, against the steps this
+    # run's data needs (one per kept box: an argmax and an IoU row over N
+    # candidates, ~16 f32 operations a candidate, on the CUDA cores)
+    pout = max(calls["nms"], key=lambda c: c[0][0].shape[1])[2]
+    nms_bytes = sum(t.numel() * t.element_size() for t in (*pa, *pout))
+    nms_ops = 16 * int(pout[2].sum()) * pa[0].shape[1]
+    nms_bound = bound(nms_bytes, nms_ops, PEAK["f32"])
     ca = calls["conv1"][0][0]
     k_ms = cuda_ms(lambda: conv1_cuda(*ca), iters=10)
     p_ms = cuda_ms(lambda: CK.conv1_pool_plain(*ca), iters=10)
     kernels_ms["conv1"] = (k_ms, p_ms)
+    conv1_bound = conv1_block_bound(ca[0])
     log(f"time conv1 {tuple(ca[0].shape)}: kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms")
+        f"plain {p_ms:.4f} ms, bound {conv1_bound[0]:.4f} ms ({conv1_bound[1]})")
+
+    int_mm = {}   # torch._int_mm beside K4 on the same int8 inputs (a yardstick)
+
+    def time_int_mm(name, x, w):
+        """K4 (raw int32) and torch._int_mm on x [M, K] x w [F, K] int8."""
+        m, k = x.shape
+        f = w.shape[0]
+        wt = w.t().contiguous()
+        k_ms = cuda_ms(lambda: int8_cuda(x.view(m, 1, 1, k), w.view(f, 1, 1, k)),
+                       iters=20)
+        l_ms = cuda_ms(lambda: torch._int_mm(x, wt), iters=20)
+        same = torch.equal(torch._int_mm(x, wt), IK.mm_int8(x, w))
+        int_mm[name] = {"shape": [m, k, f], "kernel_ms": k_ms, "int_mm_ms": l_ms}
+        log(f"time int8 {name} {m}x{k}x{f} -> int32: kernel {k_ms:.4f} ms, "
+            f"torch._int_mm {l_ms:.4f} ms ({'equal' if same else 'NOT equal'})")
+        return k_ms
 
     for name, m, k, f in K4_PROBES:
         x, w = probe_args.pop(name)
         xb, wb = x.bfloat16(), w.t().contiguous().bfloat16()
-        k_ms = cuda_ms(lambda: int8_cuda(x.view(m, 1, 1, k), w.view(f, 1, 1, k)),
-                       iters=20)
+        k_ms = time_int_mm(f"probe {name}", x, w)
         p_ms = cuda_ms(lambda: IK.mm_int8_plain(x, w), iters=3, warmup=1)
         b_ms = cuda_ms(lambda: torch.matmul(xb, wb), iters=20)
         log(f"time int8 probe {name} {m}x{k}x{f}: kernel {k_ms:.4f} ms "
@@ -595,11 +717,14 @@ def main():
         del x, w, xb, wb
 
     layer_ms = {}
+    k4_bound = {"bytes": 0.0, "operations": 0.0}   # ms, summed over the step
     for name, (a, kw, got) in zip(INT8_LAYERS, calls8["int8"]):
         xq, wq = a[0], a[1]
         B_, h_, w_, c_ = xq.shape
         f_, kh_, kw_, _ = wq.shape
         pad = kw["padding"]
+        if name == "fc6":
+            time_int_mm("fc6", xq.reshape(B_, c_), wq.reshape(f_, c_))
         k_ms = cuda_ms(lambda: int8_cuda(*a, **kw), iters=10)
         p_ms = cuda_ms(lambda: IK.int8_conv_plain(*a, **kw), iters=2, warmup=1)
         xr = torch.randn(tuple(xq.shape), generator=dgen, device=dev,
@@ -616,6 +741,9 @@ def main():
                            iters=10)
         mkf = B_ * (h_ + 2 * pad[0] - kh_ + 1) * (w_ + 2 * pad[1] - kw_ + 1) \
             * kh_ * kw_ * c_ * f_
+        moved = sum(t.numel() * t.element_size() for t in (*a, got) if torch.is_tensor(t))
+        ms_b, ms_o = moved / HBM_BPS * 1e3, 2 * mkf / PEAK["int8"] * 1e3
+        k4_bound["bytes" if ms_b >= ms_o else "operations"] += max(ms_b, ms_o)
         layer_ms[name] = {"kernel": k_ms, "plain": p_ms, "quantize": q_ms,
                           "bf16_cudnn": b_ms, "gmac": mkf / 1e9}
         log(f"time int8 {name} x {tuple(xq.shape)} F {f_}: kernel {k_ms:.4f} ms "
@@ -664,6 +792,106 @@ def main():
         log(f"deploy {tag}: batch {BATCH} at {H}x{W}: median {step * 1e3:.2f} ms/step "
             f"over 5 steps, {BATCH / step:.3f} img/s, peak {peak_gib:.2f} GiB")
 
+    # -- 8. conv1 probes: K3 beside K2, the plain block and cuDNN unfused -------
+    default_mode = "mc"
+    th0, tq0 = K3.DEFAULT_TILE
+    k3 = {}
+    for tag, x, ws in (("1x768x2560", probe_in[0].bfloat16(), probe_in[1:]),
+                       ("4x768x2560", (imgs.float() - mean).bfloat16(),
+                        (w1, b1, w2, b2))):
+        r = k3[tag] = {"kernel": {}, "plain": {}, "bound": conv1_block_bound(x)}
+        r["plain_block"] = cuda_ms(lambda: CK.conv1_pool_plain(x, *ws), iters=5)
+        k2_before = cuda_ms(lambda: CK.conv1_pool_cuda(x, *ws), iters=10)
+        for mode in (P5.MODES if tag.startswith("1x") else (default_mode,)):
+            r["plain"][mode] = cuda_ms(lambda: K3.conv1_v5_plain(x, *ws, mode=mode),
+                                       iters=3, warmup=1)
+        for mode in P5.MODES:
+            for th, tq in K3.TILES:
+                r["kernel"][f"{mode}_{th}x{tq}"] = cuda_ms(
+                    lambda: K3.conv1_v5_cuda(x, *ws, tile_h=th, tile_q=tq, mode=mode),
+                    iters=10)
+        k2_after = cuda_ms(lambda: CK.conv1_pool_cuda(x, *ws), iters=10)
+        r["k2"] = (k2_before + k2_after) / 2
+        wb1, wb2 = ws[0].bfloat16(), ws[2].bfloat16()
+        y1 = torch.relu(C.conv2d(x, wb1, ws[1], padding=1))
+        y2 = torch.relu(C.conv2d(y1, wb2, ws[3], padding=1))
+        r["cudnn"] = {
+            "conv1_1": cuda_ms(lambda: torch.relu(C.conv2d(x, wb1, ws[1], padding=1)),
+                               iters=10),
+            "conv1_2": cuda_ms(lambda: torch.relu(C.conv2d(y1, wb2, ws[3], padding=1)),
+                               iters=10),
+            "pool1": cuda_ms(lambda: C.max_pool(y2, 2, 2), iters=10)}
+        del y1, y2
+        best = min(r["kernel"], key=r["kernel"].get)
+        log(f"time conv1 probes {tag}: K2 {k2_before:.4f} / {k2_after:.4f} ms "
+            f"(before / after K3), plain block {r['plain_block']:.4f} ms, cuDNN "
+            f"unfused " + ", ".join(f"{k} {v:.4f}" for k, v in r["cudnn"].items())
+            + f" ms; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); K3 best {best} "
+            f"{r['kernel'][best]:.4f} ms")
+        for mode in P5.MODES:
+            log(f"time conv1_v5 {tag} {mode}: " + ", ".join(
+                f"{th}x{tq} {r['kernel'][f'{mode}_{th}x{tq}']:.4f}" for th, tq in K3.TILES)
+                + " ms" + (f"; plain {r['plain'][mode]:.4f} ms" if mode in r["plain"]
+                           else ""))
+    torch.cuda.empty_cache()
+
+    # K3's own path: the conv1 probe entry point, counts read from it alone
+    zero_counts()
+    probe = P5.main([])
+    probe_launches = counts()
+    log(f"profile_conv1_v5 path: launches {probe_launches}")
+    if probe_launches["conv1_v5"] < len(P5.MODES) or probe_launches["conv1_pool"] < 1:
+        fail(f"the conv1 probe did not launch K3 in every mode and K2: "
+             f"{probe_launches}")
+    for mode in P5.MODES:
+        if not probe[f"v5_{mode}_relerr"] < 0.05 or \
+                not math.isfinite(probe.get(f"v5_{mode}_ms", float("nan"))):
+            fail(f"the conv1 probe rejected or did not time mode {mode}: {probe}")
+    P1.main()
+    PP.main()
+
+    # -- 9. one profiler window over two bf16 deploy steps -----------------------
+    fwd(params, imgs, ratios, orig_wh)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tdir:
+        with PROF.trace(tdir) as prof:
+            for _ in range(2):
+                with PROF.annotate("deploy_step"):
+                    fwd(params, imgs, ratios, orig_wh)
+            torch.cuda.synchronize()
+        with open(os.path.join(tdir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    dev_total = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+                    for e in prof.key_averages())
+    busy = [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    steps = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == "deploy_step"]
+    busy_share = None
+    if busy and steps and dev_total > 0:
+        lo = min(s_ for s_, _ in steps)
+        hi = max(max(e_ for _, e_ in steps), max(e_ for _, e_ in busy))
+        union, end = 0.0, lo
+        for s_, e_ in sorted(busy):
+            s_, e_ = max(s_, end), min(e_, hi)
+            if e_ > s_:
+                union, end = union + e_ - s_, e_
+        busy_share = union / (hi - lo)
+        by_name = {}
+        for e in events:
+            if e.get("cat") == "kernel" and "dur" in e:
+                n_, t_ = by_name.get(e["name"], (0, 0.0))
+                by_name[e["name"]] = (n_ + 1, t_ + e["dur"])
+        log(f"trace: two bf16 deploy steps, window {(hi - lo) / 1e3:.3f} ms, device "
+            f"busy {union / 1e3:.3f} ms = share {busy_share:.4f}, idle share "
+            f"{1 - busy_share:.4f}; {len(busy)} device events")
+        for n_, (cnt, t_) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+            log(f"trace kernel {t_ / 1e3:9.3f} ms {cnt:5d}x  {n_[:110]}")
+    else:
+        log("trace: device busy share not measured: the profiler window holds no "
+            f"device time ({len(busy)} device events, key_averages device total "
+            f"{dev_total}); the step times above are host-clock times")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -678,20 +906,45 @@ def main():
          "launches": launches["nms"], "launches_int8_path": launches8["nms"],
          "max_abs_err": nms_max_err,
          "ms": kernels_ms["nms_propose"][0], "plain_ms": kernels_ms["nms_propose"][1],
+         "bound_ms": nms_bound[0], "bound_by": nms_bound[1], "library_ms": None,
          "postprocess_ms": kernels_ms["nms_postprocess"][0],
          "postprocess_plain_ms": kernels_ms["nms_postprocess"][1]},
         {"name": "conv1_pool_fused", "route": "cuda",
          "source": "mscnn_torch/csrc/conv1_pool.cu",
          "replaces": "mscnn_tpu/ops/pallas/conv1_kernel.py:280",
          "launches": launches["conv1_pool"], "max_abs_err": conv1_max_err,
-         "ms": kernels_ms["conv1"][0], "plain_ms": kernels_ms["conv1"][1]},
+         "ms": kernels_ms["conv1"][0], "plain_ms": kernels_ms["conv1"][1],
+         "bound_ms": conv1_bound[0], "bound_by": conv1_bound[1], "library_ms": None},
         {"name": "int8_gemm", "route": "cuda",
          "source": "mscnn_torch/csrc/int8_gemm.cu",
          "replaces": "examples/profile_int8_mxu.py:84",
          "launches": launches8["int8_gemm"], "max_abs_err": int8_max_err,
          "ms": int8_ms, "plain_ms": int8_plain_ms,
+         "bound_ms": sum(k4_bound.values()), "bound_by": max(k4_bound, key=k4_bound.get),
+         "library_ms": None,
          "bf16_cudnn_ms": sum(v["bf16_cudnn"] for v in layer_ms.values()),
-         "per_step": "sum of the 17 launches of one int8 deploy step"},
+         "int_mm": int_mm,
+         "per_step": "sum of the 17 launches of one int8 deploy step; no one "
+                     "PyTorch call computes an int8 conv with its epilogue, "
+                     "torch._int_mm computes the raw int32 product at the "
+                     "probe shapes and fc6 (int_mm)"},
+        {"name": "conv1_v5", "route": "cuda",
+         "source": "mscnn_torch/csrc/conv1_v5.cu",
+         "replaces": "examples/profile_conv1_v5.py:160",
+         "launches": probe_launches["conv1_v5"], "max_abs_err": k3_max_err,
+         "ms": k3["1x768x2560"]["kernel"][f"{default_mode}_{th0}x{tq0}"],
+         "plain_ms": k3["1x768x2560"]["plain"][default_mode],
+         "bound_ms": k3["1x768x2560"]["bound"][0],
+         "bound_by": k3["1x768x2560"]["bound"][1], "library_ms": None,
+         "shape": "[1, 768, 2560, 3], mode mc, tile 16x16 (the probe's path)",
+         "ms_by_mode": {m: k3["1x768x2560"]["kernel"][f"{m}_{th0}x{tq0}"]
+                        for m in P5.MODES},
+         "plain_ms_by_mode": k3["1x768x2560"]["plain"],
+         "ms_by_tile": {t: {k: v for k, v in k3[t]["kernel"].items()} for t in k3},
+         "k2_ms": {t: k3[t]["k2"] for t in k3},
+         "plain_block_ms": {t: k3[t]["plain_block"] for t in k3},
+         "cudnn_unfused_ms": {t: k3[t]["cudnn"] for t in k3},
+         "bound_ms_batch4": k3["4x768x2560"]["bound"][0]},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

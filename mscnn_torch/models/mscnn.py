@@ -152,20 +152,28 @@ def kitti_car_branches():
 # Parameters
 # ---------------------------------------------------------------------------
 
+def default_device() -> torch.device:
+    """The card when there is one, else the CPU: where `init_params` puts
+    the weights unless the caller names a device."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
 def _to_port(block: dict, device) -> dict:
+    device = default_device() if device is None else device
     return {name: {k: bridge.leaf_to_port(v, k).to(device) for k, v in p.items()}
             for name, p in block.items()}
 
 
 def init_params(generator: torch.Generator, cfg: MSCNNConfig, *,
-                device="cpu"):
+                device=None):
     """Initialize the flat params {layer: {w, b}} in the port's layouts.
 
     Same fillers as the JAX function: MSRA trunk convs, gaussian std 0.01
     for loss1_conv1/conv6_1/roi_c1/cls_pred, std 0.001 for LFCN heads, fc6
     and bbox_pred, a frozen bilinear 2x upsampler. Draws come from
     ``generator`` (on the CPU, so a seed gives the same weights on any
-    device), not from the JAX package's stream.
+    device), not from the JAX package's stream. The weights go to
+    ``device``, by default the card when there is one (`default_device`).
     """
     params = {}
     in_c = 3
@@ -194,7 +202,7 @@ def init_params(generator: torch.Generator, cfg: MSCNNConfig, *,
 
 def init_roi_head_params(generator: torch.Generator, cfg: MSCNNConfig,
                          suffix: str = "", bbox_out: Optional[int] = None, *,
-                         device="cpu"):
+                         device=None):
     """ROI-head parameter block (roi_c1 -> fc6 -> cls_pred / bbox_pred),
     optionally name-suffixed for cascade stages (`_2nd`, `_3rd`)."""
     pooled_in = 2 * 512  # org + ctx concat

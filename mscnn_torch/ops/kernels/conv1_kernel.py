@@ -48,22 +48,29 @@ def _kernel_fn():
     return _fn
 
 
-def conv1_pool_cuda(x, w1, b1, w2, b2):
-    """Launch the fused kernel. x: [B, H, W, 3] bf16, contiguous, on CUDA."""
-    global launches
+def check_cuda_args(name, x, w1, b1, w2, b2):
+    """The operands a fused conv1 kernel (K2, K3) takes: x [B, H, W, 3] bf16
+    on CUDA, OIHW weights and [64] biases on the same device; raises
+    ValueError otherwise."""
     if not x.is_cuda:
-        raise ValueError("conv1_pool_cuda: x must be a CUDA tensor")
+        raise ValueError(f"{name}: x must be a CUDA tensor")
     if x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[-1] != 3:
-        raise ValueError(f"conv1_pool_cuda: x must be [B, H, W, 3] bf16, got "
+        raise ValueError(f"{name}: x must be [B, H, W, 3] bf16, got "
                          f"{tuple(x.shape)} {x.dtype}")
     if tuple(w1.shape) != (64, 3, 3, 3) or tuple(w2.shape) != (64, 64, 3, 3) \
             or tuple(b1.shape) != (64,) or tuple(b2.shape) != (64,):
-        raise ValueError("conv1_pool_cuda: weights must be OIHW [64,3,3,3], "
+        raise ValueError(f"{name}: weights must be OIHW [64,3,3,3], "
                          "[64,64,3,3] with [64] biases")
-    dev = x.device
     for t in (w1, b1, w2, b2):
-        if t.device != dev:
-            raise ValueError("conv1_pool_cuda: weights on another device")
+        if t.device != x.device:
+            raise ValueError(f"{name}: weights on another device")
+
+
+def conv1_pool_cuda(x, w1, b1, w2, b2):
+    """Launch the fused kernel. x: [B, H, W, 3] bf16, contiguous, on CUDA."""
+    global launches
+    check_cuda_args("conv1_pool_cuda", x, w1, b1, w2, b2)
+    dev = x.device
     x = x.contiguous()
     B, H, W, _ = x.shape
     # repack once per call: w1 [dy][dx][ci][co] f32 for the CUDA-core conv1_1,

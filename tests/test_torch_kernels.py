@@ -6,8 +6,9 @@ a machine that has only PyTorch and the CUDA toolkit:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-NMS must agree exactly (valid flags, boxes, scores). The conv1 kernel is
-held to atol 0.02 * max|ref|: both sides are bf16 with f32 accumulation,
+NMS must agree exactly (valid flags, boxes, scores). The conv1 kernels
+(K2, and K3 in every mode and tile) are held to atol 0.02 * max|ref|: both
+sides are bf16 with f32 accumulation (K3's mode bf16: f32 partial sums),
 summed in different orders. The int8 kernel must agree exactly in every
 epilogue: its int32 sums are exact, and its dequantization rounds where
 the plain version rounds.
@@ -20,6 +21,7 @@ import torch
 from mscnn_torch.ops import nms as TN
 from mscnn_torch.ops import quant as TQ
 from mscnn_torch.ops.kernels import conv1_kernel as CK
+from mscnn_torch.ops.kernels import conv1_v5_kernel as K3
 from mscnn_torch.ops.kernels import int8_kernel as IK
 from mscnn_torch.ops.kernels import nms_kernel as NK
 
@@ -109,6 +111,50 @@ def test_conv1_kernel_matches_plain(gen, cuda, b, h, w, ones):
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     err = (got.float() - want).abs().max().item()
     assert err <= 0.02 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(K3.MODES))
+@pytest.mark.parametrize("b,h,w,ones", [(2, 40, 70, False), (1, 19, 37, False),
+                                        (1, 16, 32, True)])
+def test_conv1_v5_kernel_matches_plain(gen, cuda, mode, b, h, w, ones):
+    args = conv1_inputs(gen, b, h, w, cuda, ones)
+    want = K3.conv1_v5_plain(*args, mode=mode).float()
+    before = K3.launches
+    got = K3.conv1_v5(*args, mode=mode)
+    torch.cuda.synchronize()
+    assert K3.launches == before + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    tol = 0.02 * want.abs().max().item()
+    assert (got.float() - want).abs().max().item() <= tol
+    if mode != "bf16":   # K2's function
+        k2 = CK.conv1_pool_fused(*args).float()
+        assert (got.float() - k2).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", K3.TILES, ids=[f"{h}x{q}" for h, q in K3.TILES])
+def test_conv1_v5_kernel_every_tile(gen, cuda, tile):
+    args = conv1_inputs(gen, 1, 37, 75, cuda)
+    for mode in sorted(K3.MODES):
+        want = K3.conv1_v5_plain(*args, mode=mode).float()
+        got = K3.conv1_v5(*args, tile_h=tile[0], tile_q=tile[1], mode=mode)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        assert err <= 0.02 * want.abs().max().item(), (mode, err)
+
+
+@pytest.mark.cuda
+def test_conv1_v5_kernel_rejects_bad_input(gen, cuda):
+    x, w1, b1, w2, b2 = conv1_inputs(gen, 1, 8, 8, cuda)
+    with pytest.raises(ValueError):
+        K3.conv1_v5_cuda(x.float(), w1, b1, w2, b2)
+    with pytest.raises(ValueError):
+        K3.conv1_v5_cuda(x, w1.cpu(), b1, w2, b2)
+    with pytest.raises(ValueError):
+        K3.conv1_v5_cuda(x, w1, b1, w2, b2, tile_h=32, tile_q=128)
+    with pytest.raises(ValueError):
+        K3.conv1_v5_cuda(x, w1, b1, w2, b2, mode="fast")
 
 
 INT8_OUT = {"int32": (torch.int32, False), "float32": (torch.float32, False),
