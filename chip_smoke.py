@@ -17,9 +17,13 @@ Phases (any failure exits non-zero, before the result line):
                 max|ref| (and the share of bit-equal outputs in mode bf16);
                 serial / mc / flat within the same bound of K2's kernel on
                 the same input; bf16 measurably different from serial;
-  4. int8    -- the int8 GEMM kernel (raw int32) against its exact plain
+  4. int8    -- the int8 kernel (K4: wgmma + TMA) against its exact plain
                 version at the TPU probe's three matmul shapes and at every
-                int8 conv / dense shape of the int8 deploy path: equal;
+                int8 conv / dense shape of the int8 deploy path, raw int32,
+                then in the path's epilogue (bf16, ReLU) with the int8
+                copies each layer writes for the layers it feeds (pooled
+                where a max pool sits between), and at ragged tile and
+                image edges: every output equal;
   5. deploy  -- the flagship kitti_car/mscnn-8s-768-trainval deploy graph
                 (bf16, fused conv1, batch 4 of seeded random uint8
                 768x2560 images, seeded random weights) through the
@@ -33,22 +37,28 @@ Phases (any failure exits non-zero, before the result line):
                 int8 trunk with conv1, int8 roi_c1 + fc6), calibrated as
                 bench.py and the CLI do, through the end-to-end forward to
                 KITTI text: 17 int8 launches and 2 NMS launches a step,
-                each int8 launch equal to its plain version on that run's
-                own tensors, and no host sync in the int8 layers; a tiny
+                each int8 launch (its output and its int8 copies) equal to
+                its plain version on that run's own tensors, quantize_act
+                twice a step (the image, the ROI gathers; once on the int8
+                trunk alone), and no host sync in the int8 layers; a tiny
                 int8 config on the card and on the CPU must give bit-equal
                 trunk features;
   7. timing  -- CUDA-event medians of each kernel and its plain version at
-                the paths' shapes, each int8 layer beside cuDNN's bf16 conv
-                at its shape, `torch._int_mm` beside K4 at the probe shapes
-                and fc6 (a yardstick only), the int8 trunk split, per-stage
-                breakdowns and deploy img/s of the bf16 control, the int8
-                trunk and the int8 trunk + heads;
+                the paths' shapes, each int8 layer beside its bound, cuDNN's
+                bf16 conv and `torch._int_mm` on its im2col matrix (both
+                yardsticks only), `torch._int_mm` beside K4 at the probe
+                shapes, the int8 trunk split (kernels / remaining quantize /
+                pools), per-stage breakdowns and deploy img/s of the bf16
+                control, the int8 trunk and the int8 trunk + heads;
   8. conv1 probes -- K3 in each mode and tile beside K2, the plain block
                 and cuDNN's unfused conv1_1 / conv1_2 / pool1 at
                 [1, 768, 2560, 3] and [4, 768, 2560, 3]; then K3's own path,
                 `mscnn_torch.examples.profile_conv1_v5.main()`, with every
                 launch count read from that run alone, and its two sibling
-                probes (profile_conv1, profile_conv1_pallas);
+                probes (profile_conv1, profile_conv1_pallas); then K4's
+                probe, `mscnn_torch.examples.profile_int8_mxu.main()`, its
+                launch count read from that run alone and every product
+                bit-exact;
   9. trace   -- one `torch.profiler` window (utils/profiling.py::trace)
                 over two steps of the bf16 deploy graph: the device-busy
                 share of the window and the ten kernels with the most
@@ -86,6 +96,17 @@ INT8_LAYERS = ("conv1_1", "conv1_2", "conv2_1", "conv2_2", "conv3_1", "conv3_2",
                "conv3_3", "conv4_1", "conv4_2", "conv4_3", "conv5_1", "conv5_2",
                "conv5_3", "conv6_1", "loss1_conv1", "roi_c1", "fc6")
 POOL_INPUTS = ("conv1_2", "conv2_2", "conv3_3", "conv4_3", "conv5_3", "conv6_1")
+# the int8 copies each layer of the path writes for the int8 layers it feeds:
+# one per consumer, True where a 2x2 max pool sits between (models/mscnn.py::
+# int8_feeds; roi_c1 writes fc6's input)
+COPIES = {"conv1_1": (False,), "conv1_2": (True,), "conv2_1": (False,),
+          "conv2_2": (True,), "conv3_1": (False,), "conv3_2": (False,),
+          "conv3_3": (True,), "conv4_1": (False,), "conv4_2": (False,),
+          "conv4_3": (True, False), "conv5_1": (False,), "conv5_2": (False,),
+          "conv5_3": (True,), "roi_c1": (False,)}
+# ragged tile and image edges: (x [B, H, W, C], F, pad, copies)
+K4_EDGES = (((1, 19, 37, 64), 64, 1, (True, False)), ((2, 17, 9, 128), 136, 1, (True,)),
+            ((3, 7, 7, 1024), 512, 0, (False,)), ((1, 23, 41, 3), 64, 1, (True, False)))
 
 
 # bound_ms: the larger of the bytes a call must move over the H100's memory
@@ -287,6 +308,7 @@ def main():
         from mscnn_torch.examples import profile_conv1 as P1
         from mscnn_torch.examples import profile_conv1_pallas as PP
         from mscnn_torch.examples import profile_conv1_v5 as P5
+        from mscnn_torch.examples import profile_int8_mxu as P8
         from mscnn_torch.ops.kernels import conv1_kernel as CK
         from mscnn_torch.ops.kernels import conv1_v5_kernel as K3
         from mscnn_torch.utils import profiling as PROF
@@ -441,6 +463,31 @@ def main():
         if err != 0 or not torch.equal(got, want):
             fail(f"int8 kernel != plain at {what}: max_abs_err {err}")
 
+    def int8_same(got, want, what):
+        """int8_exact on an output, or on (output, int8 copies) copy by copy."""
+        if torch.is_tensor(want):
+            return int8_exact(got, want, what)
+        int8_exact(got[0], want[0], what)
+        if len(got[1]) != len(want[1]):
+            fail(f"int8 kernel wrote {len(got[1])} copies at {what}, plain "
+                 f"{len(want[1])}")
+        for i, (g, w) in enumerate(zip(got[1], want[1])):
+            int8_exact(g, w, f"{what}, int8 copy {i}")
+
+    def epilogue_case(xs, ws, pad, copies):
+        """Random int8 x / w with the path's epilogue (bf16, ReLU, a bias) and
+        `copies` int8 copies (pooled or not; scales 0.125, which puts many
+        outputs on .5 ties, and 0.0371)."""
+        f = ws[0]
+        x, w = rand_i8(xs), rand_i8(ws)
+        scales = (torch.rand((f,), generator=dgen, device=dev) * 1e-2 + 1e-4,
+                  torch.randn((f,), generator=dgen, device=dev))
+        requant = [(torch.tensor(v, device=dev), pooled)
+                   for v, pooled in zip((0.125, 0.0371), copies)]
+        kw = dict(padding=(pad, pad), out_dtype=torch.bfloat16, relu=True,
+                  requant=requant)
+        return (x, w, torch.tensor(0.0123, device=dev), *scales), kw
+
     probe_args = {}
     for name, m, k, f in K4_PROBES:
         x, w = rand_i8((m, k)), rand_i8((f, k), -16, 17)   # the probe's ranges
@@ -455,6 +502,18 @@ def main():
                    IK.int8_conv_plain(x, w, padding=(pad, pad)), f"{name} {xs}")
         log(f"int8 shape {name}: x {xs} w {ws} pad {pad} -> int32: equal")
         del x, w
+        a, kw = epilogue_case(xs, ws, pad, COPIES.get(name, ()))
+        int8_same(IK.int8_conv(*a, **kw), IK.int8_conv_plain(*a, **kw),
+                  f"{name} {xs} epilogue")
+        log(f"int8 shape {name}: bf16 + ReLU + {len(kw['requant'])} int8 copies "
+            f"(pooled {COPIES.get(name, ())}): equal")
+        del a, kw
+        torch.cuda.empty_cache()
+    for xs, f, pad, copies in K4_EDGES:
+        a, kw = epilogue_case(xs, (f, 3, 3, xs[3]), pad, copies)
+        int8_same(IK.int8_conv(*a, **kw), IK.int8_conv_plain(*a, **kw),
+                  f"edge case x {xs} F {f}")
+        log(f"int8 edge case: x {xs} F {f} pad {pad} copies {copies}: equal")
     torch.cuda.empty_cache()
 
     # -- 5. deploy main path (bf16) ---------------------------------------------
@@ -480,13 +539,23 @@ def main():
         sink["int8"].append((a, kw, out))
         return out
 
+    quantize_act = Q.quantize_act
+    quantized = []   # the inputs quantize_act was given in the recorded run
+
+    def rec_quantize(x, x_scale):
+        quantized.append((x, x_scale))
+        return quantize_act(x, x_scale)
+
     def recording(on):
         if on:
             NK.nms_xywh_cuda, CK.conv1_pool_cuda, IK.int8_conv_cuda = \
                 rec_nms, rec_conv1, rec_int8
+            Q.quantize_act = rec_quantize
+            quantized.clear()
         else:
             NK.nms_xywh_cuda, CK.conv1_pool_cuda, IK.int8_conv_cuda = \
                 nms_cuda, conv1_cuda, int8_cuda
+            Q.quantize_act = quantize_act
 
     recording(True)
     zero_counts()
@@ -588,14 +657,38 @@ def main():
                   for a, kw, _ in calls8["int8"]]
     if got_shapes != [(xs, ws, pad) for _, xs, ws, pad in shapes]:
         fail(f"int8 launches had shapes {got_shapes}")
+    got_copies = {name: tuple(p for _, p in kw["requant"])
+                  for name, (_, kw, _) in zip(INT8_LAYERS, calls8["int8"])
+                  if kw["requant"]}
+    if got_copies != COPIES:
+        fail(f"int8 launches wrote the copies {got_copies}, expected {COPIES}")
+    rois_in = (rois, 7, 7, 1024)
+    quantized8 = list(quantized)
+    if [tuple(x.shape) for x, _ in quantized8] != [(BATCH, H, W, 3), rois_in]:
+        fail(f"quantize_act ran on {[tuple(x.shape) for x, _ in quantized8]} in an "
+             f"int8 trunk + heads step, expected the image and the ROI gathers")
     log(f"deploy int8: {int(out8['roi_valid'].sum())} proposals, "
         f"{int(out8['valid'].sum())} detections over {BATCH} images")
     lines, first = check_kitti(I, out8, BATCH)
     log(f"kitti int8: {BATCH} label files, {lines} lines, first: {first or '(none)'}")
     for name, (a, kw, got) in zip(INT8_LAYERS, calls8["int8"]):
-        int8_exact(got, IK.int8_conv_plain(*a, **kw), f"{name} on the int8 path")
-        log(f"int8 on path: {name} x {tuple(a[0].shape)} -> {got.dtype} "
-            f"relu={kw['relu']}: equal")
+        int8_same(got, IK.int8_conv_plain(*a, **kw), f"{name} on the int8 path")
+        log(f"int8 on path: {name} x {tuple(a[0].shape)} -> "
+            f"{(got if torch.is_tensor(got) else got[0]).dtype} relu={kw['relu']}, "
+            f"{len(kw['requant'])} int8 copies: equal")
+    # the int8 trunk alone (bench.py's default) quantizes the image only
+    sink = {"nms": [], "conv1": [], "int8": []}
+    recording(True)
+    with torch.inference_mode():
+        M.trunk(params8, imgs.float() - mean, cfg8t)
+    recording(False)
+    if [tuple(x.shape) for x, _ in quantized] != [(BATCH, H, W, 3)] or \
+            len(sink["int8"]) != 15:
+        fail(f"the int8 trunk quantized {[tuple(x.shape) for x, _ in quantized]} "
+             f"and launched K4 {len(sink['int8'])} times")
+    sink = calls8
+    log(f"quantize_act a step: {len(quantized8)} with the int8 heads (the image, "
+        f"the ROI gathers), 1 on the int8 trunk alone (the image)")
     for a, kw, got in calls8["nms"]:
         want = nms_ops.nms_xywh_plain(*a, **kw)
         if not nms_equal(got, want):
@@ -604,14 +697,15 @@ def main():
     # the int8 layers make no host sync: the int8 trunk, and roi_c1 + fc6 on
     # the path's own inputs, under PyTorch's sync debug mode
     (ra, rkw, _), (fa, fkw, _) = calls8["int8"][-2:]
+    qx, qs = quantized8[1]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         with torch.inference_mode():
             M.trunk(params8, imgs.float() - mean, cfg8)
+            Q.quantize_act(qx, qs)
             int8_cuda(*ra, **rkw)
             int8_cuda(*fa, **fkw)
-            Q.quantize_act(torch.zeros((8, 8), device=dev), ra[2])
     except RuntimeError as e:
         fail(f"the int8 path synchronised with the host: {e}")
     finally:
@@ -716,6 +810,16 @@ def main():
             f"bf16 matmul {b_ms:.4f} ms")
         del x, w, xb, wb
 
+    def im2col(xq, kh, kw, pad):
+        """[B, H, W, C] int8 -> [M, K] in the weight's (dy, dx, c) order, K
+        zero-padded to a multiple of 8 (torch._int_mm's contract)."""
+        B_, h_, w_, c_ = xq.shape
+        oh, ow = h_ + 2 * pad - kh + 1, w_ + 2 * pad - kw + 1
+        xp = F.pad(xq, (0, 0, pad, pad, pad, pad))
+        cols = torch.cat([xp[:, dy:dy + oh, dx:dx + ow, :] for dy in range(kh)
+                          for dx in range(kw)], -1).reshape(B_ * oh * ow, -1)
+        return F.pad(cols, (0, -cols.shape[1] % 8))
+
     layer_ms = {}
     k4_bound = {"bytes": 0.0, "operations": 0.0}   # ms, summed over the step
     for name, (a, kw, got) in zip(INT8_LAYERS, calls8["int8"]):
@@ -723,13 +827,15 @@ def main():
         B_, h_, w_, c_ = xq.shape
         f_, kh_, kw_, _ = wq.shape
         pad = kw["padding"]
-        if name == "fc6":
-            time_int_mm("fc6", xq.reshape(B_, c_), wq.reshape(f_, c_))
+        outs = [got] if torch.is_tensor(got) else [got[0], *got[1]]
         k_ms = cuda_ms(lambda: int8_cuda(*a, **kw), iters=10)
         p_ms = cuda_ms(lambda: IK.int8_conv_plain(*a, **kw), iters=2, warmup=1)
+        x2d = im2col(xq, kh_, kw_, pad[0])
+        w2d = F.pad(wq.reshape(f_, -1), (0, x2d.shape[1] - kh_ * kw_ * c_))
+        time_int_mm(name, x2d, w2d)
+        del x2d, w2d
         xr = torch.randn(tuple(xq.shape), generator=dgen, device=dev,
                          dtype=torch.bfloat16)
-        q_ms = cuda_ms(lambda: Q.quantize_act(xr, a[2]), iters=10)
         bw = torch.randn((f_, c_, kh_, kw_), generator=dgen, device=dev,
                          dtype=torch.bfloat16) * 0.01
         bb = torch.zeros((f_,), device=dev, dtype=torch.bfloat16)
@@ -741,29 +847,40 @@ def main():
                            iters=10)
         mkf = B_ * (h_ + 2 * pad[0] - kh_ + 1) * (w_ + 2 * pad[1] - kw_ + 1) \
             * kh_ * kw_ * c_ * f_
-        moved = sum(t.numel() * t.element_size() for t in (*a, got) if torch.is_tensor(t))
+        moved = sum(t.numel() * t.element_size() for t in (*a, *outs)
+                    if torch.is_tensor(t))
         ms_b, ms_o = moved / HBM_BPS * 1e3, 2 * mkf / PEAK["int8"] * 1e3
         k4_bound["bytes" if ms_b >= ms_o else "operations"] += max(ms_b, ms_o)
-        layer_ms[name] = {"kernel": k_ms, "plain": p_ms, "quantize": q_ms,
-                          "bf16_cudnn": b_ms, "gmac": mkf / 1e9}
+        layer_ms[name] = {"kernel": k_ms, "plain": p_ms, "bf16_cudnn": b_ms,
+                          "int_mm_im2col": int_mm[name]["int_mm_ms"],
+                          "bound": max(ms_b, ms_o), "gmac": mkf / 1e9,
+                          "copies": len(outs) - 1}
         log(f"time int8 {name} x {tuple(xq.shape)} F {f_}: kernel {k_ms:.4f} ms "
-            f"({2 * mkf / k_ms / 1e9:.1f} TOP/s), bf16 cuDNN {b_ms:.4f} ms, "
-            f"quantize {q_ms:.4f} ms, exact plain {p_ms:.4f} ms")
+            f"({2 * mkf / k_ms / 1e9:.1f} TOP/s, {ms_o / k_ms:.3f} of the int8 peak; "
+            f"{len(outs) - 1} int8 copies), bound {max(ms_b, ms_o):.4f} ms, bf16 "
+            f"cuDNN {b_ms:.4f} ms, torch._int_mm on im2col "
+            f"{int_mm[name]['int_mm_ms']:.4f} ms, exact plain {p_ms:.4f} ms")
         del xr, bw, bb
     pool_ms = 0.0
     for name, (a, kw, got) in zip(INT8_LAYERS, calls8["int8"]):
         if name in POOL_INPUTS:
-            pool_ms += cuda_ms(lambda: C.max_pool(got, 2, 2), iters=10)
+            y = got if torch.is_tensor(got) else got[0]
+            pool_ms += cuda_ms(lambda: C.max_pool(y, 2, 2), iters=10)
+    # the quantize passes left in a step: the image (conv1_1's input) and
+    # the ROI gathers (roi_c1's), on the run's own tensors
+    quantize_ms = [cuda_ms(lambda: Q.quantize_act(x, x_s), iters=10)
+                   for x, x_s in quantized8]
     trunk_layers = INT8_LAYERS[:15]
     split = {"kernels": sum(layer_ms[n]["kernel"] for n in trunk_layers),
-             "quantize": sum(layer_ms[n]["quantize"] for n in trunk_layers),
-             "pools": pool_ms,
+             "quantize": quantize_ms[0], "pools": pool_ms,
              "bf16_cudnn_same_shapes": sum(layer_ms[n]["bf16_cudnn"]
-                                           for n in trunk_layers)}
+                                           for n in trunk_layers),
+             "quantize_roi_c1": quantize_ms[1]}
     log("int8_trunk_split_ms " + json.dumps(split))
     int8_ms = sum(v["kernel"] for v in layer_ms.values())
     int8_plain_ms = sum(v["plain"] for v in layer_ms.values())
-    del calls, calls8, sink
+    log("int8_layers_ms " + json.dumps(layer_ms))
+    del calls, calls8, sink, quantized8
     torch.cuda.empty_cache()
 
     # PTQ quality, informational: on the batch (uniform uint8 pixels, another
@@ -850,6 +967,18 @@ def main():
     P1.main()
     PP.main()
 
+    # K4's own probe path, counts read from it alone
+    torch.cuda.empty_cache()
+    zero_counts()
+    probe8 = P8.main()
+    probe8_launches = counts()
+    log(f"profile_int8_mxu path: launches {probe8_launches}")
+    if probe8_launches["int8_gemm"] < len(P8.CONV_SHAPES) + len(P8.MM_CASES):
+        fail(f"the int8 probe did not launch K4 at every shape: {probe8_launches}")
+    if not all(r["int8_bit_exact"] for r in probe8["convs"]) or \
+            not all(r["k4_bit_exact"] for r in probe8["matmuls"]):
+        fail(f"the int8 probe found K4 inexact: {probe8}")
+
     # -- 9. one profiler window over two bf16 deploy steps -----------------------
     fwd(params, imgs, ratios, orig_wh)
     torch.cuda.synchronize()
@@ -923,7 +1052,7 @@ def main():
          "bound_ms": sum(k4_bound.values()), "bound_by": max(k4_bound, key=k4_bound.get),
          "library_ms": None,
          "bf16_cudnn_ms": sum(v["bf16_cudnn"] for v in layer_ms.values()),
-         "int_mm": int_mm,
+         "int_mm": int_mm, "probe_launches": probe8_launches["int8_gemm"],
          "per_step": "sum of the 17 launches of one int8 deploy step; no one "
                      "PyTorch call computes an int8 conv with its epilogue, "
                      "torch._int_mm computes the raw int32 product at the "

@@ -153,9 +153,13 @@ def kitti_car_branches():
 # ---------------------------------------------------------------------------
 
 def default_device() -> torch.device:
-    """The card when there is one, else the CPU: where `init_params` puts
-    the weights unless the caller names a device."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card: where `init_params` puts the weights unless the caller
+    names a device. Raises where there is none, so that nothing runs on the
+    CPU unless the caller asks for it with device="cpu"."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device=\"cpu\" to build the "
+                           "weights on the CPU")
+    return torch.device("cuda")
 
 
 def _to_port(block: dict, device) -> dict:
@@ -173,7 +177,8 @@ def init_params(generator: torch.Generator, cfg: MSCNNConfig, *,
     and bbox_pred, a frozen bilinear 2x upsampler. Draws come from
     ``generator`` (on the CPU, so a seed gives the same weights on any
     device), not from the JAX package's stream. The weights go to
-    ``device``, by default the card when there is one (`default_device`).
+    ``device``, by default the card (`default_device`, which raises when
+    there is none).
     """
     params = {}
     in_c = 3
@@ -274,21 +279,81 @@ def param_decay_multipliers(params, cfg: MSCNNConfig):
 # Forward functions
 # ---------------------------------------------------------------------------
 
-def _cb(params, name, x, relu=True, int8=False):
+def _cb(params, name, x, relu=True, int8=False, xq=None, feeds=()):
+    """Conv + bias (+ ReLU), SAME. Returns (y, int8 copies): an int8 layer
+    runs on `xq` (its int8 input, when its producer wrote it) and writes
+    one int8 copy of y per (consumer, pooled) in `feeds`, quantized with
+    that consumer's scale; the float path writes none."""
     p = params[name]
     if int8 and "w_q" in p:
-        # int8 x int8 -> int32 conv, dequant + bias + ReLU in the epilogue
-        return Q.conv2d_int8(x, p["x_s"], p["w_q"], p["w_s"], p["b"],
-                             padding="SAME", out_dtype=x.dtype, relu=relu)
+        # int8 x int8 -> int32 conv, dequant + bias + ReLU + the consumers'
+        # quantize in the epilogue
+        requant = [(params[c]["x_s"], pooled) for c, pooled in feeds]
+        y = Q.conv2d_int8(x, p["x_s"], p["w_q"], p["w_s"], p["b"],
+                          padding="SAME", out_dtype=x.dtype, relu=relu,
+                          xq=xq, requant=requant)
+        return y if requant else (y, [])
     y = C.conv2d(x, p["w"], p["b"], padding="SAME")
-    return torch.relu(y) if relu else y
+    return (torch.relu(y) if relu else y), []
+
+
+def int8_feeds(params, cfg: MSCNNConfig):
+    """{producer: [(consumer, pooled), ...]}: the int8 trunk convs whose
+    input blob another int8 trunk conv writes, directly or through a 2x2 /
+    stride 2 max pool (which commutes with the quantizer, so the producer's
+    epilogue can write the pooled int8 input exactly). At most two consumers
+    a producer (the kernel's two copies); the others quantize their input
+    themselves, as conv1_1 (the image) and the layers behind the fused conv1
+    block or an average pool do."""
+    if not cfg.int8_trunk:
+        return {}
+    src = {}      # blob -> (the int8 conv that writes it, through a max pool)
+    inputs = {}   # conv -> its input blob
+    blob = None
+    for lname, _ in (VGG_BLOCKS[2:] if cfg.pallas_conv1 else VGG_BLOCKS):
+        if blob is not None:
+            inputs[lname] = blob
+        src[lname] = (lname, False)
+        blob = lname
+        if lname in POOL_AFTER:
+            blob = POOL_AFTER[lname]
+            src[blob] = (lname, True)
+    for spec in cfg.extra_layers:
+        if spec[0] == "conv":
+            inputs[spec[1]] = spec[2]
+            src[spec[1]] = (spec[1], False)
+        elif spec[3:] == ("max", 2, 2) and spec[2] in src \
+                and not src[spec[2]][1]:
+            src[spec[1]] = (spec[2], True)
+
+    def int8(name):
+        return "w_q" in params.get(name, {})
+
+    feeds = {}
+    for cons, blob in inputs.items():
+        if blob in src and int8(cons) and int8(src[blob][0]):
+            prod, pooled = src[blob]
+            feeds.setdefault(prod, []).append((cons, pooled))
+    return {p: v[:2] for p, v in feeds.items()}
 
 
 def trunk(params, x, cfg: MSCNNConfig):
     """VGG16 trunk + the config's extra tail layers.
-    x: [B, H, W, 3] (BGR, mean-subtracted). Returns the feature dict."""
+    x: [B, H, W, 3] (BGR, mean-subtracted). Returns the feature dict.
+    In the int8 trunk each int8 conv also writes the int8 inputs of the
+    convs it feeds (`int8_feeds`), so only the first one quantizes."""
     x = x.to(cfg.cdtype())
     feats = {}
+    feeds = int8_feeds(params, cfg)
+    xq = {}   # consumer -> its int8 input, written by its producer
+
+    def conv(lname, inp):
+        y, copies = _cb(params, lname, inp, int8=cfg.int8_trunk,
+                        xq=xq.pop(lname, None), feeds=feeds.get(lname, ()))
+        for (cons, _), q in zip(feeds.get(lname, ()), copies):
+            xq[cons] = q
+        return y
+
     blocks = list(VGG_BLOCKS)
     if cfg.pallas_conv1:
         x = conv1_kernel.conv1_pool_fused(
@@ -299,7 +364,7 @@ def trunk(params, x, cfg: MSCNNConfig):
     elif cfg.s2d_conv1 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
         raise NotImplementedError("s2d_conv1 is not ported yet")
     for lname, _ in blocks:
-        x = _cb(params, lname, x, int8=cfg.int8_trunk)
+        x = conv(lname, x)
         feats[lname] = x
         if lname in POOL_AFTER:
             x = C.max_pool(x, 2, 2)
@@ -307,8 +372,7 @@ def trunk(params, x, cfg: MSCNNConfig):
     for spec in cfg.extra_layers:
         if spec[0] == "conv":
             _, lname, source, _, _ = spec
-            feats[lname] = _cb(params, lname, feats[source],
-                               int8=cfg.int8_trunk)
+            feats[lname] = conv(lname, feats[source])
         else:
             _, lname, source, mode, k, s = spec
             pool = C.max_pool if mode == "max" else C.avg_pool
@@ -318,7 +382,7 @@ def trunk(params, x, cfg: MSCNNConfig):
 
 def heads(params, feats, cfg: MSCNNConfig):
     """Per-branch raw head outputs, f32: list of [B, h, w, C+4]."""
-    return [_cb(params, br.name, feats[br.source], relu=False).float()
+    return [_cb(params, br.name, feats[br.source], relu=False)[0].float()
             for br in cfg.branches]
 
 
@@ -408,17 +472,24 @@ def roi_head(params, conv4_3, batch_idx, rois, valid, cfg: MSCNNConfig, *,
 
     capture(f"roi_c1{suffix}", x)
     p = params[f"roi_c1{suffix}"]
+    p6 = params[f"fc6{suffix}"]
+    xq6 = None   # fc6's int8 input, written by roi_c1's epilogue
     if cfg.int8_roi_head and "w_q" in p:
-        x = Q.conv2d_int8(x, p["x_s"], p["w_q"], p["w_s"], p["b"],
-                          padding="VALID", out_dtype=x.dtype, relu=True)
+        requant = [(p6["x_s"], False)] if "w_q" in p6 else []
+        y = Q.conv2d_int8(x, p["x_s"], p["w_q"], p["w_s"], p["b"],
+                          padding="VALID", out_dtype=x.dtype, relu=True,
+                          requant=requant)
+        x, copies = y if requant else (y, [])
+        if copies:   # [R, 5, 5, 512] NHWC is [R, 12800] in fc6's order
+            xq6 = copies[0].reshape(copies[0].shape[0], -1)
     else:
         x = torch.relu(C.conv2d(x, p["w"], p["b"], padding="VALID"))
     x = x.reshape(x.shape[0], -1)
     capture(f"fc6{suffix}", x)
-    p = params[f"fc6{suffix}"]
+    p = p6
     if cfg.int8_roi_head and "w_q" in p:
         x = Q.dense_int8(x, p["x_s"], p["w_q"], p["w_s"], p["b"],
-                         out_dtype=x.dtype, relu=True)
+                         out_dtype=x.dtype, relu=True, xq=xq6)
     else:
         x = torch.relu(C.dense(x, p["w"], p["b"]))
     p = params[f"cls_pred{suffix}"]

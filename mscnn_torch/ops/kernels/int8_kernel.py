@@ -3,9 +3,11 @@ its plain versions.
 
 Ports `examples/profile_int8_mxu.py::pallas_mm_int8` (the Pallas TPU kernel
 `_mm_kernel`: x [M, K] int8 times w [K, F] int8 -> [M, F] int32) as the
-hand-written kernel `mscnn_torch/csrc/int8_gemm.cu`, which also gathers its
-A operand as an implicit convolution and dequantizes in its epilogue. It
-runs every int8 conv and dense layer of `ops/quant.py`.
+hand-written Hopper kernel `mscnn_torch/csrc/int8_gemm.cu` (wgmma fed by
+TMA), which also gathers its A operand as an implicit convolution,
+dequantizes in its epilogue and can write, beside its output, the int8
+inputs of the layers it feeds (`requant`). It runs every int8 conv and dense
+layer of `ops/quant.py`.
 
 Layouts (the port's): activations NHWC int8; conv weights [F, kh, kw, C]
 int8 (OHWI, K-contiguous); dense weights [F, K] int8, so `mm_int8(x, w)`
@@ -19,7 +21,10 @@ exact once 127^2 * K passes 2^24):
     matmuls (not `F.conv2d`, whose float64 algorithms on the card may go
     through FFTs and round);
   * `dequant_plain`: float(acc) * (x_s * w_s) + b in float32, then the cast
-    to the output dtype, then ReLU -- the order of `mscnn_tpu/ops/quant.py`.
+    to the output dtype, then ReLU -- the order of `mscnn_tpu/ops/quant.py`;
+  * `requant_plain`: `quantize_plain` (the quantizer of `ops/quant.py`) of
+    that output, after `ops/conv.py::max_pool(y, 2, 2)` where the consumer
+    sits behind the pool -- the order of the JAX trunk.
 
 `int8_conv` dispatches by device: a CUDA tensor launches the kernel (or
 raises), a CPU tensor takes the plain version. `launches` counts the
@@ -33,9 +38,21 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from mscnn_torch.ops import conv as C
+
 OUT_MODES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
+MAX_COPIES = 2
 launches = 0
 _fn = None
+
+
+def quantize_plain(x, x_scale):
+    """Float activation -> int8 with the per-tensor scale: a true float32
+    division (x_scale a tensor on x's device), half-to-even rounding, the
+    clip to [-127, 127]."""
+    xs = x_scale.to(x.device, torch.float32)
+    q = x.to(torch.float32, copy=True)
+    return q.div_(xs).round_().clamp_(-127, 127).to(torch.int8)
 
 
 def mm_int8_plain(x, w):
@@ -69,13 +86,22 @@ def dequant_plain(acc, x_s, w_s, b=None, out_dtype=torch.bfloat16,
     return torch.relu(y) if relu else y
 
 
+def requant_plain(y, requant):
+    """The int8 copies of the layer output y [B, OH, OW, F]: for each
+    (scale, pooled), the quantized y, or of its 2x2 / 2 ceil-mode max pool."""
+    return [quantize_plain(C.max_pool(y, 2, 2) if pooled else y, s)
+            for s, pooled in requant]
+
+
 def int8_conv_plain(xq, w_q, x_s=None, w_s=None, b=None, *, padding=(0, 0),
-                    out_dtype=torch.int32, relu: bool = False):
-    """The plain version of `int8_conv_cuda` (same arguments)."""
+                    out_dtype=torch.int32, relu: bool = False, requant=()):
+    """The plain version of `int8_conv_cuda` (same arguments and results)."""
+    _check_requant(requant, out_dtype, xq.device)
     acc = conv2d_int8_acc_plain(xq, w_q, padding)
     if out_dtype == torch.int32:
         return acc
-    return dequant_plain(acc, x_s, w_s, b, out_dtype, relu)
+    y = dequant_plain(acc, x_s, w_s, b, out_dtype, relu)
+    return (y, requant_plain(y, requant)) if requant else y
 
 
 def _kernel_fn():
@@ -83,11 +109,23 @@ def _kernel_fn():
     if _fn is None:
         from mscnn_torch.ops.kernels import build
         fn = build.load("int8_gemm").mscnn_int8_conv
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _check_requant(requant, out_dtype, dev):
+    if len(requant) > MAX_COPIES:
+        raise ValueError(f"int8_conv: at most {MAX_COPIES} int8 copies, got "
+                         f"{len(requant)}")
+    if requant and out_dtype == torch.int32:
+        raise ValueError("int8_conv: int8 copies need a dequantized output")
+    for s, _ in requant:
+        if not torch.is_tensor(s) or s.dim() != 0 or s.device != dev:
+            raise ValueError(f"int8_conv: a copy's scale must be a 0-d tensor on "
+                             f"{dev}")
 
 
 def _on(t, dev, name, shape=None):
@@ -98,15 +136,19 @@ def _on(t, dev, name, shape=None):
     if shape is not None and tuple(t.shape) != shape:
         raise ValueError(f"int8_conv_cuda: {name} must be {shape}, got "
                          f"{tuple(t.shape)}")
-    return t.float().contiguous()
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()   # the kernel's float2 loads
 
 
 def int8_conv_cuda(xq, w_q, x_s=None, w_s=None, b=None, *, padding=(0, 0),
-                   out_dtype=torch.int32, relu: bool = False):
+                   out_dtype=torch.int32, relu: bool = False, requant=()):
     """Launch the int8 kernel. xq [B, H, W, C] int8 and w_q [F, kh, kw, C]
     int8, contiguous, on one CUDA device; F % 8 == 0. out_dtype int32 gives
     the raw accumulator; float32 / bfloat16 dequantize with x_s (0-d), w_s
-    [F] and b ([F] or None), ReLU optional. Returns [B, OH, OW, F]."""
+    [F] and b ([F] or None), ReLU optional. Returns [B, OH, OW, F]; with
+    `requant`, up to two (scale, pooled) pairs (scale 0-d on x's device),
+    returns (out, [int8 copies]), each copy quantized with its scale and
+    [B, OH, OW, F], or [B, ceil(OH / 2), ceil(OW / 2), F] when pooled."""
     global launches
     if not xq.is_cuda:
         raise ValueError("int8_conv_cuda: x must be a CUDA tensor")
@@ -124,12 +166,13 @@ def int8_conv_cuda(xq, w_q, x_s=None, w_s=None, b=None, *, padding=(0, 0),
     if out_dtype not in OUT_MODES:
         raise TypeError(f"int8_conv_cuda: out_dtype {out_dtype} not one of "
                         f"int32, float32, bfloat16")
-    B, H, W, C = xq.shape
+    _check_requant(requant, out_dtype, dev)
+    B, H, W, C_ = xq.shape
     f, kh, kw, _ = w_q.shape
     ph, pw = padding
     oh, ow = H + 2 * ph - kh + 1, W + 2 * pw - kw + 1
     if f % 8 or oh < 1 or ow < 1 or B * oh * ow >= 2 ** 31 \
-            or kh * kw * C > 133000:
+            or kh * kw * C_ > 133000:
         raise ValueError(f"int8_conv_cuda: unsupported shape x {tuple(xq.shape)}, "
                          f"w {tuple(w_q.shape)}, padding {padding} (F % 8 == 0, "
                          f"K <= 133000)")
@@ -143,23 +186,32 @@ def int8_conv_cuda(xq, w_q, x_s=None, w_s=None, b=None, *, padding=(0, 0),
         b = None if b is None else _on(b, dev, "b", (f,))
         ptrs = [x_s.data_ptr(), w_s.data_ptr(), 0 if b is None else b.data_ptr()]
     out = torch.empty((B, oh, ow, f), dtype=out_dtype, device=dev)
-    if B == 0:
-        return out
-    with torch.cuda.device(dev):
-        rc = _kernel_fn()(xq.data_ptr(), w_q.data_ptr(), *ptrs, out.data_ptr(),
-                          B, H, W, C, f, kh, kw, ph, pw, OUT_MODES[out_dtype],
-                          int(relu), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"int8_gemm kernel launch failed: cudaError {rc}")
-    launches += 1
-    return out
+    copies, scales = [], []
+    for s, pooled in requant:
+        shape = (B, (oh + 1) // 2, (ow + 1) // 2, f) if pooled else (B, oh, ow, f)
+        copies.append(torch.empty(shape, dtype=torch.int8, device=dev))
+        scales.append(s.float().contiguous())
+    q = [(c.data_ptr(), s.data_ptr(), int(p))
+         for c, s, (_, p) in zip(copies, scales, requant)]
+    q += [(0, 0, 0)] * (MAX_COPIES - len(q))
+    if B:
+        with torch.cuda.device(dev):
+            rc = _kernel_fn()(
+                xq.data_ptr(), w_q.data_ptr(), *ptrs, out.data_ptr(),
+                q[0][0], q[0][1], q[1][0], q[1][1], B, H, W, C_, f, kh, kw, ph, pw,
+                OUT_MODES[out_dtype], int(relu), q[0][2], q[1][2],
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"int8_gemm kernel launch failed: error {rc}")
+        launches += 1
+    return (out, copies) if requant else out
 
 
 def int8_conv(xq, w_q, x_s=None, w_s=None, b=None, *, padding=(0, 0),
-              out_dtype=torch.int32, relu: bool = False):
+              out_dtype=torch.int32, relu: bool = False, requant=()):
     """Stride-1 int8 conv. CUDA tensor -> the kernel; CPU tensor -> the
     plain version."""
-    kw = dict(padding=padding, out_dtype=out_dtype, relu=relu)
+    kw = dict(padding=padding, out_dtype=out_dtype, relu=relu, requant=requant)
     if xq.is_cuda:
         return int8_conv_cuda(xq, w_q, x_s, w_s, b, **kw)
     if xq.device.type != "cpu":

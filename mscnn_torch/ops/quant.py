@@ -11,13 +11,17 @@ The scheme is the JAX one:
     y       = conv_int8(x_q, w_q) * (x_s * w_s) + b
 
 The int8 contraction runs the hand-written kernel for CUDA tensors and its
-exact plain version for CPU tensors (`ops/kernels/int8_kernel.py`); the
-quantize pass is plain PyTorch, as JAX leaves it to XLA. Every step
-rounds where JAX rounds: x / x_s is a true float32 division (x_s stays a
-tensor on x's device: PyTorch would turn a division by a host scalar into
-a multiplication by its reciprocal on the card), `torch.round` rounds half
-to even as `jnp.round` does, and the dequantization multiplies by
-(x_s * w_s) and then adds b, in float32.
+exact plain version for CPU tensors (`ops/kernels/int8_kernel.py`). JAX
+quantizes a layer's input inside `conv2d_int8` so that XLA fuses the
+quantize into the producer; here the producer's kernel epilogue writes it:
+`conv2d_int8` / `dense_int8` take the consumer's already-quantized input
+(`xq`) and can ask for the int8 inputs of up to two consumers (`requant`),
+and `quantize_act` runs only where no int8 layer produces the input (the
+image, the ROI gathers). Every step rounds where JAX rounds: x / x_s is a
+true float32 division (x_s stays a tensor on x's device: PyTorch would turn
+a division by a host scalar into a multiplication by its reciprocal on the
+card), `torch.round` rounds half to even as `jnp.round` does, and the
+dequantization multiplies by (x_s * w_s) and then adds b, in float32.
 
 Layouts (the port's; `io/bridge.py` converts): the int8 leaf "w_q" of a
 conv is [out, kh, kw, in] (OHWI, the kernel's K-contiguous operand), of a
@@ -73,37 +77,43 @@ def quantize_weight(w) -> tuple:
 
 def quantize_act(x, x_scale):
     """Float activation -> int8 with the calibrated per-tensor scale."""
-    xs = x_scale.to(x.device, torch.float32)
-    q = x.to(torch.float32, copy=True)
-    return q.div_(xs).round_().clamp_(-127, 127).to(torch.int8)
+    return K.quantize_plain(x, x_scale)
 
 
 def conv2d_int8(x, x_scale, w_q, w_s, b=None, *, stride: int = 1,
-                padding="SAME", out_dtype=torch.bfloat16, relu: bool = False):
+                padding="SAME", out_dtype=torch.bfloat16, relu: bool = False,
+                xq=None, requant=()):
     """int8 x int8 -> int32 conv, dequantized into `out_dtype`, NHWC.
 
-    x: float activation (quantized here); x_scale: 0-d float32; w_q:
+    x: float activation, quantized here unless `xq` (its int8 form, as the
+    producer's epilogue wrote it) is given; x_scale: 0-d float32; w_q:
     [out, kh, kw, in] int8; w_s: [out]. `relu` applies ReLU after the
     cast, as the callers of the JAX function do (the kernel fuses it; ReLU
-    commutes with the rounding). Stride 1 only: the kernel's contract.
+    commutes with the rounding). `requant`: up to two (x_scale of a
+    consumer, pooled) pairs; the result is then (y, [int8 copies]), each
+    copy `quantize_act` of y, or of `max_pool(y, 2, 2)` when pooled, for
+    that consumer. Stride 1 only: the kernel's contract.
     """
     if stride != 1:
         raise ValueError("conv2d_int8: only stride 1 is supported")
     pad = C.conv_padding(padding, w_q.shape[1], w_q.shape[2])
-    xq = quantize_act(x, x_scale)
+    if xq is None:
+        xq = quantize_act(x, x_scale)
     return K.int8_conv(xq, w_q, x_scale, w_s, b, padding=pad,
-                       out_dtype=out_dtype, relu=relu)
+                       out_dtype=out_dtype, relu=relu, requant=requant)
 
 
 def dense_int8(x, x_scale, w_q, w_s, b=None, *, out_dtype=torch.bfloat16,
-               relu: bool = False):
+               relu: bool = False, xq=None):
     """int8 x int8 -> int32 matmul, dequantized into `out_dtype`.
-    x: [M, K] float activation; w_q: [N, K] int8; w_s: [N] float32."""
-    m, k = x.shape
+    x: [M, K] float activation, quantized here unless `xq` ([M, K] int8)
+    is given; w_q: [N, K] int8; w_s: [N] float32."""
+    if xq is None:
+        xq = quantize_act(x, x_scale)
+    m, k = xq.shape
     n = w_q.shape[0]
-    xq = quantize_act(x, x_scale).reshape(m, 1, 1, k)
-    y = K.int8_conv(xq, w_q.reshape(n, 1, 1, k), x_scale, w_s, b,
-                    out_dtype=out_dtype, relu=relu)
+    y = K.int8_conv(xq.reshape(m, 1, 1, k), w_q.reshape(n, 1, 1, k), x_scale,
+                    w_s, b, out_dtype=out_dtype, relu=relu)
     return y.reshape(m, n)
 
 

@@ -103,7 +103,7 @@ def test_port_layouts(jax_params):
 
 def test_port_init_matches_jax_structure(jax_params):
     g = torch.Generator().manual_seed(0)
-    port = TM.init_params(g, _small(TZ))
+    port = TM.init_params(g, _small(TZ), device="cpu")
     ref = bridge.from_jax_params(jax_params, _small(TZ))
     assert port.keys() == ref.keys()
     for name in ref:
@@ -114,11 +114,23 @@ def test_port_init_matches_jax_structure(jax_params):
     np.testing.assert_allclose(port["conv4_3_2x"]["w"].numpy(),
                                ref["conv4_3_2x"]["w"].numpy(), atol=0)
     # seeded: the same seed gives the same weights
-    again = TM.init_params(torch.Generator().manual_seed(0), _small(TZ))
+    again = TM.init_params(torch.Generator().manual_seed(0), _small(TZ),
+                           device="cpu")
     assert torch.equal(again["fc6"]["w"], port["fc6"]["w"])
     # msra std follows the HWIO fan-in: conv2_1 has fan_in 3*3*64
     std = port["conv2_1"]["w"].std().item()
     assert abs(std - (2.0 / 576) ** 0.5) < 0.1 * (2.0 / 576) ** 0.5
+
+
+def test_port_init_needs_a_card_or_an_explicit_cpu(monkeypatch):
+    """Without a card, the weights go to the CPU only when asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TM.init_params(g, _small(TZ))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TM.init_roi_head_params(g, _small(TZ))
+    assert TM.init_roi_head_params(g, _small(TZ), device="cpu")["fc6"]["w"].is_cpu
 
 
 def test_fc6_flatten_order(jax_params, rng):

@@ -76,7 +76,7 @@ def test_fused_backward_not_ported(rng):
 def test_trunk_pallas_conv1_wiring(rng):
     """trunk(pallas_conv1=True) == plain trunk from pool1 on (bf16 conv1)."""
     cfg = dataclasses.replace(TZ.tiny_test_config(), fc_dim=64)
-    params = TM.init_params(torch.Generator().manual_seed(0), cfg)
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     x = torch.from_numpy(rng.randn(1, 64, 96, 3).astype(np.float32))
     with torch.inference_mode():
         plain = TM.trunk(params, x, dataclasses.replace(cfg, pallas_conv1=False))

@@ -10,8 +10,10 @@ NMS must agree exactly (valid flags, boxes, scores). The conv1 kernels
 (K2, and K3 in every mode and tile) are held to atol 0.02 * max|ref|: both
 sides are bf16 with f32 accumulation (K3's mode bf16: f32 partial sums),
 summed in different orders. The int8 kernel must agree exactly in every
-epilogue: its int32 sums are exact, and its dequantization rounds where
-the plain version rounds.
+epilogue: its int32 sums are exact, its dequantization rounds where the
+plain version rounds, and its int8 copies (direct or through the 2x2 max
+pool) quantize the stored value with the plain quantizer's true division
+and half-to-even rounding.
 """
 
 import numpy as np
@@ -186,7 +188,15 @@ def int8_tensors(gen, cuda, xshape, wshape, misalign=False):
     (3, 7, 7, 64, 136, 3, 0, False),      # VALID (roi_c1's form), ragged F tile
     (1, 33, 70, 128, 256, 3, 1, False),   # many M and N tiles, K = 1152
     (1, 10, 11, 32, 72, 3, 1, True),      # misaligned activation
-], ids=["same_odd", "c3", "valid", "tiles", "misaligned"])
+    (2, 21, 35, 64, 64, 3, 1, False),     # C = 64: 64-byte TMA stages, F = 64
+    (1, 19, 27, 128, 512, 3, 1, False),   # 128-byte stages, 256-wide tile, ragged M
+    (5, 7, 7, 1024, 512, 3, 0, False),    # C = 1024 VALID: roi_c1's packed ROIs
+    (1, 3, 4, 128, 4096, 1, 0, False),    # F = 4096, whole images per tile
+    (1, 13, 21, 128, 64, 3, 1, False),    # 128-byte stages, 64-wide tile
+    (2, 11, 19, 128, 128, 3, 1, False),   # conv2_2's form: 128-wide N tile, ragged M
+    (5, 3, 5, 64, 64, 3, 1, False),       # whole small SAME images per tile
+], ids=["same_odd", "c3", "valid", "tiles", "misaligned", "c64_f64", "bn256",
+        "c1024_valid", "f4096", "bk128_f64", "bk128_f128", "packed_same"])
 def test_int8_conv_kernel_matches_plain(gen, cuda, out, b, h, w, c, f, k, pad,
                                         misalign):
     dtype, relu = INT8_OUT[out]
@@ -203,8 +213,8 @@ def test_int8_conv_kernel_matches_plain(gen, cuda, out, b, h, w, c, f, k, pad,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,f", [(1024, 12800, 256), (300, 27, 64),
-                                   (257, 4096, 8)],
-                         ids=["fc6_deep", "k_tail", "narrow"])
+                                   (257, 4096, 8), (130, 12800, 4096)],
+                         ids=["fc6_deep", "k_tail", "narrow", "fc6_wide"])
 def test_int8_dense_kernel_matches_plain(gen, cuda, m, k, f):
     x, w, xs, ws, b = int8_tensors(gen, cuda, (m, k), (f, k))
     got = IK.mm_int8(x, w)
@@ -216,6 +226,67 @@ def test_int8_dense_kernel_matches_plain(gen, cuda, m, k, f):
         want = TQ.dense_int8(xf.to(dtype).cpu(), xs.cpu(), w.cpu(), ws.cpu(),
                              b.cpu(), out_dtype=dtype, relu=True)
         assert torch.equal(got.cpu(), want)
+
+
+REQUANT = {"direct": (False,), "pooled": (True,), "both": (False, True),
+           "two_pooled": (True, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("copies", sorted(REQUANT))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,h,w,c,f,pad", [
+    (2, 17, 23, 64, 64, 1),       # odd H, W: ragged tiles and 1-pixel pool windows
+    (1, 9, 13, 3, 64, 1),         # C = 3: the gathered A
+    (1, 32, 16, 128, 256, 1),     # whole tiles, 256-wide N tile
+    (2, 7, 7, 1024, 136, 0),      # VALID, ragged F
+], ids=["odd", "c3", "even", "valid"])
+def test_int8_requant_copies_match_plain(gen, cuda, copies, dtype, b, h, w, c, f,
+                                         pad):
+    x, wq, xs, ws, bias = int8_tensors(gen, cuda, (b, h, w, c), (f, 3, 3, c))
+    # a scale that puts many outputs on exact .5 ties and some past the clip
+    scales = [torch.tensor(v, device=cuda) for v in (0.125, 0.0371)]
+    requant = [(s, p) for s, p in zip(scales, REQUANT[copies])]
+    kw = dict(padding=(pad, pad), out_dtype=dtype, relu=True, requant=requant)
+    want, want_q = IK.int8_conv_plain(x, wq, xs, ws, bias, **kw)
+    before = IK.launches
+    got, got_q = IK.int8_conv(x, wq, xs, ws, bias, **kw)
+    torch.cuda.synchronize()
+    assert IK.launches == before + 1
+    assert torch.equal(got, want)
+    assert len(got_q) == len(want_q) == len(requant)
+    for g, q, (_, pooled) in zip(got_q, want_q, requant):
+        assert g.dtype == torch.int8 and g.shape == q.shape
+        if pooled:
+            assert g.shape[1:3] == ((got.shape[1] + 1) // 2, (got.shape[2] + 1) // 2)
+        assert torch.equal(g, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.125, 0.0371, 0.0123457, 3.7e-3, 1.9e-6, 17.5])
+def test_int8_copy_quantizer_on_every_bf16_value(gen, cuda, scale):
+    """The epilogue's quantizer (a branch-free division) against the plain
+    one (a true division) on every finite bf16 value, and on random float32
+    values: a dense layer on x = 0 with x_s = w_s = 1 outputs its bias."""
+    vals = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    vals = vals.view(torch.bfloat16).float()
+    vals[~torch.isfinite(vals)] = 0.0
+    rand = torch.from_numpy((gen.randn(65536) * np.exp(gen.uniform(-20, 20, 65536)))
+                            .astype(np.float32))
+    for dtype, b in ((torch.bfloat16, vals), (torch.float32, rand)):
+        f = b.numel()
+        x = torch.zeros((16, 1, 1, 64), dtype=torch.int8, device=cuda)
+        w = torch.zeros((f, 1, 1, 64), dtype=torch.int8, device=cuda)
+        one = torch.tensor(1.0, device=cuda)
+        s = torch.tensor(scale, device=cuda)
+        args = (x, w, one, torch.ones(f, device=cuda), b.to(cuda))
+        kw = dict(out_dtype=dtype, requant=[(s, False), (s, True)])
+        got, got_q = IK.int8_conv(*args, **kw)
+        want, want_q = IK.int8_conv_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        for g, q in zip(got_q, want_q):
+            assert torch.equal(g, q)
 
 
 @pytest.mark.cuda
@@ -251,3 +322,12 @@ def test_int8_kernel_rejects_bad_input(gen, cuda):
     with pytest.raises(ValueError):
         IK.int8_conv_cuda(x, w, xs, ws[:8], b, padding=(1, 1),
                           out_dtype=torch.float32)
+    dq = dict(padding=(1, 1), out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                                  # int32 copies
+        IK.int8_conv_cuda(x, w, padding=(1, 1), requant=[(xs, False)])
+    with pytest.raises(ValueError):                                  # three copies
+        IK.int8_conv_cuda(x, w, xs, ws, b, requant=[(xs, False)] * 3, **dq)
+    with pytest.raises(ValueError):                                  # scale on the CPU
+        IK.int8_conv_cuda(x, w, xs, ws, b, requant=[(xs.cpu(), True)], **dq)
+    with pytest.raises(ValueError):                                  # scale not 0-d
+        IK.int8_conv_cuda(x, w, xs, ws, b, requant=[(ws, True)], **dq)

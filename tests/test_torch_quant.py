@@ -4,7 +4,9 @@ plain versions of the int8 kernel (K4), and the tiny int8 deploy graph.
 Integer arithmetic is exact on both sides, and the port rounds where JAX
 rounds (true float32 division in the quantize, half to even, the
 dequantization's multiply-then-add in float32), so the quantizers, the
-int8 conv and dense layers and the trunk features are compared bit for
+int8 conv and dense layers, the int8 copies a layer writes for the layers
+it feeds (JAX quantizes those inputs in the consumer, after the max pool),
+the trunk features and the int8 deploy's KITTI text are compared bit for
 bit. Calibration runs the float trunk, which the two frameworks sum in
 different orders: its scales agree to rtol 1e-5. The layers after the
 trunk (float heads, proposals, the ROI head) keep the float tolerances of
@@ -23,10 +25,13 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from mscnn_tpu import inference as JI
 from mscnn_tpu.models import mscnn as JM
 from mscnn_tpu.models import zoo as JZ
+from mscnn_tpu.ops import conv as JC
 from mscnn_tpu.ops import quant as JQ
 from mscnn_torch import inference as TI
+from mscnn_torch.examples import profile_int8_mxu as P8
 from mscnn_torch.io import bridge
 from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
@@ -135,6 +140,52 @@ def test_dense_int8_matches_jax_bitwise(rng, dtype):
     np.testing.assert_array_equal(f32(got), f32(want))
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("c", [3, 16, 64])
+@pytest.mark.parametrize("padding,hw", [("SAME", (9, 13)), ("VALID", (8, 11))],
+                         ids=["same_odd", "valid_odd"])
+def test_requant_copies_match_jax_quantize(rng, dtype, c, padding, hw):
+    """The int8 copies of a layer's output (plain version) == JAX's
+    quantize_act of conv2d_int8 + ReLU, and of its 2x2 ceil-mode max pool
+    (odd output sizes: 1-pixel windows at the edge), on .5 ties too."""
+    jdt, tdt = DTYPES[dtype]
+    x = (rng.randn(2, *hw, c) * 20).astype(np.float32)
+    w = (rng.randn(3, 3, c, 24) * 0.1).astype(np.float32)
+    b = np.round(rng.randn(24) * 64).astype(np.float32) / 128
+    # power-of-two scales keep y dyadic, so y / s_tie lands on .5 steps
+    xs = np.float32(2.0 ** -3)
+    w_q, _ = JQ.quantize_weight(jnp.asarray(w))
+    w_s = jnp.full((24,), 2.0 ** -(6 + c.bit_length()), jnp.float32)
+    xj = jnp.asarray(x, jdt)
+    y = jax.nn.relu(JQ.conv2d_int8(xj, jnp.float32(xs), w_q, w_s, jnp.asarray(b),
+                                   padding=padding, out_dtype=jdt))
+    pooled = JC.max_pool(y, 2, 2)
+    s_tie = np.float32(2.0 ** -5)      # y / s_tie = 32 y: many exact .5 steps
+    s_cal = np.float32(np.abs(np.asarray(y, np.float32)).max() / 127)
+    ratio = f32(y) / s_tie
+    assert np.any((np.abs(ratio) < 127) & (ratio % 1 == 0.5))
+    want = [JQ.quantize_act(y, jnp.float32(s_tie)),
+            JQ.quantize_act(pooled, jnp.float32(s_tie)),
+            JQ.quantize_act(pooled, jnp.float32(s_cal))]
+    requant = [(t(s_tie), False), (t(s_tie), True)]
+    args = (t(f32(xj)).to(tdt), t(xs), bridge.leaf_to_port(np.asarray(w_q), "w_q"),
+            t(w_s), t(b))
+    got_y, got = TQ.conv2d_int8(*args, padding=padding, out_dtype=tdt, relu=True,
+                                requant=requant)
+    _, got_cal = TQ.conv2d_int8(*args, padding=padding, out_dtype=tdt, relu=True,
+                                requant=[(t(s_cal), True)])
+    np.testing.assert_array_equal(f32(got_y), f32(y))
+    for g, wq in zip(got + got_cal, want):
+        assert g.dtype == torch.int8 and tuple(g.shape) == wq.shape
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wq))
+    # the copy is the next layer's input: running on it is running on y
+    nxt = (t(s_tie), bridge.leaf_to_port(np.asarray(w_q[:, :, :1].repeat(24, 2)),
+                                         "w_q"), t(w_s))
+    np.testing.assert_array_equal(
+        f32(TQ.conv2d_int8(None, *nxt, out_dtype=tdt, xq=got[0])),
+        f32(TQ.conv2d_int8(got_y, *nxt, out_dtype=tdt)))
+
+
 def _probe_module():
     path = os.path.join(ROOT, "examples", "profile_int8_mxu.py")
     spec = importlib.util.spec_from_file_location("profile_int8_mxu", path)
@@ -165,6 +216,26 @@ def test_mm_int8_plain_matches_pallas_k4(rng):
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
         np.testing.assert_array_equal(got.numpy(), np.asarray(oracle))
+
+
+def test_int8_probe_runs_on_cpu_at_a_tiny_size(monkeypatch):
+    """The ported probe's check and timing parts on CPU tensors (the plain
+    versions): K4's conv and matmul bit-exact, every time finite."""
+    chain = dict(n_lo=1, n_hi=2, reps=1)
+    convs = P8.probe_convs(torch.device("cpu"),
+                           (("tiny", (1, 6, 10, 64), (3, 3, 64, 16)),),
+                           chain=chain, peak=1e12)
+    assert convs[0]["int8_bit_exact"] and convs[0]["int8_share_of_int8_peak"] > 0
+    assert np.isfinite([convs[0]["bf16_ms"], convs[0]["int8_ms"]]).all()
+    mms = P8.probe_matmuls(torch.device("cpu"), (("tiny", 64, 96, 32),),
+                           chain=chain)
+    assert mms[0]["k4_bit_exact"] and np.isfinite(mms[0]["k4_ms"])
+    assert mms[0]["k4_share_of_int8_peak"] is None          # no peak on the CPU
+    assert mms[0].get("int_mm_bit_exact", True)
+    assert [c[2:] for c in P8.MM_CASES] == [(576, 128), (64, 128), (512, 512)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="card"):
+        P8.main()
 
 
 def test_int8_plain_versions_exact_at_depth(rng):
@@ -292,6 +363,60 @@ def test_int8_trunk_features_match_jax_bitwise(int8_run):
     for k in want:
         assert tuple(got[k].shape) == want[k].shape, k
         np.testing.assert_array_equal(f32(got[k]), want[k], err_msg=k)
+
+
+def test_int8_producers_write_their_consumers_inputs(tiny, int8_run, monkeypatch):
+    """On the int8 deploy, quantize_act runs on the image (conv1_1) and the
+    ROI gathers (roi_c1) only; every other int8 layer runs on the int8 copy
+    its producer's epilogue wrote, and the results are the run's above
+    (held bit for bit to JAX)."""
+    cfg = int8_run["cfg_t"]
+    feeds = TM.int8_feeds(tiny["qt"], cfg)
+    assert feeds["conv4_3"] == [("conv5_1", True), ("loss1_conv1", False)]
+    assert feeds["conv1_2"] == [("conv2_1", True)]
+    assert feeds["conv5_3"] == [("conv6_1", True)]
+    assert sum(len(v) for v in feeds.values()) == 14   # every int8 conv but conv1_1
+    seen = []
+    quantize = TQ.quantize_act
+
+    def counting(x, x_scale):
+        seen.append(tuple(x.shape))
+        return quantize(x, x_scale)
+
+    monkeypatch.setattr(TQ, "quantize_act", counting)
+    x = t((np.random.RandomState(1).randn(2, 64, 96, 3) * 40).astype(np.float32))
+    with torch.inference_mode():
+        out = TM.deploy_forward(tiny["qt"], x, cfg)
+    rois = 2 * cfg.proposal.max_out
+    assert seen == [(2, 64, 96, 3), (rois, 7, 7, 1024)]
+    for k in ("cls_pred", "bbox_pred", "rois"):
+        assert torch.equal(out[k], int8_run["tout"][k]), k
+    seen.clear()
+    with torch.inference_mode():
+        TM.deploy_forward(tiny["qt"], x, dataclasses.replace(cfg, int8_roi_head=False))
+    assert seen == [(2, 64, 96, 3)]
+
+
+def test_int8_e2e_kitti_text_matches_jax(tiny, int8_run, tmp_path):
+    """uint8 image -> the int8 deploy (trunk + heads) -> per-class NMS ->
+    KITTI label text: the port's file equals JAX's byte for byte."""
+    img = np.random.RandomState(7).randint(0, 256, (64, 96, 3)).astype(np.uint8)
+    ratios = np.asarray([1.0, 1.0], np.float32)
+    orig = np.asarray([96.0, 64.0], np.float32)
+    names = ("bg", "Car", "Pedestrian")
+    want = JI.make_e2e_forward(tiny["qj"], int8_run["cfg_j"])(
+        tiny["qj"], jnp.asarray(img), jnp.asarray(ratios), jnp.asarray(orig))
+    got = TI.make_e2e_forward(tiny["qt"], int8_run["cfg_t"])(
+        tiny["qt"], t(img), t(ratios), t(orig))
+    JI.write_kitti_labels(JI.detections_to_kitti(
+        {k: np.asarray(want[k]) for k in ("boxes", "scores", "valid")}, names),
+        str(tmp_path / "jax"), 0)
+    TI.write_kitti_labels(TI.detections_to_kitti(
+        {k: got[k] for k in ("boxes", "scores", "valid")}, names),
+        str(tmp_path / "port"), 0)
+    text = (tmp_path / "port" / "000000.txt").read_bytes()
+    assert text == (tmp_path / "jax" / "000000.txt").read_bytes()
+    assert text.count(b"\n") == int(got["valid"].sum()) > 0
 
 
 def test_int8_deploy_forward_matches_jax(int8_run):
