@@ -7,6 +7,11 @@ hand-written kernel `mscnn_torch/csrc/conv1_pool.cu`, and
 `conv1_pool_fused` dispatches by device: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes the plain version.
 
+The kernel computes what the JAX kernel computes: w1 and w2 rounded to
+bf16 (conv1_kernel.py:235), conv1_1's output rounded to bf16 before
+conv1_2, f32 sums. `pack_conv1_weights` lays the weights out for it (a
+plain function, so the CPU tests can check the layout the kernel reads).
+
 The forward is ported; the backward (the VJP of the unfused formulation)
 waits for the training slice, so a call that would need a gradient raises.
 
@@ -20,6 +25,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from mscnn_torch.ops import conv as C
 
@@ -66,6 +72,63 @@ def check_cuda_args(name, x, w1, b1, w2, b2):
             raise ValueError(f"{name}: weights on another device")
 
 
+def swizzle128(rows):
+    """[..., R, 64] bf16 -> the same rows (128 bytes each) in the 128-byte
+    swizzle that a wgmma descriptor reads: the 16-byte chunk c (elements
+    8c .. 8c + 7) of row r is stored at chunk c ^ (r % 8)."""
+    *lead, r, _ = rows.shape
+    w = rows.reshape(*lead, r, 8, 8)
+    row = torch.arange(r, device=rows.device)[:, None]
+    dst = torch.arange(8, device=rows.device)[None, :] ^ (row % 8)
+    out = torch.empty_like(w)
+    out[..., row, dst, :] = w
+    return out.reshape(rows.shape).contiguous()
+
+
+def pack_conv1_weights(w1, b1, w2, b2):
+    """The operands of the K2 kernel, from OIHW weights and [64] biases, every
+    value rounded to bf16 first (as the plain version rounds them):
+
+      w1 [64 co, 64 k] bf16, k = dy * 16 + dx * 4 + c (zero where dx or c
+         is 3 and for k >= 48), swizzled: conv1_1's B operand, one 16-deep
+         slice a kernel row;
+      b1 [64] f32;
+      w2 [9, 64 co, 64 ci] bf16, tap = dy * 3 + dx, each tap's block
+         swizzled: conv1_2's A operand, read by ldmatrix;
+      b2 [64] f32.
+    """
+    def bias(b):
+        return b.to(torch.bfloat16).to(torch.float32).contiguous()
+    wk = torch.zeros((64, 3, 4, 4), dtype=torch.bfloat16, device=w1.device)
+    wk[:, :, :3, :3] = w1.permute(0, 2, 3, 1).to(torch.bfloat16)   # co, dy, dx, c
+    w1p = F.pad(wk.reshape(64, 48), (0, 16))
+    w2p = w2.permute(2, 3, 0, 1).reshape(9, 64, 64).to(torch.bfloat16)
+    return swizzle128(w1p), bias(b1), swizzle128(w2p), bias(b2)
+
+
+def packed_weights(w1, b1, w2, b2):
+    """`pack_conv1_weights`, kept on w2 (attribute `_conv1_packed`, so it
+    lives and dies with w2, and each weight set has its own) and reused
+    while w2 comes back with the same w1, b1, b2, all four unmodified (the
+    deploy graph passes the same weights every step). The key is the three
+    other tensors themselves, and each tensor's storage address and version
+    counter: an in-place update or a new storage repacks. A write through
+    `.data` moves no version counter and is not seen. Tensors without a
+    version counter (made in inference mode) are packed every call."""
+    src = (w1, b1, w2, b2)
+    try:
+        key = tuple((t.data_ptr(), t._version) for t in src)
+    except RuntimeError:
+        return pack_conv1_weights(*src)
+    hit = getattr(w2, "_conv1_packed", None)
+    if hit is not None and hit[1] == key and \
+            all(a is b for a, b in zip(hit[0], (w1, b1, b2))):
+        return hit[2]
+    packed = pack_conv1_weights(*src)
+    w2._conv1_packed = ((w1, b1, b2), key, packed)
+    return packed
+
+
 def conv1_pool_cuda(x, w1, b1, w2, b2):
     """Launch the fused kernel. x: [B, H, W, 3] bf16, contiguous, on CUDA."""
     global launches
@@ -73,19 +136,14 @@ def conv1_pool_cuda(x, w1, b1, w2, b2):
     dev = x.device
     x = x.contiguous()
     B, H, W, _ = x.shape
-    # repack once per call: w1 [dy][dx][ci][co] f32 for the CUDA-core conv1_1,
-    # w2 [dy][dx][co][ci] bf16 (k-contiguous B operand of the tensor-core conv1_2)
-    w1p = w1.permute(2, 3, 1, 0).to(torch.float32).contiguous()
-    w2p = w2.permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()
-    b1f = b1.to(torch.float32).contiguous()
-    b2f = b2.to(torch.float32).contiguous()
+    w1p, b1p, w2p, b2p = packed_weights(w1, b1, w2, b2)
     out = torch.empty((B, (H + 1) // 2, (W + 1) // 2, 64), dtype=torch.bfloat16,
                       device=dev)
     if out.numel() == 0:
         return out
     with torch.cuda.device(dev):
-        rc = _kernel_fn()(x.data_ptr(), w1p.data_ptr(), b1f.data_ptr(),
-                          w2p.data_ptr(), b2f.data_ptr(), out.data_ptr(),
+        rc = _kernel_fn()(x.data_ptr(), w1p.data_ptr(), b1p.data_ptr(),
+                          w2p.data_ptr(), b2p.data_ptr(), out.data_ptr(),
                           B, H, W, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"conv1_pool kernel launch failed: cudaError {rc}")

@@ -2,11 +2,14 @@
 
 Replaces the Pallas TPU kernel `mscnn_tpu/ops/pallas/nms_kernel.py::
 nms_pallas`; the contract is `mscnn_tpu/ops/nms.py::nms_xywh`. The kernel
-is `mscnn_torch/csrc/nms.cu` (one CTA per independent problem); its plain
-PyTorch version is `mscnn_torch/ops/nms.py::nms_xywh_plain`, and
-`ops/nms.py::nms_xywh` dispatches between the two by device.
+is `mscnn_torch/csrc/nms.cu`: one launch, one CTA per independent problem,
+which sorts the boxes into scan order in shared memory and runs greedy NMS
+as a scan over that order. Its plain PyTorch version is
+`mscnn_torch/ops/nms.py::nms_xywh_plain`, and `ops/nms.py::nms_xywh`
+dispatches between the two by device.
 
-`launches` counts the kernel launches made through `nms_xywh_cuda`.
+`launches` counts the calls of `nms_xywh_cuda` that launched the kernel
+(one device kernel a call).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import ctypes
 import torch
 
 MODES = {"iou": 0, "iomu": 1, "iofu": 2}
+MAX_N = 4096   # boxes a problem: the sort keys and boxes fit shared memory
 launches = 0
 _fn = None
 
@@ -59,12 +63,14 @@ def nms_xywh_cuda(boxes, scores, valid, *, iou_thr: float, mode: str = "iou",
     if max_out < 1:
         raise ValueError("nms_xywh_cuda: max_out must be >= 1")
     p, n = scores.shape
+    if n > MAX_N:
+        raise ValueError(f"nms_xywh_cuda: N = {n} boxes a problem, at most {MAX_N}")
     dev = boxes.device
     out_b = torch.empty((p, max_out, 4), dtype=torch.float32, device=dev)
     out_s = torch.empty((p, max_out), dtype=torch.float32, device=dev)
     out_v = torch.empty((p, max_out), dtype=torch.bool, device=dev)
-    if p == 0:
-        return out_b, out_s, out_v
+    if p == 0 or n == 0:
+        return out_b.zero_(), out_s.zero_(), out_v.zero_()
     if boxes.data_ptr() % 16:          # the kernel reads float4 rows
         boxes = boxes.clone()
     with torch.cuda.device(dev):
