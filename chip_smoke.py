@@ -10,23 +10,28 @@ Phases (any failure exits non-zero, before the result line):
                 version at the deploy path's two shapes and, in each IoU
                 mode, at N = 1, N = 3072, with every score equal and with
                 nothing valid: exactly equal;
-  3. conv1   -- the fused conv1 kernel (persistent, conv1_2 on wgmma)
-                against its plain version at [4, 768, 2560, 3], at odd
-                sizes, below one tile and where the tiles wrap the grid,
-                and with float32 w1 on the path's image: atol 0.02 *
-                max|ref|, at most 2 bf16 ulps of max|ref| and at least 0.99
-                of the outputs bit-equal (conv1_1 from float32 w1 on the
-                path's image, the control, must fail those gates);
-                and bit for bit on an input whose sums are exact and whose
-                w1 lies halfway between bf16 values (conv1_1 must use the
-                bf16-rounded w1);
-  3b. conv1_v5 -- K3, the conv1 kernel with a selectable MMA schedule, in
-                each mode (serial, mc, flat, bf16) against its plain version
-                at the probe's [1, 768, 2560, 3] and at [1, 19, 37, 3], and
-                in the default mode at [4, 768, 2560, 3]: atol 0.02 *
-                max|ref| (and the share of bit-equal outputs in mode bf16);
-                serial / mc / flat within the same bound of K2's kernel on
-                the same input; bf16 measurably different from serial;
+  3. conv1   -- first the bias rounding of `C.conv2d` and `C.dense` in bf16
+                with nonzero biases at a trunk conv's and fc6's shapes: bit
+                for bit bf16(bf16(op without bias) + bf16(b)), as the JAX
+                package rounds; then the fused conv1 kernel (K2) against
+                its plain version at [4, 768, 2560, 3] (with zero and with
+                nonzero biases), at odd sizes, below one tile and where the
+                tiles wrap the grid, and with float32 w1 on the path's
+                image: atol 0.02 * max|ref|, at most 2 bf16 ulps of
+                max|ref| and at least 0.99 of the outputs bit-equal
+                (conv1_1 from float32 w1 on the path's image, the control,
+                must fail those gates); and bit for bit on an input whose
+                sums are exact and whose w1 lies halfway between bf16
+                values (conv1_1 must use the bf16-rounded w1);
+  3b. conv1_v5 -- K3, the conv1 kernel with a selectable MMA schedule (K2's
+                schedule with the probe's rounding points), in each mode
+                (serial, mc, flat, bf16) and each compiled tile against its
+                plain version at the probe's [1, 768, 2560, 3], at [1, 19,
+                37, 3] and at [4, 768, 2560, 3], with the probe's zero
+                biases and with nonzero ones: K2's gate (atol, 2 ulps,
+                share 0.99); with zero biases serial / mc / flat against
+                K2's kernel on the same input by the same gate; bf16
+                measurably different from serial;
   4. int8    -- the int8 kernel (K4: wgmma + TMA) against its exact plain
                 version at the TPU probe's three matmul shapes and at every
                 int8 conv / dense shape of the int8 deploy path, raw int32,
@@ -427,7 +432,37 @@ def main():
         log(f"nms: P={p} N={n} max_out={max_out} thr={thr} {mode}"
             f"{f' ({edge})' if edge else ''}: equal ({int(got[2].sum())} kept)")
 
-    # -- 3. conv1 kernel vs plain --------------------------------------------
+    # -- 3. the bias rounding of C.conv2d / C.dense, then K2 vs plain ---------
+    # in bf16 with nonzero biases the port rounds as mscnn_tpu/ops/conv.py:
+    # the op's output to bf16, then a bf16 add of the bf16 bias; the
+    # single-call form (the bias inside F.conv2d / F.linear) is logged beside
+    rgen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for tag, x_, w_, b_ in (
+            ("conv2d conv3_1 [4, 192, 640, 128]",
+             torch.randn((4, 192, 640, 128), generator=rgen, device=dev),
+             torch.randn((256, 128, 3, 3), generator=rgen, device=dev) * 0.05,
+             torch.randn((256,), generator=rgen, device=dev) * 0.5),
+            ("dense fc6 [1024, 12800]",
+             torch.randn((1024, 12800), generator=rgen, device=dev),
+             torch.randn((4096, 12800), generator=rgen, device=dev) * 0.01,
+             torch.randn((4096,), generator=rgen, device=dev) * 0.5)):
+        x_, w_ = x_.bfloat16(), w_.bfloat16()
+        conv = tag.startswith("conv2d")
+        got = C.conv2d(x_, w_, b_) if conv else C.dense(x_, w_, b_)
+        bare = C.conv2d(x_, w_) if conv else C.dense(x_, w_)
+        want = bare + b_.bfloat16()   # bf16 + bf16: the exact sum rounded once
+        once = (F.conv2d(x_.permute(0, 3, 1, 2), w_, b_.bfloat16(), padding=1)
+                .permute(0, 2, 3, 1) if conv else F.linear(x_, w_, b_.bfloat16()))
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16 or not torch.equal(got, want):
+            fail(f"{tag}: the bf16 bias add does not round as the reference "
+                 f"(share {(got == want).float().mean().item()})")
+        log(f"bias rounding {tag}, bf16, nonzero biases: equal to bf16(bf16(op) + "
+            f"bf16(b)) bit for bit; the bias inside the call agrees at "
+            f"{(once == want).float().mean().item():.6f} of the outputs")
+        del x_, w_, b_, got, bare, want, once
+    torch.cuda.empty_cache()
+
     cfg = dataclasses.replace(zoo.kitti_car_8s_768(deploy=True, max_out=256),
                               compute_dtype="bfloat16", pallas_conv1=True)
     t0 = time.perf_counter()
@@ -441,7 +476,7 @@ def main():
     conv1_max_err = 0.0
     conv1_min_share = 1.0
 
-    def conv1_check(x, tag, w1=w1):
+    def conv1_check(x, tag, w1=w1, b1=b1, b2=b2):
         nonlocal conv1_max_err, conv1_min_share
         got = CK.conv1_pool_fused(x, w1, b1, w2, b2).float()
         want = CK.conv1_pool_plain(x, w1, b1, w2, b2).float()
@@ -486,6 +521,11 @@ def main():
                        ((4, 200, 330, 3), "tiles wrap the grid"),
                        ((2, 33, 71, 3), "W not a multiple of 8")):
         conv1_check((torch.randn(shape, generator=gen) * 50).to(dev).bfloat16(), tag)
+    # nonzero biases (randn * 0.5; init_params gives zeros): the plain
+    # version adds them where conv.py does, to the conv's bf16 output in bf16
+    bgen = torch.Generator().manual_seed(SEED + 1)
+    nb1, nb2 = ((torch.randn(64, generator=bgen) * 0.5).to(dev) for _ in range(2))
+    conv1_check(path_x, "path shape, nonzero biases", b1=nb1, b2=nb2)
     # conv1_1 from bf16 weights: w1 = 1 + 2^-8 (halfway between two bf16
     # values), an all-ones input, w2 of small exact values -- every sum exact
     # in f32, so the kernel equals the plain version bit for bit; float32
@@ -506,49 +546,62 @@ def main():
         f"{(old != want).float().mean().item():.4f} of the outputs")
     del got, want, y1_old, old
 
-    # -- 3b. K3 (conv1_v5) vs plain, every mode ---------------------------------
+    # -- 3b. K3 (conv1_v5) vs plain: every mode and tile, zero and nonzero
+    #        biases, with K2's gate --------------------------------------------
     k3_max_err = 0.0
-
-    def k3_check(x, ws, mode, tag):
-        nonlocal k3_max_err
-        got = K3.conv1_v5(x, *ws, mode=mode).float()
-        want = K3.conv1_v5_plain(x, *ws, mode=mode).float()
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        tol = 0.02 * want.abs().max().item()
-        eq = (got == want).float().mean().item()
-        log(f"conv1_v5 {mode} {tag}: {tuple(x.shape)} max_abs_err {err:.4g} "
-            f"(atol {tol:.4g}), bit-equal share {eq:.6f}")
-        if not (got.shape == want.shape and err <= tol):
-            fail(f"conv1_v5 kernel != plain in mode {mode} at {tag} "
-                 f"{tuple(x.shape)}: {err} > {tol}")
-        k3_max_err = max(k3_max_err, err)
-        return got, tol
-
+    k3_min_share = 1.0
     probe_in = P5.make_inputs(dev)   # the probe's x [1, 768, 2560, 3] and weights
+    zb = torch.zeros(64, device=dev)
     zero_counts()
-    for tag, x, ws in (("probe shape", probe_in[0], probe_in[1:]),
-                       ("odd size", odd_x, (w1, b1, w2, b2))):
-        k2 = CK.conv1_pool_fused(x, *ws).float()
-        outs = {}
-        for mode in P5.MODES:
-            outs[mode], tol = k3_check(x, ws, mode, tag)
-            if mode != "bf16":   # K2's function
-                e2 = (outs[mode] - k2).abs().max().item()
-                log(f"conv1_v5 {mode} {tag}: vs K2's kernel max_abs_err {e2:.4g}")
-                if e2 > tol:
-                    fail(f"conv1_v5 {mode} != K2's kernel at {tag}: {e2} > {tol}")
-        differ = (outs["bf16"] != outs["serial"]).float().mean().item()
-        log(f"conv1_v5 bf16 vs serial {tag}: {differ:.4f} of the outputs differ")
-        if differ == 0:
-            fail(f"conv1_v5 mode bf16 gave mode serial's output at {tag}")
-        del outs, k2
-    k3_check((imgs.float() - mean).bfloat16(), (w1, b1, w2, b2), "mc", "deploy batch")
+    for tag, x in (("probe shape", probe_in[0].bfloat16()), ("odd size", odd_x),
+                   ("deploy batch", path_x)):
+        kw1, kw2 = (probe_in[1], probe_in[3]) if tag == "probe shape" else (w1, w2)
+        for btag, (kb1, kb2) in (("zero biases", (zb, zb)), ("nonzero biases", (nb1, nb2))):
+            ws = (kw1, kb1, kw2, kb2)
+            outs = {}
+            for mode in P5.MODES:
+                want = K3.conv1_v5_plain(x, *ws, mode=mode).float()
+                for th, tq in K3.TILES:
+                    got = K3.conv1_v5_cuda(x, *ws, tile_h=th, tile_q=tq, mode=mode).float()
+                    torch.cuda.synchronize()
+                    err, tol, eq, ulps, ok = conv1_compare(got, want)
+                    log(f"conv1_v5 {mode} {th}x{tq} {tag}, {btag}: {tuple(x.shape)} "
+                        f"max_abs_err {err:.4g} (atol {tol:.4g}, ulp limit {ulps:.4g}), "
+                        f"bit-equal share {eq:.6f}")
+                    if not ok:
+                        fail(f"conv1_v5 kernel != plain in mode {mode}, tile {th}x{tq}, "
+                             f"at {tag} {tuple(x.shape)} with {btag}: max_abs_err {err} "
+                             f"(atol {tol}, ulp limit {ulps}), bit-equal share {eq}")
+                    k3_max_err = max(k3_max_err, err)
+                    k3_min_share = min(k3_min_share, eq)
+                    if (th, tq) == K3.DEFAULT_TILE:
+                        outs[mode] = got
+                    del got
+                del want
+            # with zero biases the f32 modes compute K2's function (with
+            # nonzero ones K3 adds them in f32, K2 in bf16: another function)
+            if btag == "zero biases":
+                k2 = CK.conv1_pool_fused(x, *ws).float()
+                for mode in ("serial", "mc", "flat"):
+                    err, _, eq, _, ok = conv1_compare(outs[mode], k2)
+                    log(f"conv1_v5 {mode} {tag}: vs K2's kernel max_abs_err {err:.4g}, "
+                        f"bit-equal share {eq:.6f}")
+                    if not ok:
+                        fail(f"conv1_v5 {mode} != K2's kernel at {tag}: max_abs_err {err}, "
+                             f"bit-equal share {eq}")
+                del k2
+            differ = (outs["bf16"] != outs["serial"]).float().mean().item()
+            log(f"conv1_v5 bf16 vs serial {tag}, {btag}: {differ:.4f} of the outputs differ")
+            if differ == 0:
+                fail(f"conv1_v5 mode bf16 gave mode serial's output at {tag}, {btag}")
+            del outs
+            torch.cuda.empty_cache()
     k3_phase = K3.launches
-    if k3_phase != 2 * len(P5.MODES) + 1:
+    if k3_phase != 3 * 2 * len(P5.MODES) * len(K3.TILES):
         fail(f"the conv1_v5 phase launched K3 {k3_phase} times, expected "
-             f"{2 * len(P5.MODES) + 1}")
-    log(f"conv1_v5: {k3_phase} launches in the phase, all within atol")
+             f"{3 * 2 * len(P5.MODES) * len(K3.TILES)}")
+    log(f"conv1_v5: {k3_phase} launches in the phase, every one within the gate "
+        f"(lowest bit-equal share {k3_min_share:.6f})")
     torch.cuda.empty_cache()
 
     # -- 4. int8 kernel vs plain, raw int32 ------------------------------------
@@ -1133,7 +1186,7 @@ def main():
             f"{1 - busy_share:.4f}; {len(busy)} device events")
         for n_, (cnt, t_) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
             log(f"trace kernel {t_ / 1e3:9.3f} ms {cnt:5d}x  {n_[:110]}")
-        for ours in ("nms_kernel", "conv1_pool_kernel"):
+        for ours in ("nms_kernel", "conv1_block_kernel"):   # K1, K2 (K3 is not on the path)
             hits = [(cnt, t_) for n_, (cnt, t_) in by_name.items() if ours in n_]
             log(f"trace {ours}: " + (f"{sum(t_ for _, t_ in hits) / 1e3:.4f} ms in "
                                      f"{sum(c for c, _ in hits)} launches over two steps"
@@ -1189,10 +1242,15 @@ def main():
          "source": "mscnn_torch/csrc/conv1_v5.cu",
          "replaces": "examples/profile_conv1_v5.py:160",
          "launches": probe_launches["conv1_v5"], "max_abs_err": k3_max_err,
+         "min_bit_equal_share": k3_min_share,
          "ms": k3["1x768x2560"]["kernel"][f"{default_mode}_{th0}x{tq0}"],
          "plain_ms": k3["1x768x2560"]["plain"][default_mode],
          "bound_ms": k3["1x768x2560"]["bound"][0],
-         "bound_by": k3["1x768x2560"]["bound"][1], "library_ms": None,
+         "bound_by": k3["1x768x2560"]["bound"][1],
+         "library_ms": sum(k3["1x768x2560"]["cudnn"].values()),
+         "library_call": "cuDNN unfused conv1_1 + conv1_2 + pool1 (three calls; no one "
+                         "PyTorch call fuses the block)",
+         "design": "K2's persistent wgmma schedule (conv1_block.cuh)",
          "shape": "[1, 768, 2560, 3], mode mc, tile 16x16 (the probe's path)",
          "ms_by_mode": {m: k3["1x768x2560"]["kernel"][f"{m}_{th0}x{tq0}"]
                         for m in P5.MODES},

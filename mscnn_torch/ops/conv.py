@@ -47,13 +47,24 @@ def conv_padding(padding, kh: int, kw: int):
     return plh, plw
 
 
+def _add_bias(y, b, dtype):
+    """`y + b` where JAX adds the bias: `y` is the op's output, already
+    rounded to `dtype` (the input's), and the bias is cast to that dtype
+    and added in it (in bf16 a second rounding)."""
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y.to(dtype)
+
+
 def conv2d(x, w, b=None, *, stride: int = 1, padding="SAME"):
-    """2-D convolution, NHWC x OIHW -> NHWC; padding as `conv_padding`."""
+    """2-D convolution, NHWC x OIHW -> NHWC; padding as `conv_padding`.
+
+    Rounds as `mscnn_tpu/ops/conv.py::conv2d` does: the convolution's
+    output in x's dtype, then the bias add in that dtype (two roundings in
+    bf16; passing the bias into `F.conv2d` would round once)."""
     pad = conv_padding(padding, w.shape[2], w.shape[3])
-    y = F.conv2d(_nchw(x), w.to(x.dtype),
-                 None if b is None else b.to(x.dtype), stride=stride,
-                 padding=pad)
-    return _nhwc(y)
+    y = F.conv2d(_nchw(x), w.to(x.dtype), stride=stride, padding=pad)
+    return _add_bias(_nhwc(y), b, x.dtype)
 
 
 def _as_pair(v):
@@ -117,11 +128,11 @@ def avg_pool(x, k=2, stride=2, pad=0, ceil_mode: bool = True):
 
 def deconv2d(x, w, b=None, *, stride: int = 2, pad: int = 1, groups: int = 1):
     """Transposed convolution, NHWC. w: [in, out/groups, kh, kw] (the
-    PyTorch layout of the JAX HWIO forward-orientation kernel)."""
-    y = F.conv_transpose2d(_nchw(x), w.to(x.dtype),
-                           None if b is None else b.to(x.dtype),
-                           stride=stride, padding=pad, groups=groups)
-    return _nhwc(y)
+    PyTorch layout of the JAX HWIO forward-orientation kernel). The bias
+    is added after the output is rounded to x's dtype, as in `conv2d`."""
+    y = F.conv_transpose2d(_nchw(x), w.to(x.dtype), stride=stride,
+                           padding=pad, groups=groups)
+    return _add_bias(_nhwc(y), b, x.dtype)
 
 
 def bilinear_kernel(k: int, channels: int, dtype=torch.float32, device=None):
@@ -144,5 +155,6 @@ def upsample2x_bilinear(x, kernel=None):
 
 
 def dense(x, w, b=None):
-    """Fully-connected layer: x [..., D] with w [O, D] -> [..., O]."""
-    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+    """Fully-connected layer: x [..., D] with w [O, D] -> [..., O]. The bias
+    is added after the product is rounded to x's dtype, as in `conv2d`."""
+    return _add_bias(F.linear(x, w.to(x.dtype)), b, x.dtype)

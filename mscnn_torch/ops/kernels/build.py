@@ -2,11 +2,11 @@
 
 New in the port. Each `mscnn_torch/csrc/<name>.cu` has a plain C interface
 and is compiled by `nvcc` alone into `mscnn_torch/build/<name>-<hash>.so`
-(the directory is git-ignored), keyed by a hash of the source and the
-flags, at first use. `build()` starts one `nvcc` per source, all at once,
-and waits for them; `load(name)` builds if needed and returns the
-`ctypes.CDLL`. Nothing here runs at import: the CPU tests import every
-module of the port on machines with no `nvcc`.
+(the directory is git-ignored), keyed by a hash of the source, the
+headers of csrc/ and the flags, at first use. `build()` starts one `nvcc`
+per source, all at once, and waits for them; `load(name)` builds if
+needed and returns the `ctypes.CDLL`. Nothing here runs at import: the
+CPU tests import every module of the port on machines with no `nvcc`.
 """
 
 from __future__ import annotations
@@ -44,9 +44,14 @@ def nvcc_path() -> str:
 
 
 def _paths(name: str):
+    """(source, library): the library's name hashes the source, every
+    header of csrc/ (a source may include any of them) and the flags."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     tag = digest.hexdigest()[:16]
     lib = os.path.join(BUILD_DIR, f"{name}-{tag}.so")
     return src, lib

@@ -86,8 +86,9 @@ def swizzle128(rows):
 
 
 def pack_conv1_weights(w1, b1, w2, b2):
-    """The operands of the K2 kernel, from OIHW weights and [64] biases, every
-    value rounded to bf16 first (as the plain version rounds them):
+    """The operands of the K2 kernel (and K3's weights), from OIHW weights
+    and [64] biases, every value rounded to bf16 first (as the plain
+    version rounds them):
 
       w1 [64 co, 64 k] bf16, k = dy * 16 + dx * 4 + c (zero where dx or c
          is 3 and for k >= 48), swizzled: conv1_1's B operand, one 16-deep

@@ -7,10 +7,10 @@ Ports `examples/profile_conv1_v5.py::conv1_v5` (the Pallas TPU kernel
 hand-written kernel `mscnn_torch/csrc/conv1_v5.cu`:
 
   * modes "serial", "mc", "flat": K2's function (bf16 in and out, f32
-    accumulation); on the TPU they differ only in how the tap dots are
-    scheduled, on the card "serial" and "mc" share one schedule (implicit
-    GEMM, one tap at a time) and "flat" stages an explicit im2col of
-    conv1_2's operand (see the kernel's header);
+    accumulation) with the probe's f32 bias, added to the f32 sum before
+    one rounding; on the TPU they differ only in how the tap dots are
+    scheduled, on the card they are one instantiation of K2's schedule
+    (`csrc/conv1_block.cuh`; see the kernel's header);
   * mode "bf16": the serial schedule with a bf16 accumulator. Each conv
     has six rounding points: for each kernel row dy = 0, 1, 2, a "center"
     partial (taps dx 1, 2 for even output columns, dx 0, 1 for odd) then
@@ -41,13 +41,14 @@ import torch
 import torch.nn.functional as F
 
 from mscnn_torch.ops import conv as C
-from mscnn_torch.ops.kernels.conv1_kernel import check_cuda_args
+from mscnn_torch.ops.kernels.conv1_kernel import check_cuda_args, packed_weights
 
 MODES = {"serial": 0, "mc": 1, "flat": 2, "bf16": 3}
 # (tile_h, tile_q) compiled into the kernel: conv1_2 output rows x pooled
-# output columns per CTA, every pair whose conv1_1 tile, conv1_2 weights
-# and (mode "flat") im2col chunks fit 227 KB of shared memory
-TILES = ((8, 8), (8, 16), (8, 32), (16, 8), (16, 16), (32, 8))
+# output columns per CTA. conv1_2's N is one 32-pixel output row (tile_q
+# 16); tile_h is a multiple of 8 up to 24, the tallest whose conv1_1 tile
+# fits beside the resident w2 (the kernel's header gives the reasons)
+TILES = ((8, 16), (16, 16), (24, 16))
 DEFAULT_TILE = (16, 16)
 launches = 0
 _fn = None
@@ -109,27 +110,19 @@ def _kernel_fn():
     return _fn
 
 
-def pack_w1(w1):
-    """w1 OIHW [64, 3, 3, 3] -> [64, 56] bf16, row co holding k = dy * 16 +
-    dx * 3 + c (one 16-deep chunk per kernel row, zero elsewhere): the B
-    operand of conv1_1 on the tensor cores, rows padded to 56 for ldmatrix."""
-    wp = torch.zeros((64, 3, 16), dtype=torch.bfloat16, device=w1.device)
-    wp[:, :, :9] = w1.permute(0, 2, 3, 1).reshape(64, 3, 9).to(torch.bfloat16)
-    return F.pad(wp.reshape(64, 48), (0, 8)).contiguous()
-
-
 def conv1_v5_cuda(x, w1, b1, w2, b2, *, tile_h=DEFAULT_TILE[0],
                   tile_q=DEFAULT_TILE[1], mode="mc"):
     """Launch the K3 kernel. x: [B, H, W, 3] bf16 on CUDA; tile_h/tile_q one
-    of `TILES`; mode one of `MODES`."""
+    of `TILES`; mode one of `MODES`. The weights are K2's packing
+    (`conv1_kernel.packed_weights`, kept on w2); the biases go in as float32,
+    not rounded to bf16 (the probe adds its biases in f32)."""
     global launches
     _check(mode, (tile_h, tile_q))
     check_cuda_args("conv1_v5_cuda", x, w1, b1, w2, b2)
     dev = x.device
     x = x.contiguous()
     B, H, W, _ = x.shape
-    w1p = pack_w1(w1)
-    w2p = w2.permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()   # [dy][dx][co][ci]
+    w1p, _, w2p, _ = packed_weights(w1, b1, w2, b2)
     b1f = b1.to(torch.float32).contiguous()
     b2f = b2.to(torch.float32).contiguous()
     out = torch.empty((B, (H + 1) // 2, (W + 1) // 2, 64), dtype=torch.bfloat16,

@@ -128,18 +128,35 @@ def test_bf16_mode_differs_from_serial(rng):
     np.testing.assert_array_equal(serial, f32(K3.conv1_v5(*args, mode="flat")))
 
 
-def test_pack_w1_layout(rng):
-    """Row co of the packed conv1_1 weight holds w1[co, c, dy, dx] at
-    k = dy * 16 + dx * 3 + c, zero elsewhere (56 wide)."""
+def test_bf16_mode_partials_from_k2_packing(rng):
+    """K3 takes K2's packed weights (`conv1_kernel.pack_conv1_weights`).
+    In mode bf16 its conv1_1 keeps, per kernel row dy, only the A values of
+    the taps in a partial: the packed k = dx * 4 + c puts one dx in each
+    pair of k (a fragment register), so the mask is dx = k // 4. Masked
+    that way, the packed w1 gives the plain version's center (dx 1 + 2 at
+    even columns, dx 0 + 1 at odd) and mixed (dx 0 even, dx 2 odd)
+    partials, in float64."""
+    from mscnn_torch.ops.kernels import conv1_kernel as CK
     w1 = torch.from_numpy(rng.randn(64, 3, 3, 3).astype(np.float32))
-    p = K3.pack_w1(w1)
-    assert tuple(p.shape) == (64, 56) and p.dtype == torch.bfloat16
-    want = torch.zeros((64, 56), dtype=torch.bfloat16)
+    z = torch.zeros(64)
+    w1p, _, _, _ = CK.pack_conv1_weights(w1, z, torch.zeros(64, 64, 3, 3), z)
+    assert K3.packed_weights is CK.packed_weights
+    w1p = CK.swizzle128(w1p).double()   # the swizzle is its own inverse
+    wb = w1.bfloat16().double()
+    px = torch.from_numpy(rng.randn(40, 3, 3, 3)).bfloat16().double()   # [n, dy, dx, c]
+    a = torch.zeros(40, 3, 16, dtype=torch.float64)   # [n, dy, k], k = dx * 4 + c
+    a.view(40, 3, 4, 4)[:, :, :3, :3] = px
+    dx_of_k = torch.arange(16) // 4
     for dy in range(3):
-        for dx in range(3):
-            for c in range(3):
-                want[:, dy * 16 + dx * 3 + c] = w1[:, c, dy, dx].bfloat16()
-    assert torch.equal(p, want)
+        tap = [px[:, dy, dx] @ wb[:, :, dy, dx].t() for dx in range(3)]   # [n, 64]
+        want = {("center", False): tap[1] + tap[2], ("center", True): tap[0] + tap[1],
+                ("mixed", False): tap[0], ("mixed", True): tap[2]}
+        for (part, odd), w in want.items():
+            keep = {("center", False): dx_of_k >= 1, ("center", True): dx_of_k <= 1,
+                    ("mixed", False): dx_of_k == 0, ("mixed", True): dx_of_k == 2}
+            am = a[:, dy] * keep[(part, odd)]
+            got = am @ w1p[:, dy * 16:(dy + 1) * 16].t()
+            torch.testing.assert_close(got, w, rtol=1e-12, atol=1e-12)
 
 
 TINY_CHAIN = dict(n_lo=1, n_hi=2, reps=1)
@@ -153,7 +170,8 @@ def test_probe_runs_on_cpu_at_a_tiny_size():
     for mode in P5.MODES:
         assert res[f"v5_{mode}_relerr"] < (0.05 if mode == "bf16" else 0.02)
         assert np.isfinite(res[f"v5_{mode}_ms"])
-        assert np.isfinite(res[f"v5_{mode}_8x8_ms"])
+        th, tq = K3.TILES[0]
+        assert np.isfinite(res[f"v5_{mode}_{th}x{tq}_ms"])
     assert np.isfinite(res["v4_ms"])
 
 

@@ -7,10 +7,11 @@ a machine that has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 NMS must agree exactly (valid flags, boxes, scores). The conv1 kernels
-(K2, and K3 in every mode and tile) are held to atol 0.02 * max|ref|: both
-sides are bf16 with f32 accumulation (K3's mode bf16: f32 partial sums),
-summed in different orders; K2 also to 2 bf16 ulps of max|ref| and, on
-random inputs, at least 0.99 of its outputs bit-equal. The int8 kernel
+(K2, and K3 in every mode and tile, with zero and nonzero biases) are held
+to atol 0.02 * max|ref|, to 2 bf16 ulps of max|ref| and, on random inputs,
+to at least 0.99 of their outputs bit-equal: both sides are bf16 with f32
+accumulation (K3's mode bf16: f32 partial sums), summed in different
+orders, and round where the reference rounds. The int8 kernel
 must agree exactly in every epilogue: its int32 sums are exact, its
 dequantization rounds where the plain version rounds, and its int8 copies
 (direct or through the 2x2 max pool) quantize the stored value with the
@@ -149,6 +150,20 @@ def bf16_ulp(v):
     return 2.0 ** (math.floor(math.log2(v)) - 7)
 
 
+def conv1_gate(got, want, share=True):
+    """The bf16 conv1 kernels' gate against their plain version: max err
+    within atol 0.02 * max|ref| and 2 bf16 ulps of max|ref|, and (on random
+    inputs) at least 0.99 of the outputs bit-equal. Returns (err, share)."""
+    ref = want.abs().max().item()
+    err = (got.float() - want).abs().max().item()
+    eq = (got.float() == want).float().mean().item()
+    assert err <= 0.02 * ref, err
+    assert err <= 2 * bf16_ulp(ref), err
+    if share:
+        assert eq >= 0.99, eq
+    return err, eq
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,ones", [(2, 40, 70, False), (1, 19, 37, False),
                                         (1, 33, 65, False), (1, 16, 32, True),
@@ -167,14 +182,8 @@ def test_conv1_kernel_matches_plain(gen, cuda, b, h, w, ones):
     torch.cuda.synchronize()
     assert CK.launches == before + 1
     assert got.shape == want.shape and got.dtype == torch.bfloat16
-    ref = want.abs().max().item()
-    err = (got.float() - want).abs().max().item()
-    share = (got.float() == want).float().mean().item()
+    err, share = conv1_gate(got, want, share=not ones)
     print(f"conv1 kernel {(b, h, w)}: max_abs_err {err:.4g}, bit-equal share {share:.6f}")
-    assert err <= 0.02 * ref, err
-    assert err <= 2 * bf16_ulp(ref), err
-    if not ones:
-        assert share >= 0.99, share
 
 
 @pytest.mark.cuda
@@ -202,35 +211,50 @@ def test_conv1_kernel_rounds_w1_to_bf16(cuda):
     assert not torch.equal(old, want)
 
 
+def k3_biases(args, bias):
+    """K3's inputs with the probe's zero biases or nonzero ones (randn *
+    0.5): the f32-bias epilogue is exercised only by the second."""
+    x, w1, b1, w2, b2 = args
+    if bias == "zero":
+        return x, w1, torch.zeros_like(b1), w2, torch.zeros_like(b2)
+    g = torch.Generator().manual_seed(7)
+    return (x, w1, (torch.randn(64, generator=g) * 0.5).to(b1.device), w2,
+            (torch.randn(64, generator=g) * 0.5).to(b2.device))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("bias", ["zero", "nonzero"])
 @pytest.mark.parametrize("mode", sorted(K3.MODES))
 @pytest.mark.parametrize("b,h,w,ones", [(2, 40, 70, False), (1, 19, 37, False),
                                         (1, 16, 32, True)])
-def test_conv1_v5_kernel_matches_plain(gen, cuda, mode, b, h, w, ones):
-    args = conv1_inputs(gen, b, h, w, cuda, ones)
+def test_conv1_v5_kernel_matches_plain(gen, cuda, mode, b, h, w, ones, bias):
+    """K3 against its plain version in each mode, with zero and nonzero
+    biases: K2's gate (atol, 2 bf16 ulps, bit-equal share >= 0.99 on random
+    inputs). With zero biases the f32 modes compute K2's function and are
+    held to K2's kernel as well."""
+    args = k3_biases(conv1_inputs(gen, b, h, w, cuda, ones), bias)
     want = K3.conv1_v5_plain(*args, mode=mode).float()
     before = K3.launches
     got = K3.conv1_v5(*args, mode=mode)
     torch.cuda.synchronize()
     assert K3.launches == before + 1
     assert got.shape == want.shape and got.dtype == torch.bfloat16
-    tol = 0.02 * want.abs().max().item()
-    assert (got.float() - want).abs().max().item() <= tol
-    if mode != "bf16":   # K2's function
-        k2 = CK.conv1_pool_fused(*args).float()
-        assert (got.float() - k2).abs().max().item() <= tol
+    err, eq = conv1_gate(got, want, share=not ones)
+    print(f"conv1_v5 {mode} {(b, h, w)} {bias} biases: max_abs_err {err:.4g}, "
+          f"bit-equal share {eq:.6f}")
+    if mode != "bf16" and bias == "zero":   # K2's function
+        conv1_gate(got, CK.conv1_pool_fused(*args).float(), share=not ones)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile", K3.TILES, ids=[f"{h}x{q}" for h, q in K3.TILES])
 def test_conv1_v5_kernel_every_tile(gen, cuda, tile):
-    args = conv1_inputs(gen, 1, 37, 75, cuda)
+    args = k3_biases(conv1_inputs(gen, 1, 37, 75, cuda), "nonzero")
     for mode in sorted(K3.MODES):
         want = K3.conv1_v5_plain(*args, mode=mode).float()
         got = K3.conv1_v5(*args, tile_h=tile[0], tile_q=tile[1], mode=mode)
         torch.cuda.synchronize()
-        err = (got.float() - want).abs().max().item()
-        assert err <= 0.02 * want.abs().max().item(), (mode, err)
+        conv1_gate(got, want)
 
 
 @pytest.mark.cuda
