@@ -79,7 +79,29 @@ Phases (any failure exits non-zero, before the result line):
                 over two steps of the bf16 deploy graph: the device-busy
                 share of the window and the ten kernels with the most
                 device time, or "not measured" where the trace holds no
-                device time.
+                device time;
+ 10. conv1 backward -- K2 as an autograd function at [2, 64, 96, 3] and
+                [4, 768, 1024, 3] with nonzero biases: its forward by K2's
+                gate, its gradients for x, w1, b1, w2, b2 within 1e-6 of
+                max|ref| of conv1_pool_plain's under autograd (the same
+                ops), and the backward's time beside its bound;
+ 11. tiny train step -- one float32 stage-2 step of the tiny config on
+                the card and on the CPU with the same draws: the same
+                sampled rois, the loss within 1e-5, every update within
+                1e-2 of max|step| (rel L2 2e-3); then a step with the
+                fused conv1 block and conv1 trainable (K2 forward and
+                backward inside the step) and K2 on the updated weights
+                against its plain version;
+ 12. train   -- the flagship's stage-2 training step (768x1024 crops,
+                batch 4, bf16, plain conv1, bench.py's solver, lr / decay
+                multipliers, labels rasterised on the card from uint8
+                images): the path's launches from its first step alone (1
+                NMS), 2 warm-up steps, 5 synchronised steps (median ms,
+                img/s, peak GiB), a CUDA-event split of a step, K1 at the
+                training shape (on the step's candidates and on random
+                ones), one step under sync debug mode "error", a profiler
+                window over two steps, frozen layers bit-unchanged and
+                every trainable leaf moved.
 
 The lines before the last give the card's name and power limit
 (nvidia-smi) and one JSON object listing every kernel, each with its
@@ -92,6 +114,7 @@ repository, the script exits non-zero and prints no result.
 """
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -146,6 +169,13 @@ def conv1_block_bound(x):
     B, H, W, _ = x.shape
     moved = B * H * W * 3 * 2 + B * ((H + 1) // 2) * ((W + 1) // 2) * 64 * 2
     return bound(moved, CONV1_FLOP_PER_PIXEL * B * H * W, PEAK["bf16"])
+
+
+def jax_loaded():
+    """Whether jax or any module of the JAX package (`mscnn_tpu`, jax-free
+    modules included) is imported."""
+    return any(m in ("jax", "mscnn_tpu") or m.startswith(("jax.", "mscnn_tpu."))
+               for m in sys.modules)
 
 
 def fail(msg):
@@ -348,6 +378,57 @@ def calibrate_int8(Q, params, cfg, cal):
     return Q.quantize_roi_heads(params, hscales), scales, hscales
 
 
+def trace_window(PROF, run, label, what, note):
+    """One `torch.profiler` window over two calls of run(), each annotated
+    `label`: logs the window, the device-busy share, the ten kernels with
+    the most device time and the time of K1 and K2 by name. Returns the
+    busy share (None where the trace holds no device time)."""
+    import torch
+    with tempfile.TemporaryDirectory() as tdir:
+        with PROF.trace(tdir) as prof:
+            for _ in range(2):
+                with PROF.annotate(label):
+                    run()
+            torch.cuda.synchronize()
+        with open(os.path.join(tdir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    dev_total = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+                    for e in prof.key_averages())
+    busy = [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    steps = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == label]
+    if not (busy and steps and dev_total > 0):
+        log("trace: device busy share not measured: the profiler window holds no "
+            f"device time ({len(busy)} device events, key_averages device total "
+            f"{dev_total}); {note}")
+        return None
+    lo = min(s_ for s_, _ in steps)
+    hi = max(max(e_ for _, e_ in steps), max(e_ for _, e_ in busy))
+    union, end = 0.0, lo
+    for s_, e_ in sorted(busy):
+        s_, e_ = max(s_, end), min(e_, hi)
+        if e_ > s_:
+            union, end = union + e_ - s_, e_
+    busy_share = union / (hi - lo)
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "dur" in e:
+            n_, t_ = by_name.get(e["name"], (0, 0.0))
+            by_name[e["name"]] = (n_ + 1, t_ + e["dur"])
+    log(f"trace: {what}, window {(hi - lo) / 1e3:.3f} ms, device "
+        f"busy {union / 1e3:.3f} ms = share {busy_share:.4f}, idle share "
+        f"{1 - busy_share:.4f}; {len(busy)} device events")
+    for n_, (cnt, t_) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        log(f"trace kernel {t_ / 1e3:9.3f} ms {cnt:5d}x  {n_[:110]}")
+    for ours in ("nms_kernel", "conv1_block_kernel"):   # K1, K2 (K3 is not on the path)
+        hits = [(cnt, t_) for n_, (cnt, t_) in by_name.items() if ours in n_]
+        log(f"trace {ours}: " + (f"{sum(t_ for _, t_ in hits) / 1e3:.4f} ms in "
+                                 f"{sum(c for c, _ in hits)} launches over two steps"
+                                 if hits else "not in the trace"))
+    return busy_share
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -372,10 +453,13 @@ def main():
         from mscnn_torch.utils import profiling as PROF
         from mscnn_torch.ops.kernels import int8_kernel as IK
         from mscnn_torch.ops.kernels import nms_kernel as NK
+        from mscnn_torch.data import synthetic as TSY
+        from mscnn_torch.train import solver as TS
+        from mscnn_torch.train import train_step as TT
     except ImportError as e:
         fail(f"mscnn_torch not importable ({e}); run from the repository root")
-    if "jax" in sys.modules:
-        fail("the port imported jax")
+    if jax_loaded():
+        fail("the port imported jax or the JAX package")
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -940,8 +1024,8 @@ def main():
     # f32 operations a candidate, on the CUDA cores; the scan tests fewer)
     pout = max(calls["nms"], key=lambda c: c[0][0].shape[1])[2]
     nms_bytes = sum(t.numel() * t.element_size() for t in (*pa, *pout))
-    nms_ops = 16 * int(pout[2].sum()) * pa[0].shape[1]
-    nms_bound = bound(nms_bytes, nms_ops, PEAK["f32"])
+    nms_opcount = 16 * int(pout[2].sum()) * pa[0].shape[1]
+    nms_bound = bound(nms_bytes, nms_opcount, PEAK["f32"])
     ca = calls["conv1"][0][0]
     k_ms = cuda_ms(lambda: conv1_cuda(*ca), iters=10)
     p_ms = cuda_ms(lambda: CK.conv1_pool_plain(*ca), iters=10)
@@ -1152,49 +1236,283 @@ def main():
     # -- 9. one profiler window over two bf16 deploy steps -----------------------
     fwd(params, imgs, ratios, orig_wh)
     torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tdir:
-        with PROF.trace(tdir) as prof:
-            for _ in range(2):
-                with PROF.annotate("deploy_step"):
-                    fwd(params, imgs, ratios, orig_wh)
-            torch.cuda.synchronize()
-        with open(os.path.join(tdir, "trace.json")) as f:
-            events = json.load(f)["traceEvents"]
-    dev_total = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
-                    for e in prof.key_averages())
-    busy = [(e["ts"], e["ts"] + e["dur"]) for e in events
-            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
-    steps = [(e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("cat") == "user_annotation" and e.get("name") == "deploy_step"]
-    busy_share = None
-    if busy and steps and dev_total > 0:
-        lo = min(s_ for s_, _ in steps)
-        hi = max(max(e_ for _, e_ in steps), max(e_ for _, e_ in busy))
-        union, end = 0.0, lo
-        for s_, e_ in sorted(busy):
-            s_, e_ = max(s_, end), min(e_, hi)
-            if e_ > s_:
-                union, end = union + e_ - s_, e_
-        busy_share = union / (hi - lo)
-        by_name = {}
-        for e in events:
-            if e.get("cat") == "kernel" and "dur" in e:
-                n_, t_ = by_name.get(e["name"], (0, 0.0))
-                by_name[e["name"]] = (n_ + 1, t_ + e["dur"])
-        log(f"trace: two bf16 deploy steps, window {(hi - lo) / 1e3:.3f} ms, device "
-            f"busy {union / 1e3:.3f} ms = share {busy_share:.4f}, idle share "
-            f"{1 - busy_share:.4f}; {len(busy)} device events")
-        for n_, (cnt, t_) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
-            log(f"trace kernel {t_ / 1e3:9.3f} ms {cnt:5d}x  {n_[:110]}")
-        for ours in ("nms_kernel", "conv1_block_kernel"):   # K1, K2 (K3 is not on the path)
-            hits = [(cnt, t_) for n_, (cnt, t_) in by_name.items() if ours in n_]
-            log(f"trace {ours}: " + (f"{sum(t_ for _, t_ in hits) / 1e3:.4f} ms in "
-                                     f"{sum(c for c, _ in hits)} launches over two steps"
-                                     if hits else "not in the trace"))
-    else:
-        log("trace: device busy share not measured: the profiler window holds no "
-            f"device time ({len(busy)} device events, key_averages device total "
-            f"{dev_total}); the step times above are host-clock times")
+    trace_window(PROF, lambda: fwd(params, imgs, ratios, orig_wh), "deploy_step",
+                 "two bf16 deploy steps", "the step times above are host-clock times")
+
+    # -- 10. K2's backward on the card: the autograd function's gradients
+    #        against conv1_pool_plain's under autograd (the same ops) --------
+    TH, TW = zoo.kitti_car_8s_768(deploy=False).input_hw   # the training crop
+    bgen = torch.Generator().manual_seed(SEED + 7)
+    k2b = {}
+    for shape in ((2, 64, 96, 3), (BATCH, TH, TW, 3)):
+        ins = ((torch.randn(shape, generator=bgen) * 50).to(dev).bfloat16(),
+               (torch.randn((64, 3, 3, 3), generator=bgen) * 0.2).to(dev),
+               (torch.randn(64, generator=bgen) * 0.5).to(dev),
+               (torch.randn((64, 64, 3, 3), generator=bgen) * 0.05).to(dev),
+               (torch.randn(64, generator=bgen) * 0.5).to(dev))
+        ins = tuple(t.requires_grad_() for t in ins)
+        B_, H_, W_, _ = shape
+        g = torch.randn((B_, (H_ + 1) // 2, (W_ + 1) // 2, 64), generator=bgen)
+        g = g.to(dev).bfloat16()
+        before = CK.launches
+        y = CK.conv1_pool_fused(*ins)
+        if CK.launches != before + 1:
+            fail("conv1_pool_fused with inputs that require grad did not launch K2")
+        y_plain = CK.conv1_pool_plain(*ins)
+        err, tol, eq, ulps, ok = conv1_compare(y.detach().float(), y_plain.detach().float())
+        if not ok:
+            fail(f"K2 forward (requires grad) != plain at {shape}: max_abs_err {err}, "
+                 f"bit-equal share {eq}")
+        got = torch.autograd.grad(y, ins, g, retain_graph=True)
+        want = torch.autograd.grad(y_plain, ins, g, retain_graph=True)
+        worst = 0.0
+        for name, a, b in zip(("x", "w1", "b1", "w2", "b2"), got, want):
+            ref = b.float().abs().max().item()
+            e = (a.float() - b.float()).abs().max().item()
+            worst = max(worst, e / ref if ref else e)
+            if a.shape != b.shape or a.dtype != b.dtype or e > 1e-6 * ref:
+                fail(f"K2 backward: grad {name} at {shape} differs from "
+                     f"conv1_pool_plain's ({e} against max|ref| {ref})")
+        log(f"conv1 backward {shape}: forward max_abs_err {err:.4g} (share {eq:.6f}); "
+            f"grads x, w1, b1, w2, b2 within {worst:.3g} of max|ref| of "
+            f"conv1_pool_plain's under autograd")
+        k2b[shape] = (ins, y, y_plain, g)
+    ins, y, y_plain, g = k2b[(BATCH, TH, TW, 3)]
+    k2b_ms = cuda_ms(lambda: torch.autograd.grad(y, ins, g, retain_graph=True), iters=5)
+    k2b_plain_ms = cuda_ms(lambda: torch.autograd.grad(y_plain, ins, g, retain_graph=True),
+                           iters=5)
+    k2_fb_ms = cuda_ms(lambda: torch.autograd.grad(CK.conv1_pool_fused(*ins), ins, g),
+                       iters=5)
+    plain_fb_ms = cuda_ms(lambda: torch.autograd.grad(CK.conv1_pool_plain(*ins), ins, g),
+                          iters=5)
+    # the backward recomputes the block (77,184 FLOP a pixel) and takes
+    # conv1_2's dgrad and wgrad (2 x 73,728) and conv1_1's (2 x 3,456)
+    xb = ins[0]
+    moved = 2 * xb.numel() * 2 + g.numel() * 2
+    k2b_bound = bound(moved, (CONV1_FLOP_PER_PIXEL + 2 * 73728 + 2 * 3456)
+                      * BATCH * TH * TW, PEAK["bf16"])
+    log(f"time conv1 backward {tuple(xb.shape)}: autograd function {k2b_ms:.4f} ms "
+        f"(the plain ops, recomputing the block), plain graph's backward "
+        f"{k2b_plain_ms:.4f} ms, bound {k2b_bound[0]:.4f} ms ({k2b_bound[1]}); forward "
+        f"+ backward: K2 + backward {k2_fb_ms:.4f} ms, plain {plain_fb_ms:.4f} ms")
+    del k2b, ins, y, y_plain, g, xb
+    torch.cuda.empty_cache()
+
+    # -- 11. the tiny float32 training step, card against CPU ----------------
+    tiny_t = dataclasses.replace(zoo.tiny_test_config(), fc_dim=256)
+    tts = TT.TrainSpec(stage=2, roi_batch=64)
+    tss = TS.SolverSpec(type="sgd", base_lr=1e-3, lr_policy="fixed", momentum=0.9,
+                        weight_decay=5e-4)
+    tpc = M.init_params(torch.Generator().manual_seed(SEED), tiny_t, device="cpu")
+    tlm, tdm = M.param_lr_multipliers(tpc, tiny_t), M.param_decay_multipliers(tpc, tiny_t)
+    tbc = TSY.make_batch(tiny_t, batch=2, seed=SEED, with_labels=False, device="cpu")
+    tdraws = TT.sample_draws(torch.Generator().manual_seed(SEED), tiny_t, tts, 2,
+                             n_gt=tbc["gt_boxes"].shape[1])
+    on_dev = lambda d: {k: v.to(dev) for k, v in d.items()}  # noqa: E731
+    results = {}
+    for where, p_, b_, d_ in (("cpu", tpc, tbc, tdraws),
+                              ("card", {k: on_dev(v) for k, v in tpc.items()},
+                               on_dev(tbc), on_dev(tdraws))):
+        rec = {}
+        st = TT.make_train_step(tiny_t, tts, tss, tlm, tdm,
+                                loss_function=functools.partial(TT.loss_fn, record=rec))
+        new, m = st({"params": p_, "solver": TS.init_state(p_, tss)}, b_, draws=d_)
+        results[where] = (new, m, rec["sample"])
+    (nc_, mc, sc), (nd, md, sd) = results["cpu"], results["card"]
+    if int(sc["n_fg"]) != int(sd["n_fg"]) or \
+            not torch.equal(sc["labels"], sd["labels"].cpu()):
+        fail(f"tiny step: the card sampled another roi set than the CPU (n_fg "
+             f"{int(sd['n_fg'])} vs {int(sc['n_fg'])})")
+    lrel = abs(float(md["loss"]) - float(mc["loss"])) / abs(float(mc["loss"]))
+    if lrel > 1e-5:
+        fail(f"tiny step: loss {float(md['loss'])} on the card, {float(mc['loss'])} on "
+             f"the CPU (rel {lrel})")
+    worst_max, worst_l2 = 0.0, 0.0
+    for name, p in tpc.items():
+        for k, w0 in p.items():
+            dc = nc_["params"][name][k].double() - w0.double()
+            dd = nd["params"][name][k].cpu().double() - w0.double()
+            if not dc.abs().max() > 0:
+                if not torch.equal(nd["params"][name][k].cpu(), nc_["params"][name][k]):
+                    fail(f"tiny step: {name}.{k} moved on the card only")
+                continue
+            e = (dd - dc).abs().max().item() / dc.abs().max().item()
+            l2 = ((dd - dc).norm() / dc.norm()).item()
+            worst_max, worst_l2 = max(worst_max, e), max(worst_l2, l2)
+            # a ReLU decision within f32 rounding of zero may go the other way
+            # (tests/test_torch_train_step.py): max 1e-2, rel L2 2e-3 of the step
+            if e > 1e-2 or l2 > 2e-3:
+                fail(f"tiny step: {name}.{k}'s update differs between card and CPU "
+                     f"(max {e:.3g}, rel L2 {l2:.3g} of the step)")
+    log(f"tiny train step f32, card vs CPU, same draws: n_fg {int(sd['n_fg'])} and "
+        f"labels equal, loss {float(md['loss']):.6f} (rel {lrel:.2g}), updates within "
+        f"max {worst_max:.3g} / rel L2 {worst_l2:.3g} of the step")
+
+    # the same step with the fused conv1 block and conv1 trainable: K2 forward
+    # and its backward inside a step, then K2 on the updated weights
+    tiny_k = dataclasses.replace(tiny_t, pallas_conv1=True)
+    pk = {k: on_dev(v) for k, v in tpc.items()}
+    zero_counts()
+    st = TT.make_train_step(tiny_k, tts, tss)
+    newk, mk = st({"params": pk, "solver": TS.init_state(pk, tss)}, on_dev(tbc),
+                  draws=on_dev(tdraws))
+    torch.cuda.synchronize()
+    k2_train_launches = CK.launches
+    if k2_train_launches < 1 or not math.isfinite(float(mk["loss"])):
+        fail(f"the pallas_conv1 step launched K2 {k2_train_launches} times, loss "
+             f"{float(mk['loss'])}")
+    nw = newk["params"]
+    ws = (nw["conv1_1"]["w"], nw["conv1_1"]["b"], nw["conv1_2"]["w"], nw["conv1_2"]["b"])
+    if any(torch.equal(a, pk[n][k]) for a, (n, k) in zip(ws, (
+            ("conv1_1", "w"), ("conv1_1", "b"), ("conv1_2", "w"), ("conv1_2", "b")))):
+        fail("the pallas_conv1 step left a conv1 leaf unchanged")
+    xk = (on_dev(tbc)["image"]).bfloat16()
+    err, tol, eq, ulps, ok = conv1_compare(CK.conv1_pool_fused(xk, *ws).float(),
+                                           CK.conv1_pool_plain(xk, *ws).float())
+    if not ok:
+        fail(f"K2 on the updated conv1 weights != plain (a stale weight packing?): "
+             f"max_abs_err {err}, bit-equal share {eq}")
+    log(f"tiny train step, pallas_conv1 and conv1 trainable: {k2_train_launches} K2 "
+        f"launch(es), loss {float(mk['loss']):.6f}; K2 on the updated weights vs plain: "
+        f"max_abs_err {err:.4g}, bit-equal share {eq:.6f}")
+    del results, nc_, nd, newk, pk, tpc
+
+    # -- 12. the flagship's stage-2 training step at full width ---------------
+    fcfg = dataclasses.replace(zoo.kitti_car_8s_768(deploy=False),
+                               compute_dtype="bfloat16", pallas_conv1=False)
+    t0 = time.perf_counter()
+    fp = M.init_params(torch.Generator().manual_seed(SEED), fcfg, device=dev)
+    fp0 = {k: {n: t.clone() for n, t in p.items()} for k, p in fp.items()}
+    flm, fdm = M.param_lr_multipliers(fp, fcfg), M.param_decay_multipliers(fp, fcfg)
+    ftt = TT.TrainSpec(stage=2, with_metrics=False)
+    fss = TS.SolverSpec(type="sgd", base_lr=5e-5, lr_policy="step", gamma=0.1,
+                        stepsize=10000, momentum=0.9, weight_decay=5e-4)   # bench.py:96-99
+    fstep = TT.make_train_step(fcfg, ftt, fss, lr_mults=flm, decay_mults=fdm)
+    fb = TSY.make_batch(fcfg, batch=BATCH, seed=SEED, with_labels=False, device=dev)
+    fb["image"] = torch.randint(0, 256, (BATCH, TH, TW, 3), generator=gen,
+                                dtype=torch.uint8).to(dev)
+    tgen = torch.Generator(device=dev).manual_seed(SEED)
+    state = {"params": fp, "solver": TS.init_state(fp, fss)}
+    log(f"train: {fcfg.name} stage 2, batch {BATCH} at {TH}x{TW}, bf16 (f32 master "
+        f"weights), plain conv1, roi batch {ftt.roi_batch}, max_nms_num "
+        f"{fcfg.proposal.max_nms_num}, max_out {fcfg.proposal.max_out}; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    # the training path's own run (its first step), launches read from it alone
+    sink = calls_t = {"nms": [], "conv1": [], "int8": []}
+    recording(True)
+    zero_counts()
+    t0 = time.perf_counter()
+    state, fm = fstep(state, fb, generator=tgen)
+    torch.cuda.synchronize()
+    launches_t = counts()
+    recording(False)
+    log(f"train: first step {time.perf_counter() - t0:.2f} s, loss {float(fm['loss']):.5f}")
+    if launches_t["nms"] != 1 or launches_t["conv1_pool"] != 0 or \
+            launches_t["int8_gemm"] != 0:
+        fail(f"a stage-2 training step launched {launches_t}, expected 1 nms")
+    (na, nkw, nout), = calls_t["nms"]
+    if tuple(na[0].shape) != (BATCH, fcfg.proposal.max_nms_num, 4) or \
+            nkw["max_out"] != fcfg.proposal.max_out:
+        fail(f"the training step's NMS ran at {tuple(na[0].shape)}, max_out "
+             f"{nkw['max_out']}")
+    if not nms_equal(nout, nms_ops.nms_xywh_plain(*na, **nkw)):
+        fail("nms kernel != plain on the training step's propose")
+    log(f"train: launches {launches_t}; K1 at P={BATCH} N={na[0].shape[1]} "
+        f"max_out={nkw['max_out']} equal to plain: {int(na[2].sum())} valid "
+        f"candidates, {int(nout[2].sum())} kept")
+    t0 = time.perf_counter()
+    for _ in range(2):
+        state, fm = fstep(state, fb, generator=tgen)
+    torch.cuda.synchronize()
+    log(f"train: 2 warm-up steps {time.perf_counter() - t0:.2f} s, loss "
+        f"{float(fm['loss']):.5f}")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        state, fm = fstep(state, fb, generator=tgen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    train_step_s = statistics.median(times)
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    train_loss = float(fm["loss"])
+    if not math.isfinite(train_loss):
+        fail(f"the training loss is {train_loss}")
+    log(f"train: median {train_step_s * 1e3:.2f} ms/step over 5 synchronised steps "
+        f"({', '.join(f'{t * 1e3:.2f}' for t in times)}), {BATCH / train_step_s:.3f} "
+        f"img/s, peak {train_peak:.2f} GiB, loss {train_loss:.5f}")
+    # a CUDA-event split of a step (median of 3)
+    parts = {}
+    for _ in range(3):
+        evs = []
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            evs.append((name, ev))
+
+        mark("start")
+        state, fm = fstep(state, fb, generator=tgen, mark=mark)
+        torch.cuda.synchronize()
+        for (_, a), (name, b) in zip(evs, evs[1:]):
+            parts.setdefault(name, []).append(a.elapsed_time(b))
+    train_split = {k: statistics.median(v) for k, v in parts.items()}
+    log("train_split_ms " + json.dumps(train_split))
+    # K1 at the training shape, a call and on the device: on the first step's
+    # candidates, and on random candidates of that shape (80% valid, the
+    # path's random weights leave few or none above fg_thr)
+    k1t = {}
+    rb, rs, rv = random_candidates(gen, BATCH, na[0].shape[1], img=float(TW))
+    rargs = (rb.to(dev), rs.to(dev), rv.to(dev))
+    for tag, a in (("path", na), ("random", rargs)):
+        o = nms_cuda(*a, **nkw)
+        if not nms_equal(o, nms_ops.nms_xywh_plain(*a, **nkw)):
+            fail(f"nms kernel != plain at the training shape ({tag} candidates)")
+        kb = bound(sum(t.numel() * t.element_size() for t in (*a, *o)),
+                   16 * int(o[2].sum()) * a[0].shape[1], PEAK["f32"])
+        k1t[tag] = (cuda_ms(lambda: nms_cuda(*a, **nkw), iters=20),
+                    cuda_ms(lambda: nms_ops.nms_xywh_plain(*a, **nkw), iters=3, warmup=1),
+                    graph_ms(lambda: nms_cuda(*a, **nkw)), kb, int(o[2].sum()))
+        log(f"time nms train P={BATCH} N={a[0].shape[1]} max_out={nkw['max_out']} "
+            f"({tag} candidates, {int(a[2].sum())} valid, {k1t[tag][4]} kept): kernel "
+            f"{k1t[tag][0]:.4f} ms a call, {k1t[tag][2]:.4f} ms on the device (CUDA "
+            f"graph replay), plain {k1t[tag][1]:.4f} ms, bound {kb[0]:.5f} ms ({kb[1]})")
+    del calls_t, sink
+    # no host sync in a step (JAX's step is one program)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, fm = fstep(state, fb, generator=tgen)
+    except RuntimeError as e:
+        fail(f"the training step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("train: one step under sync debug mode 'error': no host sync")
+    train_busy = trace_window(PROF, lambda: fstep(state, fb, generator=tgen),
+                              "train_step", "two stage-2 training steps",
+                              "the training step time above is a host-clock time")
+    # the steps left the frozen layers as they were and moved every other leaf
+    # (the profiled steps' states are dropped; `state` is the sync-checked step's)
+    frozen = [n for n in fp0 if all(v == 0.0 for v in flm[n].values())]
+    if sorted(frozen) != ["conv1_1", "conv1_2", "conv2_1", "conv2_2"]:
+        fail(f"frozen layers {frozen}")   # the flagship has no 2x upsampler
+    stuck = []
+    for n, p in fp0.items():
+        for k, w0 in p.items():
+            same = torch.equal(state["params"][n][k], w0)
+            if (n in frozen) != same:
+                stuck.append(f"{n}.{k}")
+    if stuck:
+        fail(f"after the training steps, frozen leaves moved or trainable ones did "
+             f"not: {stuck}")
+    log(f"train: after {int(state['solver']['it'])} steps {', '.join(frozen)} are "
+        f"bit-unchanged and all {sum(len(p) for n, p in fp0.items() if n not in frozen)} "
+        f"trainable leaves moved")
+    del state, fp, fp0, fb, fm
+    torch.cuda.empty_cache()
+    if jax_loaded():
+        fail("the training phases imported jax or the JAX package")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1215,7 +1533,13 @@ def main():
          "postprocess_plain_ms": kernels_ms["nms_postprocess"][1],
          "device_ms": {"propose": kernels_ms["nms_propose"][2],
                        "postprocess": kernels_ms["nms_postprocess"][2]},
-         "design": "sorted-order scan"},
+         "design": "sorted-order scan",
+         "launches_train_step": launches_t["nms"],
+         "train": {tag: {"shape": [BATCH, fcfg.proposal.max_nms_num,
+                                   fcfg.proposal.max_out], "kept": v[4],
+                         "ms": v[0], "plain_ms": v[1], "device_ms": v[2],
+                         "bound_ms": v[3][0], "bound_by": v[3][1]}
+                   for tag, v in k1t.items()}},
         {"name": "conv1_pool_fused", "route": "cuda",
          "source": "mscnn_torch/csrc/conv1_pool.cu",
          "replaces": "mscnn_tpu/ops/pallas/conv1_kernel.py:280",
@@ -1224,7 +1548,14 @@ def main():
          "bound_ms": conv1_bound[0], "bound_by": conv1_bound[1], "library_ms": None,
          "design": "persistent, both convs on wgmma", "min_bit_equal_share": conv1_min_share,
          "cudnn_unfused_ms": sum(k3["4x768x2560"]["cudnn"].values()),
-         "k3_best_ms": k3["4x768x2560"]["k3_best"][1]},
+         "k3_best_ms": k3["4x768x2560"]["k3_best"][1],
+         "launches_train_step": launches_t["conv1_pool"],
+         "launches_train_pallas_tiny": k2_train_launches,
+         "backward": "autograd, plain ops",
+         "backward_shape": [BATCH, TH, TW, 3], "backward_ms": k2b_ms,
+         "backward_plain_ms": k2b_plain_ms, "backward_bound_ms": k2b_bound[0],
+         "backward_bound_by": k2b_bound[1], "backward_library_ms": None,
+         "fwd_bwd_ms": k2_fb_ms, "fwd_bwd_plain_ms": plain_fb_ms},
         {"name": "int8_gemm", "route": "cuda",
          "source": "mscnn_torch/csrc/int8_gemm.cu",
          "replaces": "examples/profile_int8_mxu.py:84",

@@ -17,6 +17,11 @@ Layouts:
   * dense weights "w" and "w_q": JAX [in, out] -> port [out, in];
   * biases, the scales "w_s" ([out]) and "x_s" (0-d) unchanged.
 
+The training state goes across too (`from_jax_state` / `to_jax_state`):
+{"params", "solver": {"it", "h1"(, "h2")}}, the history trees taking each
+leaf's layout and "it" a 0-d int32. Gradients are param-shaped, so
+`to_jax_params` brings them to JAX's layout leaf for leaf.
+
 fc6 needs no row permutation: the port's `roi_head` flattens roi_c1's
 output in NHWC (h, w, c) order, as the JAX `roi_head` does
 (mscnn.py:529). `tests/test_torch_bridge.py` pins that order.
@@ -76,3 +81,24 @@ def to_jax_params(params: dict) -> dict:
     """Port params -> JAX-layout numpy params, same keys and dtypes."""
     return {name: {k: leaf_to_jax(v, k) for k, v in p.items()}
             for name, p in params.items()}
+
+
+def from_jax_state(state: dict, cfg=None) -> dict:
+    """JAX train state {"params", "solver": {"it", "h1"(, "h2")}} (numpy
+    leaves) -> the port's (CPU): every history tree in its params' layouts,
+    "it" a 0-d int32 tensor."""
+    solver = {"it": torch.tensor(int(np.asarray(state["solver"]["it"])),
+                                 dtype=torch.int32)}
+    for k in ("h1", "h2"):
+        if k in state["solver"]:
+            solver[k] = from_jax_params(state["solver"][k], cfg)
+    return {"params": from_jax_params(state["params"], cfg), "solver": solver}
+
+
+def to_jax_state(state: dict) -> dict:
+    """Port train state -> JAX layouts (numpy), "it" a 0-d int32 array."""
+    solver = {"it": np.asarray(int(state["solver"]["it"]), np.int32)}
+    for k in ("h1", "h2"):
+        if k in state["solver"]:
+            solver[k] = to_jax_params(state["solver"][k])
+    return {"params": to_jax_params(state["params"]), "solver": solver}

@@ -8,11 +8,11 @@ Ports `mscnn_tpu/models/mscnn.py`: the configuration (`VGG_BLOCKS`,
 `roi_head`, `deploy_forward`, mscnn.py:173-583), with the int8 trunk
 and ROI head (`int8_trunk`, `int8_roi_head`: `_cb(..., int8=)`, the int8
 branches of `roi_head` and the `captures` that calibrate them; see
-`ops/quant.py`).
+`ops/quant.py`) and the training-time `roi_head` (dropout after fc6's
+ReLU, its keep mask passed in).
 
 Not ported yet (each raises NotImplementedError where the JAX function
-would take it): the `s2d_conv1` rewrite, ROIAlign (`roi_align`) and the
-training-time dropout of `roi_head`.
+would take it): the `s2d_conv1` rewrite and ROIAlign (`roi_align`).
 
 Activations are NHWC at every function; params are {layer: {"w", "b"}}
 in the port's layouts (OIHW conv kernels, [out, in] dense weights; see
@@ -429,7 +429,7 @@ def upsampled_roi_feature(params, conv4_3, cfg: MSCNNConfig):
 
 def roi_head(params, conv4_3, batch_idx, rois, valid, cfg: MSCNNConfig, *,
              train: bool = False, suffix: str = "", feat=None,
-             captures: Optional[dict] = None):
+             captures: Optional[dict] = None, dropout_mask=None):
     """Detection sub-network over proposals.
 
     conv4_3: [B, H/8, W/8, 512]; batch_idx: [R]; rois: [R, 4] corners;
@@ -437,10 +437,10 @@ def roi_head(params, conv4_3, batch_idx, rois, valid, cfg: MSCNNConfig, *,
     roi_c1's output is flattened in NHWC (h, w, c) order, as in JAX.
     captures: optional dict that receives the max-abs of roi_c1's and
     fc6's inputs (0-d tensors, folded across calls), for
-    `ops/quant.py::calibrate_roi_head_scales`.
+    `ops/quant.py::calibrate_roi_head_scales`. With ``train`` (and
+    cfg.dropout > 0) fc6's output goes through inverted dropout with the
+    keep mask ``dropout_mask`` [R, fc_dim] bool.
     """
-    if train and cfg.dropout > 0:
-        raise NotImplementedError("training-time roi_head is not ported yet")
     if cfg.roi_align:
         raise NotImplementedError("roi_align is not ported yet")
     if feat is None:
@@ -492,6 +492,8 @@ def roi_head(params, conv4_3, batch_idx, rois, valid, cfg: MSCNNConfig, *,
                          out_dtype=x.dtype, relu=True, xq=xq6)
     else:
         x = torch.relu(C.dense(x, p["w"], p["b"]))
+    if train and cfg.dropout > 0:
+        x = C.dropout(x, cfg.dropout, dropout_mask)
     p = params[f"cls_pred{suffix}"]
     cls = C.dense(x, p["w"], p["b"])
     p = params[f"bbox_pred{suffix}"]
@@ -502,7 +504,8 @@ def roi_head(params, conv4_3, batch_idx, rois, valid, cfg: MSCNNConfig, *,
 def flatten_proposals(prop):
     """[B, R, ...] proposal dict -> flat per-roi tensors with batch indices."""
     B, R = prop["valid"].shape
-    batch_idx = torch.arange(B, device=prop["valid"].device).repeat_interleave(R)
+    # arange // R: the image of each row, with no host sync on the card
+    batch_idx = torch.arange(B * R, device=prop["valid"].device) // R
     return (batch_idx, prop["boxes"].reshape(B * R, 4),
             prop["scores"].reshape(B * R), prop["valid"].reshape(B * R))
 

@@ -1,10 +1,14 @@
 """Fixed-shape box math for the multi-scale anchor-field detector.
 
-Ports `mscnn_tpu/ops/boxes.py`: `iou_xywh`, `iou_corners`,
-`xywh_to_corners`, `corners_to_xywh`, `cell_centers`,
-`decode_anchor_field` and `decode_with_prior`. The anchor-field and roi
-target encoders and `decode_bbox` belong to training and the cascade and
-are not ported yet.
+Ports `mscnn_tpu/ops/boxes.py`: `iou_xywh`, `iou_aligned_xywh`,
+`iou_corners`, `xywh_to_corners`, `corners_to_xywh`, `cell_centers`,
+`decode_anchor_field`, the training target encoders
+`encode_anchor_field_targets` and `encode_roi_targets`, and
+`decode_with_prior`. `decode_bbox` belongs to the cascade and is not
+ported yet.
+
+No function copies a host value to the card: constants enter as Python
+scalars, so a training step on the card makes no host sync here.
 
 Box conventions are the JAX module's: ``xywh`` is (x1, y1, w, h) with a
 continuous width; ``corners`` is (x1, y1, x2, y2). Every function takes
@@ -25,10 +29,16 @@ def iou_xywh(a, b, mode: str = "iou"):
     a: [..., N, 4], b: [..., M, 4] -> [..., N, M]. Boxes with non-positive
     width or height score 0 against everything.
     """
+    return iou_aligned_xywh(a[..., :, None, :4], b[..., None, :, :4], mode)
+
+
+def iou_aligned_xywh(a, b, mode: str = "iou"):
+    """Element-wise IoU between (x, y, w, h) box arrays [..., 4] that
+    broadcast against each other."""
     if mode not in IOU_MODES:
         raise ValueError(f"unknown IoU mode {mode!r}; expected one of {IOU_MODES}")
-    ax, ay, aw, ah = a[..., :, None, :4].unbind(-1)
-    bx, by, bw, bh = b[..., None, :, :4].unbind(-1)
+    ax, ay, aw, ah = a.unbind(-1)
+    bx, by, bw, bh = b.unbind(-1)
     tlx = torch.maximum(ax, bx)
     tly = torch.maximum(ay, by)
     brx = torch.minimum(ax + aw, bx + bw)
@@ -98,12 +108,13 @@ def decode_anchor_field(scores, coords, *, field_w: float, field_h: float,
         th = th * bbox_std[3] + bbox_mean[3]
 
     max_xyr = 1.0 / field_xyr
-    max_whr = torch.log(torch.tensor(field_whr, dtype=scores.dtype))
-    max_whr = max_whr.to(scores.device)
+    # log in the scores' dtype (as jnp.log of that dtype), kept as a Python
+    # scalar: exact in that dtype, and no host-to-card copy
+    max_whr = torch.log(torch.tensor(field_whr, dtype=scores.dtype)).item()
     tx = tx.clamp(-max_xyr, max_xyr)
     ty = ty.clamp(-max_xyr, max_xyr)
-    tw = torch.minimum(torch.maximum(tw, -max_whr), max_whr)
-    th = torch.minimum(torch.maximum(th, -max_whr), max_whr)
+    tw = tw.clamp(-max_whr, max_whr)
+    th = th.clamp(-max_whr, max_whr)
 
     centers = cell_centers(h, w, float(stride), scores.dtype, scores.device)
     cx = tx * field_w + centers[..., 0]
@@ -121,6 +132,65 @@ def decode_anchor_field(scores, coords, *, field_w: float, field_h: float,
     return boxes, fg.reshape(*lead, h * w), valid
 
 
+def _denorm(t, bbox_mean, bbox_std, inverse: bool = False):
+    """t [..., 4] de-normalised (t * std + mean) or normalised
+    ((t - mean) / std) per column, with the constants as Python scalars."""
+    cols = t.unbind(-1)
+    if inverse:
+        cols = [(c - m) / s for c, m, s in zip(cols, bbox_mean, bbox_std)]
+    else:
+        cols = [c * s + m for c, m, s in zip(cols, bbox_mean, bbox_std)]
+    return torch.stack(cols, -1)
+
+
+def encode_anchor_field_targets(gt_cx, gt_cy, gt_w, gt_h, *, field_w: float,
+                                field_h: float, stride: int, bbox_mean=None,
+                                bbox_std=None):
+    """Per-cell regression targets for the proposal sub-network loss.
+
+    Inputs are [..., H, W] maps of the matched gt's centre and size (garbage
+    where no match: the loss masks those cells). Returns [..., H, W, 4]
+    targets (gx, gy, gw, gh), normalised by (bbox_mean, bbox_std) when
+    given. Sizes are floored at 2 px before the log, as in the reference.
+    """
+    h, w = gt_cx.shape[-2], gt_cx.shape[-1]
+    centers = cell_centers(h, w, float(stride), gt_cx.dtype, gt_cx.device)
+    gx = (gt_cx - centers[..., 0]) / field_w
+    gy = (gt_cy - centers[..., 1]) / field_h
+    gw = torch.log(gt_w.clamp_min(2.0) / field_w)
+    gh = torch.log(gt_h.clamp_min(2.0) / field_h)
+    t = torch.stack([gx, gy, gw, gh], -1)
+    if bbox_mean is not None and bbox_std is not None:
+        t = _denorm(t, bbox_mean, bbox_std, inverse=True)
+    return t
+
+
+def encode_roi_targets(rois_xywh, gts_xywh, bbox_mean=None, bbox_std=None):
+    """Fast-R-CNN (dx, dy, dw, dh) targets from rois to matched gts.
+
+    rois_xywh, gts_xywh: [..., 4] aligned pairs in (x1, y1, w, h). A
+    non-positive roi or gt size is replaced by 1 before it divides or
+    enters the log (the `safe_rw` / `where` guards of the JAX function).
+    """
+    rx, ry, rw, rh = rois_xywh.unbind(-1)
+    gx, gy, gw, gh = gts_xywh.unbind(-1)
+    rcx = rx + 0.5 * rw
+    rcy = ry + 0.5 * rh
+    gcx = gx + 0.5 * gw
+    gcy = gy + 0.5 * gh
+    one = torch.ones_like(rw)
+    safe_rw = torch.where(rw > 0, rw, one)
+    safe_rh = torch.where(rh > 0, rh, one)
+    dx = (gcx - rcx) / safe_rw
+    dy = (gcy - rcy) / safe_rh
+    dw = torch.log(torch.where(gw > 0, gw, one) / safe_rw)
+    dh = torch.log(torch.where(gh > 0, gh, one) / safe_rh)
+    t = torch.stack([dx, dy, dw, dh], -1)
+    if bbox_mean is not None and bbox_std is not None:
+        t = _denorm(t, bbox_mean, bbox_std, inverse=True)
+    return t
+
+
 def decode_with_prior(deltas, priors_corners, bbox_mean=None, bbox_std=None):
     """Decode per-class box deltas around prior boxes.
 
@@ -132,9 +202,7 @@ def decode_with_prior(deltas, priors_corners, bbox_mean=None, bbox_std=None):
     k = deltas.shape[-1] // 4
     d = deltas.reshape(n, k, 4)
     if bbox_mean is not None and bbox_std is not None:
-        std = torch.tensor(bbox_std, dtype=d.dtype, device=d.device)
-        mean = torch.tensor(bbox_mean, dtype=d.dtype, device=d.device)
-        d = d * std + mean
+        d = _denorm(d, bbox_mean, bbox_std)
     px1, py1, px2, py2 = priors_corners.unbind(-1)
     pw = px2 - px1 + 1.0
     ph = py2 - py1 + 1.0

@@ -1,8 +1,8 @@
 """Convolution / pooling / upsampling primitives with NHWC activations.
 
 Ports `mscnn_tpu/ops/conv.py`: `conv2d`, `max_pool`, `avg_pool`,
-`deconv2d`, `bilinear_kernel`, `upsample2x_bilinear` and `dense`
-(`stochastic_pool` and `dropout` belong to training and wait).
+`deconv2d`, `bilinear_kernel`, `upsample2x_bilinear`, `dense` and
+`dropout` (`stochastic_pool` belongs to the generic nets and waits).
 
 Activations are NHWC at every function, as in the JAX package. Inside, an
 NHWC tensor is handed to PyTorch as its NCHW permutation, which is a
@@ -158,3 +158,14 @@ def dense(x, w, b=None):
     """Fully-connected layer: x [..., D] with w [O, D] -> [..., O]. The bias
     is added after the product is rounded to x's dtype, as in `conv2d`."""
     return _add_bias(F.linear(x, w.to(x.dtype)), b, x.dtype)
+
+
+def dropout(x, rate: float, mask, train: bool = True):
+    """Inverted dropout (Caffe scales by 1/(1-rate) at train time):
+    where(mask, x / keep, 0) in x's dtype, in that order, as the JAX
+    function computes it. ``mask`` is the bool keep mask of x's shape, drawn
+    by the caller with P(keep) = 1 - rate (the JAX function draws it from
+    its key)."""
+    if not train or rate <= 0.0:
+        return x
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x)).to(x.dtype)

@@ -7,13 +7,18 @@ hand-written kernel `mscnn_torch/csrc/conv1_pool.cu`, and
 `conv1_pool_fused` dispatches by device: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes the plain version.
 
+`conv1_pool_fused` is an autograd function, as the JAX `custom_vjp`
+(conv1_kernel.py:279-300) is: its forward is the kernel (the plain version
+on the CPU) and its backward the VJP of `conv1_pool_plain`, recomputed
+under autograd from the saved inputs, with respect to x, w1, b1, w2 and
+b2. The JAX package has no backward kernel either (its `_bwd` is XLA's
+VJP of the unfused formulation), so cuDNN's conv backward is the faithful
+counterpart.
+
 The kernel computes what the JAX kernel computes: w1 and w2 rounded to
 bf16 (conv1_kernel.py:235), conv1_1's output rounded to bf16 before
 conv1_2, f32 sums. `pack_conv1_weights` lays the weights out for it (a
 plain function, so the CPU tests can check the layout the kernel reads).
-
-The forward is ported; the backward (the VJP of the unfused formulation)
-waits for the training slice, so a call that would need a gradient raises.
 
 Layouts: x NHWC; w1 [64, 3, 3, 3] and w2 [64, 64, 3, 3] OIHW (the port's
 conv layout); b1, b2 [64]. Output [B, ceil(H/2), ceil(W/2), 64] bf16.
@@ -152,16 +157,34 @@ def conv1_pool_cuda(x, w1, b1, w2, b2):
     return out
 
 
+class _Conv1PoolFused(torch.autograd.Function):
+    """Forward: the kernel on the card, the plain version on the CPU;
+    backward: the VJP of `conv1_pool_plain` (JAX's `_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        if x.is_cuda:
+            return conv1_pool_cuda(x.to(torch.bfloat16), w1, b1, w2, b2)
+        if x.device.type != "cpu":
+            raise RuntimeError(f"conv1_pool_fused: no kernel for {x.device}")
+        return conv1_pool_plain(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need)
+                      for t, need in zip(saved, ctx.needs_input_grad)]
+            out = conv1_pool_plain(*leaves)
+            want = [t for t, need in zip(leaves, ctx.needs_input_grad) if need]
+            got = iter(torch.autograd.grad(out, want, g.to(out.dtype)))
+        return tuple(next(got) if need else None
+                     for need in ctx.needs_input_grad)
+
+
 def conv1_pool_fused(x, w1, b1, w2, b2):
-    """Fused conv1 block, forward. CUDA tensor -> the kernel; CPU tensor ->
-    `conv1_pool_plain`. A call that needs a gradient raises: the backward
-    waits for the training slice."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w1, b1, w2, b2)):
-        raise NotImplementedError(
-            "conv1_pool_fused backward is not ported yet")
-    if x.is_cuda:
-        return conv1_pool_cuda(x.to(torch.bfloat16), w1, b1, w2, b2)
-    if x.device.type != "cpu":
-        raise RuntimeError(f"conv1_pool_fused: no kernel for {x.device}")
-    return conv1_pool_plain(x, w1, b1, w2, b2)
+    """Fused conv1 block. CUDA tensor -> the kernel; CPU tensor ->
+    `conv1_pool_plain`. Differentiable in every input: the backward is the
+    VJP of `conv1_pool_plain` (see the module notes)."""
+    return _Conv1PoolFused.apply(x, w1, b1, w2, b2)

@@ -196,3 +196,67 @@ def test_lr_and_decay_multipliers(jax_params):
         JM.param_lr_multipliers(jax_params, _small(JZ))
     assert TM.param_decay_multipliers(port, _small(TZ)) == \
         JM.param_decay_multipliers(jax_params, _small(JZ))
+
+
+@pytest.mark.parametrize("rule", ["sgd", "adam"])
+def test_train_state_roundtrip(jax_params, rule):
+    """{"params", "solver": {"it", "h1"(, "h2")}}: JAX -> port -> JAX is
+    exact, the histories take their params' layouts and "it" is a 0-d
+    int32."""
+    from mscnn_tpu.train import solver as JS
+    spec = JS.SolverSpec(type=rule)
+    rng = np.random.RandomState(0)
+    hist = lambda: jax.tree.map(  # noqa: E731
+        lambda a: rng.randn(*a.shape).astype(np.float32), jax_params)
+    solver = {"it": np.asarray(7, np.int32), "h1": hist()}
+    if spec.needs_second_history():
+        solver["h2"] = hist()
+    state = {"params": jax_params, "solver": solver}
+    port = bridge.from_jax_state(state, _small(TZ))
+    assert port["solver"]["it"].dtype == torch.int32 and port["solver"]["it"].dim() == 0
+    assert int(port["solver"]["it"]) == 7
+    assert set(port["solver"]) == set(solver)
+    for k in set(solver) - {"it"}:
+        for name, p in port["solver"][k].items():
+            for leaf, t in p.items():
+                assert t.shape == port["params"][name][leaf].shape, (k, name, leaf)
+    back = bridge.to_jax_state(port)
+    assert back["solver"]["it"].dtype == np.int32 and int(back["solver"]["it"]) == 7
+    for k in ("params", *(set(solver) - {"it"})):
+        src, dst = (state[k], back[k]) if k == "params" else \
+            (solver[k], back["solver"][k])
+        for name, p in src.items():
+            for leaf, a in p.items():
+                np.testing.assert_array_equal(dst[name][leaf], a)
+
+
+def test_gradients_come_back_in_jax_layout(jax_params):
+    """Gradients are param-shaped: `to_jax_params` of the port's autograd
+    gradients equals jax.grad leaf for leaf (a conv and a dense layer)."""
+    import jax.numpy as jnp
+    from mscnn_tpu.ops import conv as JC
+    from mscnn_torch.ops import conv as TC
+    rng = np.random.RandomState(1)
+    x = rng.randn(1, 6, 7, 512).astype(np.float32)
+    v = rng.randn(3, jax_params["cls_pred"]["w"].shape[0]).astype(np.float32)
+    sub = {k: jax_params[k] for k in ("conv5_1", "cls_pred")}
+
+    def jloss(p):
+        y = JC.conv2d(jnp.asarray(x), p["conv5_1"]["w"], p["conv5_1"]["b"])
+        z = JC.dense(jnp.asarray(v), p["cls_pred"]["w"], p["cls_pred"]["b"])
+        return (y * y).sum() + (z ** 3).sum()
+
+    want = jax.jit(jax.grad(jloss))(jax.tree.map(jnp.asarray, sub))
+    tp = {n: {k: t.requires_grad_() for k, t in p.items()}
+          for n, p in bridge.from_jax_params(sub).items()}
+    y = TC.conv2d(torch.from_numpy(x), tp["conv5_1"]["w"], tp["conv5_1"]["b"])
+    z = TC.dense(torch.from_numpy(v), tp["cls_pred"]["w"], tp["cls_pred"]["b"])
+    ((y * y).sum() + (z ** 3).sum()).backward()
+    got = bridge.to_jax_params({n: {k: t.grad for k, t in p.items()}
+                                for n, p in tp.items()})
+    for name, p in want.items():
+        for k, g in p.items():
+            g = np.asarray(g)
+            assert got[name][k].shape == g.shape, (name, k)
+            np.testing.assert_allclose(got[name][k], g, rtol=1e-4,
+                                       atol=1e-5 * np.abs(g).max())

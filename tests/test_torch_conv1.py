@@ -4,11 +4,14 @@ plain version in tests/test_torch_kernels.py, on a card.
 
 Everything computes in bf16 with f32 accumulation, so the two sides differ
 by bf16 rounding at other places and by summation order: the tolerance is
-the JAX kernel test's, atol 0.02 * max|ref|.
+the JAX kernel test's, atol 0.02 * max|ref|. The backward (an autograd
+function whose backward is the plain version's VJP, as JAX's custom_vjp
+is `_conv1_pool_xla`'s) is held to `jax.vjp` of JAX's conv1_pool_fused.
 """
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ from mscnn_tpu.ops.pallas import conv1_kernel as JK
 from mscnn_torch.io import bridge
 from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
+from mscnn_torch.ops import conv as C
 from mscnn_torch.ops.kernels import conv1_kernel as TK
 
 TILE = dict(tile_h=8, tile_q=16)   # small tiles keep interpret mode fast
@@ -68,9 +72,62 @@ def test_fused_dispatches_to_plain_on_cpu(rng):
 
 
 def test_fused_backward_not_ported(rng):
-    x, w1, b1, w2, b2 = to_port(*make_inputs(rng, 1, 8, 8))
-    with pytest.raises(NotImplementedError):
-        TK.conv1_pool_fused(x.requires_grad_(), w1, b1, w2, b2)
+    """The backward is ported now: conv1_pool_fused's gradients are the VJP
+    of conv1_pool_plain, bit for bit on the CPU (the same ops)."""
+    args = to_port(*make_inputs(rng, 1, 8, 8))
+    a = [t.clone().requires_grad_() for t in args]
+    b = [t.clone().requires_grad_() for t in args]
+    g = torch.from_numpy(rng.randn(1, 4, 4, 64).astype(np.float32)).bfloat16()
+    TK.conv1_pool_fused(*a).backward(g)
+    TK.conv1_pool_plain(*b).backward(g)
+    for ta, tb in zip(a, b):
+        assert ta.grad is not None
+        assert torch.equal(ta.grad, tb.grad)
+
+
+def test_fused_backward_matches_jax_vjp(rng):
+    """Gradients for x, w1, b1, w2 and b2 at [2, 19, 37, 3] with nonzero
+    biases against jax.vjp of JAX's conv1_pool_fused (the VJP of
+    `_conv1_pool_xla`, bf16): x, w1 and w2 within 2% of max|ref|. The
+    bias gradients are sums of 1,406 bf16 terms, which JAX's VJP adds in
+    bf16 (a few % of max off the exact sum; printed with pytest -s) and
+    the port in f32: they are held to the exact float64 sum of the port's
+    own per-position gradient within 1% of max, and to JAX's within 6%."""
+    x, w1, b1, w2, b2 = make_inputs(rng, 2, 19, 37)
+    x = x * 80.0
+    b1, b2 = (rng.randn(64) * 0.5).astype(np.float32), (rng.randn(64) * 0.5).astype(np.float32)
+    g = rng.randn(2, 10, 19, 64).astype(np.float32)
+    out, vjp = jax.vjp(lambda *a: JK.conv1_pool_fused(*a),
+                       *(jnp.asarray(a) for a in (x, w1, b1, w2, b2)))
+    want = [np.asarray(v, np.float64) for v in vjp(jnp.asarray(g, out.dtype))]
+    args = [t.clone().requires_grad_() for t in to_port(x, w1, b1, w2, b2)]
+    y = TK.conv1_pool_fused(*args)
+    y.backward(torch.from_numpy(g).bfloat16())
+    got = [args[0].grad, bridge.leaf_to_jax(args[1].grad), args[2].grad,
+           bridge.leaf_to_jax(args[3].grad), args[4].grad]
+    for name, gt, w in zip(("x", "w1", "b1", "w2", "b2"), got, want):
+        gt = np.asarray(gt, np.float64)
+        tol = 0.06 if name in ("b1", "b2") else 0.02
+        assert np.abs(gt - w).max() <= tol * np.abs(w).max(), name
+
+    # the exact bias sums: the per-position gradient of each bias add,
+    # from the same bf16 chain as conv1_pool_plain
+    dt = torch.bfloat16
+    xt, wt1, bt1, wt2, bt2 = to_port(x, w1, b1, w2, b2)
+    y1 = C.conv2d(xt.to(dt), wt1.to(dt), None, padding=1).detach().requires_grad_()
+    a1 = y1 + bt1.to(dt)
+    y2 = C.conv2d(torch.relu(a1), wt2.to(dt), None, padding=1)
+    a2 = y2 + bt2.to(dt)
+    a1.retain_grad()
+    a2.retain_grad()
+    C.max_pool(torch.relu(a2), 2, 2).backward(torch.from_numpy(g).to(dt))
+    for name, a, gt, w in (("b1", a1, got[2], want[2]), ("b2", a2, got[4], want[4])):
+        exact = a.grad.double().sum((0, 1, 2)).numpy()
+        m = np.abs(exact).max()
+        err = np.abs(np.asarray(gt, np.float64) - exact).max()
+        print(f"{name}: the port {err / m:.3g} of max off the exact sum, JAX "
+              f"{np.abs(w - exact).max() / m:.3g}")
+        assert err <= 0.01 * m, (name, err)
 
 
 def test_trunk_pallas_conv1_wiring(rng):

@@ -15,7 +15,9 @@ orders, and round where the reference rounds. The int8 kernel
 must agree exactly in every epilogue: its int32 sums are exact, its
 dequantization rounds where the plain version rounds, and its int8 copies
 (direct or through the 2x2 max pool) quantize the stored value with the
-plain quantizer's true division and half-to-even rounding.
+plain quantizer's true division and half-to-even rounding. K2's backward
+(an autograd function: the VJP of the plain version) equals the plain
+version's autograd.
 """
 
 import math
@@ -209,6 +211,29 @@ def test_conv1_kernel_rounds_w1_to_bf16(cuda):
     assert y1[0, 5, 5, 0].item() == 27.125
     assert torch.equal(got, want)
     assert not torch.equal(old, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(2, 40, 70), (1, 19, 37)])
+def test_conv1_kernel_backward_matches_plain_autograd(gen, cuda, b, h, w):
+    """conv1_pool_fused with inputs that require grad: the forward is K2
+    (one launch, K2's gate), the gradients for x, w1, b1, w2 and b2 are
+    conv1_pool_plain's under autograd on the same card (the same ops,
+    within 1e-6 of max|ref|)."""
+    args = [t.requires_grad_() for t in conv1_inputs(gen, b, h, w, cuda, False)]
+    g = torch.from_numpy(gen.randn(b, (h + 1) // 2, (w + 1) // 2, 64).astype(
+        np.float32)).to(cuda).bfloat16()
+    before = CK.launches
+    got_y = CK.conv1_pool_fused(*args)
+    assert CK.launches == before + 1
+    want_y = CK.conv1_pool_plain(*args)
+    conv1_gate(got_y.detach(), want_y.detach().float())
+    got = torch.autograd.grad(got_y, args, g)
+    want = torch.autograd.grad(want_y, args, g)
+    for a, r in zip(got, want):
+        assert a.shape == r.shape and a.dtype == r.dtype
+        assert (a.float() - r.float()).abs().max().item() <= \
+            1e-6 * r.float().abs().max().item()
 
 
 def k3_biases(args, bias):
