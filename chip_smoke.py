@@ -101,7 +101,31 @@ Phases (any failure exits non-zero, before the result line):
                 training shape (on the step's candidates and on random
                 ones), one step under sync debug mode "error", a profiler
                 window over two steps, frozen layers bit-unchanged and
-                every trainable leaf moved.
+                every trainable leaf moved;
+ 13. train entry -- the training entry point at full width: 8 seeded
+                375x1242 PPM images with 1-5 boxes and their window file,
+                the flagship's trainval_1st / trainval_2nd and solver_1st /
+                solver_2nd written from zoo.kitti_car_8s_768()
+                (config/zoo_export.py) and imported back to it, then
+                `mscnn_torch.cli train2 --bf16 --uint8-input --conv1 auto`
+                (4 + 4 iterations, batch 4 of 768x1024 crops of images
+                resized to 768x2560, stage 2 snapshotting every 2) in
+                deterministic mode: K2 8 launches and K1 4 (this run's
+                counts alone), each held against its plain version on the
+                run's tensors; (a) stage 2 warm-starts from stage 1's final
+                snapshot bit for bit, frozen layers bit-unchanged through
+                both stages; (b) stage 2 resumed from its iter-2 snapshot
+                (`--snapshot`, the run's batches 2-3 replayed) equals the
+                uninterrupted run bit for bit (else within 1e-2 of each
+                weight's movement, the training step's tolerance, and says
+                which); (c) the state written as .caffemodel /
+                .solverstate reads back bit for bit; then 10 timed loop
+                iterations (iteration ms, input wait and its share, peak
+                memory), (e) one iteration and the batch transfer under
+                sync debug mode "error", snapshot ms in each format, the
+                host pipeline's resize and batch ms, a profiler window over
+                two loop iterations, and (f) no jax, mscnn_tpu or cv2 in
+                sys.modules.
 
 The lines before the last give the card's name and power limit
 (nvidia-smi) and one JSON object listing every kernel, each with its
@@ -113,6 +137,7 @@ same function); the last line is
 repository, the script exits non-zero and prints no result.
 """
 
+import argparse
 import dataclasses
 import functools
 import json
@@ -427,6 +452,431 @@ def trace_window(PROF, run, label, what, note):
                                  f"{sum(c for c, _ in hits)} launches over two steps"
                                  if hits else "not in the trace"))
     return busy_share
+
+
+KITTI_HW = (375, 1242)   # a KITTI image
+TRAIN_IMAGES = 8
+
+
+def write_ppm(path, bgr):
+    """A binary PPM (P6) of an HxWx3 BGR uint8 image, as cv2.imwrite writes it."""
+    h, w, _ = bgr.shape
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (w, h) + bgr[:, :, ::-1].tobytes())
+
+
+def write_kitti_like(root, n, seed):
+    """n seeded KITTI-size PPM images, 1-5 flat car boxes each on a noisy
+    background whose mean is near the net's mean values (as a photograph's
+    is: far-off input statistics blow up the random-weight losses), and
+    their window file (label 1, not ignored). Returns the window file's
+    path."""
+    import numpy as np
+    from mscnn_torch.data import window_file as W
+
+    rng = np.random.RandomState(seed)
+    h, w = KITTI_HW
+    images = []
+    for i in range(n):
+        img = rng.randint(30, 220, (h, w, 3)).astype(np.uint8)
+        gts = []
+        for _ in range(rng.randint(1, 6)):
+            bw, bh = rng.randint(w // 20, w // 4), rng.randint(h // 9, h * 2 // 5)
+            x1, y1 = rng.randint(0, w - bw), rng.randint(h // 4, h - bh)
+            img[y1:y1 + bh, x1:x1 + bw] = rng.randint(0, 256, 3)
+            gts.append([1, 0, x1, y1, x1 + bw - 1, y1 + bh - 1])
+        path = os.path.join(root, f"{i:06d}.ppm")
+        write_ppm(path, img)
+        images.append(W.WindowImage(path, 3, h, w, np.asarray(gts, np.float32),
+                                    np.zeros((0, 4), np.float32)))
+    wf = os.path.join(root, "trainval.txt")
+    W.write_window_file(wf, images)
+    return wf
+
+
+def flagship_training_specs(stage, root):
+    """The flagship's stage-1 / stage-2 training specs: the zoo config in
+    training geometry (768x1024 crops), the reference kitti_car trainval's
+    augmentation shape (resize to the deploy 768x2560, multi-scale over the
+    fields 60-672, mirror, min gt height 35), batch 4, bench.py's solver
+    (SGD, step policy, momentum 0.9, weight decay 5e-4) at a tenth of its
+    learning rate (5e-6: the weights are random, not VGG16's, and at 5e-5
+    the losses grew 10x in two steps); 4 iterations, display every 2,
+    stage 2 snapshots every 2."""
+    from mscnn_torch.data.augment import AugmentSpec
+    from mscnn_torch.data.pipeline import DatasetSpec
+    from mscnn_torch.models import zoo
+    from mscnn_torch.train import loop as LP
+    from mscnn_torch.train.solver import SolverSpec
+    from mscnn_torch.train.train_step import TrainSpec
+
+    cfg = zoo.kitti_car_8s_768()
+    # stage 1 has no ProposalTarget: its roi fields are the importer's defaults
+    tspec = TrainSpec(stage=2) if stage == 2 else \
+        TrainSpec(stage=1, sample_mode="random", roi_bg_thr_hg=0.5)
+    aug = AugmentSpec(template_hw=cfg.input_hw, resize_hw=(768, 2560), mirror=True,
+                      do_multiple_scale=True, min_scale=60, max_scale=672,
+                      min_gt_height=35.0)
+    sspec = SolverSpec(type="sgd", base_lr=5e-6, lr_policy="step", gamma=0.1,
+                       stepsize=10000, max_iter=4, momentum=0.9, weight_decay=5e-4)
+    lspec = LP.LoopSpec(max_iter=4, display=2, snapshot=2 if stage == 2 else 0,
+                        snapshot_prefix=os.path.join(root, f"s{stage}"))
+    return cfg, tspec, aug, DatasetSpec(batch_size=BATCH), sspec, lspec
+
+
+def tree_diff(a, b):
+    """The leaves of b's {name: {leaf: tensor}} tree that a does not hold
+    bit for bit (dtype, shape and values)."""
+    import torch
+    return [f"{n}.{k}" for n, p in b.items() for k, v in p.items()
+            if a[n][k].dtype != v.dtype or a[n][k].shape != v.shape
+            or not torch.equal(a[n][k].cpu(), v.cpu())]
+
+
+def cli_args(cli, *argv):
+    """The arguments `mscnn_torch.cli train` parses from argv."""
+    p = argparse.ArgumentParser()
+    cli._add_common(p)
+    return p.parse_args(list(argv))
+
+
+def training_entry_point(dev, counts, zero_counts, PROF):
+    """Phase 13: `mscnn_torch.cli train2` on the flagship at full width
+    (module notes). Returns the figures the kernels line and the log use."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from mscnn_torch import cli
+    from mscnn_torch.config import zoo_export as ZE
+    from mscnn_torch.config import zoo_import as ZI
+    from mscnn_torch.data import pipeline as P
+    from mscnn_torch.io import caffemodel as CM
+    from mscnn_torch.io import checkpoint as CKPT
+    from mscnn_torch.models import mscnn as M
+    from mscnn_torch.ops import nms as nms_ops
+    from mscnn_torch.ops.kernels import conv1_kernel as CK
+    from mscnn_torch.ops.kernels import nms_kernel as NK
+    from mscnn_torch.train import loop as LP
+
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    t0 = time.perf_counter()
+    wf = write_kitti_like(root, TRAIN_IMAGES, SEED + 13)
+    paths = {}
+    for stage in (1, 2):
+        cfg, tspec, aug, dspec, sspec, lspec = flagship_training_specs(stage, root)
+        net = os.path.join(root, f"trainval_{'1st' if stage == 1 else '2nd'}.prototxt")
+        with open(net, "w") as f:
+            f.write(ZE.trainval_prototxt(cfg, tspec, aug, dspec, source=wf))
+        solver = os.path.join(root, f"solver_{'1st' if stage == 1 else '2nd'}.prototxt")
+        with open(solver, "w") as f:
+            f.write(ZE.solver_prototxt(sspec, lspec, net=net, random_seed=SEED))
+        # the texts import back to the zoo config and the specs
+        icfg, itspec, iaug, idspec, src = ZI.model_from_prototxt(net)
+        if stage == 1:   # no ROI layer in stage 1: the importer's ROI default
+            icfg = dataclasses.replace(icfg, roi_spatial_scale=cfg.roi_spatial_scale)
+        if dataclasses.replace(icfg, name=cfg.name, extra_layers=cfg.extra_layers) != cfg \
+                or sorted(icfg.extra_layers) != sorted(cfg.extra_layers) \
+                or (itspec, iaug, idspec, src) != (tspec, aug, dspec, wf) \
+                or ZI.solver_from_prototxt(solver) != sspec:
+            fail(f"train entry: the stage-{stage} prototxts do not import back to "
+                 f"{cfg.name} and its specs")
+        paths[stage] = (net, solver, lspec.snapshot_prefix)
+    log(f"train entry: {TRAIN_IMAGES} synthetic KITTI images {KITTI_HW[0]}x"
+        f"{KITTI_HW[1]} (PPM) + window file, trainval_1st/2nd and solver_1st/2nd "
+        f"from zoo.kitti_car_8s_768() import back to it ({time.perf_counter() - t0:.1f} s)")
+
+    # -- the run: train2, counts from this run alone, the kernels' inputs kept
+    calls = {"nms": [], "conv1": []}
+    nms_cuda, conv1_cuda = NK.nms_xywh_cuda, CK.conv1_pool_cuda
+
+    def rec_nms(*a, **kw):
+        o = nms_cuda(*a, **kw)
+        calls["nms"].append((a, kw, o))
+        return o
+
+    def rec_conv1(*a):
+        o = conv1_cuda(*a)
+        calls["conv1"].append((a, o))
+        return o
+
+    batches = []
+    get = P.Prefetcher.get
+
+    def rec_get(self, *a, **kw):
+        b = get(self, *a, **kw)
+        batches.append(b)
+        return b
+
+    argv = ["train2", "--solver1", paths[1][1], "--solver2", paths[2][1], "--bf16",
+            "--uint8-input", "--conv1", "auto", "--seed", str(SEED)]
+    # bitwise resume needs deterministic kernels (cuBLAS: its workspace config)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    NK.nms_xywh_cuda, CK.conv1_pool_cuda, P.Prefetcher.get = rec_nms, rec_conv1, rec_get
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            zero_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = counts()
+    finally:
+        NK.nms_xywh_cuda, CK.conv1_pool_cuda, P.Prefetcher.get = nms_cuda, conv1_cuda, get
+    nondet = sorted({str(w.message).split(" does not have")[0][:80] for w in caught
+                     if "deterministic" in str(w.message)})
+    if rc != 0:
+        fail(f"train entry: `mscnn_torch.cli train2` returned {rc}")
+    log(f"train entry: `python -m mscnn_torch.cli {' '.join(argv[:1])} ... --bf16 "
+        f"--uint8-input --conv1 auto`: {run_s:.1f} s for 4 + 4 iterations, launches "
+        f"{launches}; deterministic mode, ops without a deterministic kernel: "
+        f"{nondet or 'none'}")
+    # (d) K2 every iteration of both stages (conv1 auto: the fused kernel at
+    # bf16 on the card), K1 every stage-2 iteration (its propose)
+    if launches["conv1_pool"] != 8 or launches["nms"] != 4 or \
+            launches["int8_gemm"] or launches["conv1_v5"]:
+        fail(f"train entry: launches {launches}, expected 8 conv1_pool and 4 nms")
+    k2_share, k2_err = 1.0, 0.0
+    for a, o in calls["conv1"][:1] + calls["conv1"][4:5]:
+        want = CK.conv1_pool_plain(*a)
+        err, tol, eq, ulps, ok = conv1_compare(o.float(), want.float())
+        if tuple(a[0].shape) != (BATCH, *cfg.input_hw, 3) or not ok:
+            fail(f"train entry: K2 at {tuple(a[0].shape)} != plain (err {err:.4g}, "
+                 f"atol {tol:.4g}, {ulps:.4g} for 2 ulps, bit-equal share {eq:.4f})")
+        k2_share, k2_err = min(k2_share, eq), max(k2_err, err)
+    for a, kw, o in calls["nms"]:
+        if not nms_equal(o, nms_ops.nms_xywh_plain(*a, **kw)):
+            fail(f"train entry: K1 at {tuple(a[0].shape)} != plain")
+    na = calls["nms"][0][0]
+    log(f"train entry: K2 on stage 1's and stage 2's first batch at "
+        f"{tuple(calls['conv1'][0][0][0].shape)} within K2's gate (bit-equal share "
+        f">= {k2_share:.4f}, max err {k2_err:.4g}); K1 equal to plain on all 4 launches "
+        f"at P={na[0].shape[0]} N={na[0].shape[1]} "
+        f"(kept {[int(o[2].sum()) for _, _, o in calls['nms']]})")
+    out["launches"] = launches
+    out["k2_share"], out["k2_err"] = k2_share, k2_err
+    del calls
+
+    # (a) warm start and frozen layers
+    snap1 = CKPT.latest_snapshot(paths[1][2])
+    snap2 = CKPT.latest_snapshot(paths[2][2])
+    if not (snap1 and snap1.endswith("_iter_4") and snap2 and snap2.endswith("_iter_4")):
+        fail(f"train entry: snapshots {snap1}, {snap2}")
+    ref = torch.load(os.path.join(snap2, CKPT.STATE_FILE), map_location="cpu",
+                     weights_only=True)
+    s1 = torch.load(os.path.join(snap1, CKPT.STATE_FILE), map_location="cpu",
+                    weights_only=True)["params"]
+    common = ("--bf16", "--uint8-input", "--conv1", "auto", "--seed", str(SEED))
+    warm, _, _, _, cfg2, _ = cli._build_training(
+        cli_args(cli, *common, "--weights", snap1), paths[2][1])
+    # both solvers seed the init alike, so stage 2's fresh init is stage 1's
+    fresh, _, _, _, _, _ = cli._build_training(cli_args(cli, *common), paths[2][1])
+    lm = M.param_lr_multipliers(s1, cfg2)
+    frozen = sorted(n for n in s1 if all(v == 0.0 for v in lm[n].values()))
+    copied = tree_diff(warm["params"], s1)
+    if copied:
+        fail(f"train entry: stage 2's warm start differs from stage 1's snapshot: {copied}")
+    # stage 1 trains the trunk past conv2 and the heads; the ROI head has no
+    # gradient there (no ProposalTarget), and its weight decay alone moves
+    # nothing at lr 5e-6
+    moved = [n for n in s1 if tree_diff(fresh["params"], {n: s1[n]})]
+    stage1_trained = [n for n in s1 if n not in frozen
+                      and not n.startswith(("roi_c1", "fc6", "cls_pred", "bbox_pred"))]
+    frozen1 = [n for n in frozen if n in moved]
+    frozen2 = tree_diff(ref["params"], {n: s1[n] for n in frozen})
+    trained2 = [n for n in s1 if n not in frozen and not tree_diff(ref["params"], {n: s1[n]})]
+    if frozen != ["conv1_1", "conv1_2", "conv2_1", "conv2_2"] or frozen1 or frozen2 \
+            or trained2 or not set(stage1_trained) <= set(moved):
+        fail(f"train entry: frozen {frozen}; frozen layers moved in stage 1 {frozen1}, in "
+             f"stage 2 {frozen2}; trained in stage 1 but equal to the init "
+             f"{sorted(set(stage1_trained) - set(moved))}; trainable layers stage 2 "
+             f"left as warm-started {trained2}")
+    log(f"train entry: (a) stage 2 warm-starts from {os.path.basename(snap1)}: all "
+        f"{len(s1)} layers equal to it bit for bit, {len(moved)} differ from the "
+        f"fresh init (every layer stage 1 trains); {', '.join(frozen)} bit-unchanged "
+        f"through both stages; every trainable layer moved in stage 2")
+    del warm, fresh, s1
+
+    # (b) resume: the iter-2 snapshot through the CLI's --snapshot path, then
+    # stage 2's iterations 2 and 3 on the batches the run gave them
+    st2, step2, _, lspec2, _, _ = cli._build_training(
+        cli_args(cli, *common, "--snapshot", f"{paths[2][2]}_iter_2"), paths[2][1])
+    if int(st2["solver"]["it"]) != 2 or len(batches) != 8:
+        fail(f"train entry: resumed at {int(st2['solver']['it'])}, {len(batches)} batches")
+    replay = iter(batches[6:8])
+    resumed = LP.solve(step2, st2, lambda: next(replay),
+                       dataclasses.replace(lspec2, snapshot=0, snapshot_prefix=""),
+                       seed=SEED, log=lambda m: None)
+    torch.use_deterministic_algorithms(False)
+    diff = [k for part in ("params", "h1") for k in tree_diff(
+        (resumed["params"] if part == "params" else resumed["solver"]["h1"]),
+        (ref["params"] if part == "params" else ref["solver"]["h1"]))]
+    if not diff and int(resumed["solver"]["it"]) == int(ref["solver"]["it"]) == 4:
+        out["resume"] = "bit-equal"
+    else:
+        # the training step's tolerance (phase 11, tests/test_torch_train_step.py):
+        # 1e-2 of each weight's movement over the two steps
+        st_w = torch.load(os.path.join(f"{paths[2][2]}_iter_2", CKPT.STATE_FILE),
+                          map_location="cpu", weights_only=True)
+        worst = 0.0
+        for n, p in ref["params"].items():
+            for k, w in p.items():
+                g, w0 = resumed["params"][n][k].cpu(), st_w["params"][n][k]
+                mv = (w - w0).abs().max().item()
+                err = (g - w).abs().max().item()
+                if err > 1e-2 * mv + 4 * np.spacing(np.float32(w.abs().max().item())):
+                    fail(f"train entry: (b) the resumed {n}.{k} is {err:.4g} from the "
+                         f"uninterrupted run's (movement {mv:.4g})")
+                worst = max(worst, err / mv if mv else 0.0)
+        out["resume"] = f"within the step tolerance ({len(diff)} leaves not " \
+                        f"bit-equal, worst {worst:.3g} of the movement)"
+    log(f"train entry: (b) resumed from s2_iter_2 (`--snapshot`, stage 2's own "
+        f"batches 2-3 replayed: the data stream restarts on resume, as in the "
+        f"reference) to iter 4: {out['resume']} against the uninterrupted run")
+    del resumed, st2, replay
+
+    # (c) the same state as .caffemodel / .solverstate, read back
+    t0 = time.perf_counter()
+    cm = CKPT.snapshot_caffemodel(os.path.join(root, "bp"), ref, current_step=0)
+    out["snapshot_caffemodel_ms"] = (time.perf_counter() - t0) * 1e3
+    back = CKPT.restore_params(cm, {n: {k: torch.zeros_like(v) for k, v in p.items()}
+                                    for n, p in ref["params"].items()})
+    hist, it = CM.load_solverstate_history(
+        cm.replace(".caffemodel", ".solverstate"),
+        {"it": torch.zeros((), dtype=torch.int32),
+         "h1": {n: {k: torch.zeros_like(v) for k, v in p.items()}
+                for n, p in ref["solver"]["h1"].items()}})
+    bad = tree_diff(back, ref["params"]) + tree_diff(hist["h1"], ref["solver"]["h1"])
+    if bad or it != 4:
+        fail(f"train entry: (c) the .caffemodel / .solverstate pair read back differs: "
+             f"{bad[:5]}, iter {it}")
+    t0 = time.perf_counter()
+    CKPT.snapshot(os.path.join(root, "dir"), ref)
+    out["snapshot_torch_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"train entry: (c) stage 2's state written as {os.path.basename(cm)} + "
+        f".solverstate and read back: bit-equal (params, h1, iter 4); snapshot "
+        f"{out['snapshot_torch_ms']:.1f} ms (port directory) / "
+        f"{out['snapshot_caffemodel_ms']:.1f} ms (.caffemodel + .solverstate), "
+        f"{sum(v.numel() for p in ref['params'].values() for v in p.values())} params")
+    del back, hist, ref
+
+    # the loop's cost: stage 2 resumed from its final snapshot for 10 more
+    # iterations, display every 2 (a sync there), host clock between displays
+    state, step, make_source, lspec, _, _ = cli._build_training(
+        cli_args(cli, *common, "--snapshot", snap2), paths[2][1])
+    _, _, aug2, dspec2, _ = ZI.model_from_prototxt(paths[2][0])
+    host = P.dataset_from_window_file(wf, dataclasses.replace(aug2, emit_uint8=True),
+                                      dspec2).next_batch()   # the transfer check
+    lspec = dataclasses.replace(lspec, max_iter=14, display=2, snapshot=0,
+                                snapshot_prefix="")
+    marks, waits, it_box = [], [], [4]
+    SYNC_IT = 9   # display not due
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with make_source() as src:
+        def source():
+            it = it_box[0]
+            # iteration SYNC_IT, its batch fetch included, under "error"
+            torch.cuda.set_sync_debug_mode("error" if it == SYNC_IT else "default")
+            t = time.perf_counter()
+            b = src.get()
+            waits.append((it, time.perf_counter() - t))
+            it_box[0] += 1
+            return b
+
+        try:
+            state = LP.solve(step, state, source, lspec, seed=SEED, log=lambda m: None,
+                             hooks=[lambda it, m: marks.append((it, time.perf_counter(),
+                                                                m["loss"]))])
+        except RuntimeError as e:
+            if "synchroniz" not in str(e):
+                raise
+            fail(f"train entry: (e) a loop iteration synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        # the batch transfer alone, under the same mode: pinned copy on the
+        # copy stream, the consumer's stream waits on its event
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            to_dev = P._ToDevice(dev)
+            moved_batch = to_dev.take(to_dev.put(host))
+        except RuntimeError as e:
+            if "synchroniz" not in str(e):
+                raise
+            fail(f"train entry: (e) the batch transfer synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if not all(torch.equal(moved_batch[k].cpu(), torch.from_numpy(v))
+                   for k, v in host.items()):
+            fail("train entry: the batch transfer changed the batch")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        windows = [(b[1] - a[1]) / (b[0] - a[0]) for a, b in zip(marks, marks[1:])]
+        iter_ms = statistics.median(windows) * 1e3
+        wait = [w for it, w in waits if marks[0][0] < it <= marks[-1][0]]
+        wait_ms = statistics.median(wait) * 1e3
+        share = sum(wait) / (marks[-1][1] - marks[0][1])
+        losses = [m[2] for m in marks]
+        if len(marks) != 5 or not all(math.isfinite(v) for v in losses):
+            fail(f"train entry: display marks {marks}")
+        log(f"train entry: (e) iteration {SYNC_IT} (display not due: batch fetch, "
+            f"step, loop bookkeeping) under sync debug mode 'error': no host sync; "
+            f"the batch transfer alone under it: no host sync, the batch equal")
+        log(f"train entry: stage 2 iterations 4-13, display every 2: iteration "
+            f"{iter_ms:.2f} ms (median of {len(windows)} two-iteration windows: "
+            f"{', '.join(f'{w * 1e3:.2f}' for w in windows)}), input wait "
+            f"{wait_ms:.2f} ms a step (median; inside batch_source()), "
+            f"{share:.4f} of the iterations' time; peak {peak:.2f} GiB; losses "
+            f"{', '.join(f'{v:.4f}' for v in losses)}")
+
+        # two loop iterations in a profiler window (one solve call each)
+        def one_iteration():
+            nonlocal state
+            state = LP.solve(step, state, src.get, dataclasses.replace(
+                lspec, max_iter=int(state["solver"]["it"]) + 1, display=0),
+                seed=SEED, log=lambda m: None)
+
+        busy = trace_window(PROF, one_iteration, "train_loop_iteration",
+                            "two loop iterations of the training entry point",
+                            "the iteration ms above is a host-clock time")
+    # the host pipeline's parts on this machine's CPU: one image's resize to
+    # 768x2560 (data/resize.py) and one batch of the dataset (read, augment,
+    # assemble), each the median of 5
+    from mscnn_torch.data.resize import resize_bilinear_u8
+    img = P.load_image(os.path.join(root, "000000.ppm"))
+    rs = []
+    for _ in range(5):
+        t = time.perf_counter()
+        resize_bilinear_u8(img, (2560, 768))
+        rs.append(time.perf_counter() - t)
+    ds = P.dataset_from_window_file(wf, dataclasses.replace(aug2, emit_uint8=True), dspec2)
+    bs = []
+    for _ in range(5):
+        t = time.perf_counter()
+        ds.next_batch()
+        bs.append(time.perf_counter() - t)
+    resize_ms, batch_ms = statistics.median(rs) * 1e3, statistics.median(bs) * 1e3
+    log(f"train entry: host pipeline on this machine's CPU: resize "
+        f"{KITTI_HW[0]}x{KITTI_HW[1]} -> 768x2560 {resize_ms:.2f} ms an image, "
+        f"one batch of {BATCH} (read, augment, assemble) {batch_ms:.2f} ms "
+        f"(medians of 5)")
+    out.update(iter_ms=iter_ms, wait_ms=wait_ms, wait_share=share, peak_gib=peak,
+               busy=busy, run_s=run_s, resize_ms=resize_ms, batch_ms=batch_ms)
+    del state, step, moved_batch, batches
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    loaded = [m for m in sys.modules if m in ("jax", "mscnn_tpu", "cv2")
+              or m.startswith(("jax.", "mscnn_tpu.", "cv2."))]
+    if loaded:
+        fail(f"train entry: (f) {loaded[:5]} imported")
+    log("train entry: (f) neither jax, mscnn_tpu nor cv2 is in sys.modules")
+    return out
 
 
 def main():
@@ -1514,12 +1964,23 @@ def main():
     if jax_loaded():
         fail("the training phases imported jax or the JAX package")
 
+    # -- 13. the training entry point: prototxts, window file, train2 ----------
+    tr = training_entry_point(dev, counts, zero_counts, PROF)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
+    log(f"train entry on {card}: iteration {tr['iter_ms']:.2f} ms (median), input "
+        f"wait {tr['wait_ms']:.2f} ms a step = {tr['wait_share']:.4f} of the "
+        f"iteration, snapshot {tr['snapshot_torch_ms']:.1f} ms (port directory) / "
+        f"{tr['snapshot_caffemodel_ms']:.1f} ms (.caffemodel + .solverstate), peak "
+        f"{tr['peak_gib']:.2f} GiB, host resize {tr['resize_ms']:.2f} ms an image and "
+        f"{tr['batch_ms']:.2f} ms a batch, device busy share "
+        + (f"{tr['busy']:.4f}" if tr["busy"] is not None else "not measured")
+        + f" (two loop iterations); resume {tr['resume']}")
 
     kernels = [
         {"name": "nms_xywh", "route": "cuda",
@@ -1535,6 +1996,7 @@ def main():
                        "postprocess": kernels_ms["nms_postprocess"][2]},
          "design": "sorted-order scan",
          "launches_train_step": launches_t["nms"],
+         "launches_train_entry": tr["launches"]["nms"],
          "train": {tag: {"shape": [BATCH, fcfg.proposal.max_nms_num,
                                    fcfg.proposal.max_out], "kept": v[4],
                          "ms": v[0], "plain_ms": v[1], "device_ms": v[2],
@@ -1550,6 +2012,8 @@ def main():
          "cudnn_unfused_ms": sum(k3["4x768x2560"]["cudnn"].values()),
          "k3_best_ms": k3["4x768x2560"]["k3_best"][1],
          "launches_train_step": launches_t["conv1_pool"],
+         "launches_train_entry": tr["launches"]["conv1_pool"],
+         "train_entry_min_bit_equal_share": tr["k2_share"],
          "launches_train_pallas_tiny": k2_train_launches,
          "backward": "autograd, plain ops",
          "backward_shape": [BATCH, TH, TW, 3], "backward_ms": k2b_ms,

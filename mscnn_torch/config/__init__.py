@@ -1,0 +1,1 @@
+"""PyTorch port of the matching `mscnn_tpu` subpackage."""

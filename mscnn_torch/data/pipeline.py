@@ -1,0 +1,281 @@
+"""Batch assembly + background prefetch: the BasePrefetchingDataLayer analog.
+
+Ports `mscnn_tpu/data/pipeline.py`: `DatasetSpec`, `load_image`,
+`assemble_batch`, `MSCNNDataset`, `Prefetcher` and
+`dataset_from_window_file`. The reference prefetches 3 batches ahead on
+one background thread with an async H2D stream
+(the reference's src/caffe/layers/base_data_layer.cpp:80-131). Here one
+thread augments images with numpy (`data/augment.py`), batches are padded
+to fixed gt / roni capacities, and the label maps are rasterised on the
+device inside the train step.
+
+Where the port differs from the JAX module:
+
+  * `load_image` reads binary PPM (P6) and PGM (P5) itself and returns
+    what `cv2.imread(path, cv2.IMREAD_COLOR)` returns (BGR uint8; a gray
+    image repeated over 3 channels). Other formats (PNG, JPEG) go through
+    cv2 where it can be imported; without it they raise, naming the file.
+  * The device transfer (`jax.device_put` there) is `Prefetcher(...,
+    device=)`. On a card the prefetch thread copies each batch from
+    pinned host memory with `non_blocking=True` on a copy stream of its
+    own and records an event; `Prefetcher.get` makes the consumer's
+    stream wait for that event. Nothing waits on the host, and the copy
+    of the next batch overlaps the current step. device="cpu" gives CPU
+    tensors; device=None the numpy batch, as the JAX module does without
+    device_put.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+from typing import Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+from mscnn_torch.data import augment as A
+from mscnn_torch.data import window_file as W
+
+PREFETCH_COUNT = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetSpec:
+    batch_size: int = 4
+    max_gts: int = 64            # fixed per-image gt capacity (pad + mask)
+    max_ronis: int = 16
+    fg_img_multiple: int = 1
+    shuffle: bool = True
+    seed: int = 1704             # solver_1st.prototxt random_seed
+
+
+def _pnm_header(data: bytes):
+    """(channels, width, height, maxval, offset of the pixels) of a binary
+    PPM (P6) or PGM (P5) file, or None for another format. The header is
+    the magic and three decimal fields separated by whitespace, with '#'
+    comments to the end of a line, then one whitespace byte."""
+    if data[:2] not in (b"P5", b"P6") or len(data) < 3 \
+            or not data[2:3].isspace():
+        return None
+    pos, fields = 2, []
+    while len(fields) < 3:
+        while pos < len(data) and (data[pos:pos + 1].isspace()
+                                   or data[pos:pos + 1] == b"#"):
+            if data[pos:pos + 1] == b"#":
+                pos = data.find(b"\n", pos)
+                if pos < 0:
+                    return None
+            pos += 1
+        end = pos
+        while end < len(data) and data[end:end + 1].isdigit():
+            end += 1
+        if end == pos or end >= len(data):
+            return None
+        fields.append(int(data[pos:end]))
+        pos = end
+    if not data[pos:pos + 1].isspace():
+        return None
+    width, height, maxval = fields
+    return (3 if data[:2] == b"P6" else 1), width, height, maxval, pos + 1
+
+
+def load_image(path: str) -> np.ndarray:
+    """HxWx3 BGR uint8, as `cv2.imread(path, cv2.IMREAD_COLOR)` gives it."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError as e:
+        raise FileNotFoundError(f"could not read image {path}") from e
+    head = _pnm_header(data)
+    if head is None:
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError(
+                f"could not read image {path}: it is not a binary PPM / PGM "
+                f"file, and other formats need the cv2 module, which is "
+                f"not installed") from e
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+        if img is None:
+            raise FileNotFoundError(f"could not read image {path}")
+        return img
+    c, w, h, maxval, off = head
+    if maxval != 255 or len(data) < off + h * w * c:
+        raise ValueError(f"could not read image {path}: {w}x{h}x{c} "
+                         f"maxval {maxval}, {len(data) - off} pixel bytes "
+                         f"(8-bit PPM / PGM with maxval 255 only)")
+    img = np.frombuffer(data, np.uint8, h * w * c, off).reshape(h, w, c)
+    if c == 1:
+        return np.repeat(img, 3, axis=2)
+    return np.ascontiguousarray(img[:, :, ::-1])    # RGB -> BGR
+
+
+def assemble_batch(samples, max_gts: int, max_ronis: int):
+    """Stack per-image augment outputs into one fixed-shape batch dict.
+
+    gt_boxes rows are (img_id, x1, y1, x2, y2, label, ignored) like the
+    reference's gt_boxes top (image_gt_data_layer.cpp:820-839).
+    """
+    b = len(samples)
+    images = np.stack([s[0] for s in samples])
+    gt_boxes = np.zeros((b, max_gts, 7), np.float32)
+    gt_valid = np.zeros((b, max_gts), bool)
+    ronis = np.zeros((b, max_ronis, 4), np.float32)
+    roni_valid = np.zeros((b, max_ronis), bool)
+    copy_region = np.zeros((b, 4), np.float32)
+    for i, (_, gts6, rn, region) in enumerate(samples):
+        g = min(gts6.shape[0], max_gts)
+        if g:
+            gt_boxes[i, :g, 0] = i
+            gt_boxes[i, :g, 1:5] = gts6[:g, 0:4]
+            gt_boxes[i, :g, 5] = gts6[:g, 4]
+            gt_boxes[i, :g, 6] = gts6[:g, 5]
+            gt_valid[i, :g] = True
+        r = min(rn.shape[0], max_ronis)
+        if r:
+            ronis[i, :r] = rn[:r]
+            roni_valid[i, :r] = True
+        copy_region[i] = region
+    return {
+        "image": images,
+        "gt_boxes": gt_boxes,
+        "gt_valid": gt_valid,
+        "ronis": ronis,
+        "roni_valid": roni_valid,
+        "copy_region": copy_region,
+    }
+
+
+class MSCNNDataset:
+    """Epoch-shuffled window-file dataset producing augmented host batches."""
+
+    def __init__(self, images: Sequence[W.WindowImage], aug: A.AugmentSpec,
+                 spec: DatasetSpec, image_loader=load_image):
+        self.images = list(images)
+        self.aug = aug
+        self.spec = spec
+        self.loader = image_loader
+        self.rng = np.random.RandomState(spec.seed)
+        self.index_list = W.build_image_list(self.images, spec.fg_img_multiple)
+        self._order = None
+        self._pos = 0
+
+    def _next_index(self) -> int:
+        if self._order is None or self._pos >= len(self._order):
+            self._order = (self.rng.permutation(len(self.index_list))
+                           if self.spec.shuffle
+                           else np.arange(len(self.index_list)))
+            self._pos = 0
+        idx = self.index_list[self._order[self._pos]]
+        self._pos += 1
+        return int(idx)
+
+    def sample(self):
+        im = self.images[self._next_index()]
+        return A.augment(self.rng, self.loader(im.path), im.gts, im.ronis,
+                         self.aug)
+
+    def next_batch(self) -> dict:
+        samples = [self.sample() for _ in range(self.spec.batch_size)]
+        return assemble_batch(samples, self.spec.max_gts, self.spec.max_ronis)
+
+    def __iter__(self) -> Iterator[dict]:
+        while True:
+            yield self.next_batch()
+
+
+class _ToDevice:
+    """Host batch -> tensors on one device (see the module notes)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+
+    def put(self, batch: dict):
+        """On the prefetch thread: (tensors, ready event or None)."""
+        host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in batch.items()}
+        if self.stream is None:
+            return {k: t.to(self.device) for k, t in host.items()}, None
+        with torch.cuda.stream(self.stream):
+            out = {k: t.pin_memory().to(self.device, non_blocking=True)
+                   for k, t in host.items()}
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        return out, ready
+
+    def take(self, item) -> dict:
+        """On the consumer's thread: its stream waits for the copy, and the
+        caching allocator learns that the tensors are used there."""
+        batch, ready = item
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            for t in batch.values():
+                t.record_stream(stream)
+        return batch
+
+
+class Prefetcher:
+    """Bounded-queue background prefetch (the BlockingQueue free/full pair
+    collapses to one bounded queue). device: where `get` returns the
+    batch's tensors (see the module notes); None returns numpy batches."""
+
+    def __init__(self, dataset: MSCNNDataset, depth: int = PREFETCH_COUNT,
+                 device=None):
+        self.dataset = dataset
+        self.queue: queue.Queue = queue.Queue(maxsize=depth)
+        self.to_device = _ToDevice(device) if device is not None else None
+        self._stop = threading.Event()
+        self._exc: Optional[BaseException] = None
+        self.thread = threading.Thread(target=self._worker, daemon=True)
+        self.thread.start()
+
+    def _worker(self):
+        try:
+            while not self._stop.is_set():
+                item = self.dataset.next_batch()
+                if self.to_device is not None:
+                    item = self.to_device.put(item)
+                while not self._stop.is_set():
+                    try:
+                        self.queue.put(item, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+        except BaseException as e:  # surfaced on the consumer side
+            self._exc = e
+
+    def get(self, timeout: Optional[float] = 60.0) -> dict:
+        while True:
+            if self._exc is not None:
+                raise self._exc
+            try:
+                item = self.queue.get(timeout=0.5 if timeout else None)
+            except queue.Empty:
+                if timeout is not None:
+                    timeout -= 0.5
+                    if timeout <= 0:
+                        raise TimeoutError("prefetch queue starved")
+                continue
+            return item if self.to_device is None else self.to_device.take(item)
+
+    def close(self):
+        self._stop.set()
+        self.thread.join(timeout=5.0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def dataset_from_window_file(path: str, aug: A.AugmentSpec,
+                             spec: DatasetSpec, root_folder: str = "",
+                             image_loader=load_image) -> MSCNNDataset:
+    return MSCNNDataset(W.parse_window_file(path, root_folder), aug, spec,
+                        image_loader)

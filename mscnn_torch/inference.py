@@ -11,9 +11,9 @@ of a batch goes to NMS in one call (one kernel launch on the card).
 Quantized params (`ops/quant.py`) need nothing here: their int8 leaves
 ride in the params dict, the scales stay device tensors, and the int8
 layers add no host synchronisation to the forward.
-Host-side resizing (`detect`, `detect_batch`) imports `cv2` inside the
-function; the end-to-end forward takes net-size uint8 images and needs
-no `cv2`.
+Host-side resizing (`detect`, `detect_batch`) is `data/resize.py`, which
+computes cv2's INTER_LINEAR bit for bit in numpy: nothing here needs
+`cv2`.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from mscnn_torch.data.resize import resize_bilinear_u8
 from mscnn_torch.models import mscnn as M
 from mscnn_torch.ops import nms as nms_ops
 
@@ -177,7 +178,7 @@ def _host_result(boxes, scores, valid, rois, rscores, rvalid, ratio_h,
 def detect(params, image_bgr: np.ndarray, cfg: M.MSCNNConfig,
            spec: DetectSpec = DetectSpec(), *,
            mean_values=(104.0, 117.0, 123.0)):
-    """Single-image detection: resize (cv2, on the host) -> mean-sub ->
+    """Single-image detection: resize (on the host) -> mean-sub ->
     deploy graph -> decode. Returns per-class fixed-shape detections in
     original image coordinates plus the rescaled proposals, as numpy."""
     return detect_batch(params, [image_bgr], cfg, spec,
@@ -188,16 +189,15 @@ def detect_batch(params, images_bgr: Sequence[np.ndarray],
                  cfg: M.MSCNNConfig, spec: DetectSpec = DetectSpec(), *,
                  mean_values=(104.0, 117.0, 123.0)) -> list:
     """Batched detection: one deploy-graph call for N images, then one
-    batched decode + NMS. Returns one `detect()`-shaped dict per image."""
-    import cv2
-
+    batched decode + NMS. Returns one `detect()`-shaped dict per image.
+    Each image is resized on the host by `data/resize.py` (cv2's
+    INTER_LINEAR, bit for bit)."""
     net_h, net_w = cfg.input_hw
     dev = M.params_device(params)
     xs, ratios, origs = [], [], []
     for img in images_bgr:
         oh, ow = img.shape[:2]
-        xs.append(cv2.resize(img, (net_w, net_h),
-                             interpolation=cv2.INTER_LINEAR))
+        xs.append(resize_bilinear_u8(img, (net_w, net_h)))
         ratios.append([net_h / oh, net_w / ow])
         origs.append([ow, oh])
     img_u8 = torch.from_numpy(np.stack(xs).astype(np.uint8)).to(dev)
