@@ -110,9 +110,10 @@ Phases (any failure exits non-zero, before the result line):
                 `mscnn_torch.cli train2 --bf16 --uint8-input --conv1 auto`
                 (4 + 4 iterations, batch 4 of 768x1024 crops of images
                 resized to 768x2560, stage 2 snapshotting every 2) in
-                deterministic mode: K2 8 launches and K1 4 (this run's
-                counts alone), each held against its plain version on the
-                run's tensors; (a) stage 2 warm-starts from stage 1's final
+                deterministic mode (`train2_entry_point`, which phase 15
+                shares): K2 8 launches and K1 4 (this run's counts alone),
+                each launch held against its plain version on the run's
+                tensors; (a) stage 2 warm-starts from stage 1's final
                 snapshot bit for bit, frozen layers bit-unchanged through
                 both stages; (b) stage 2 resumed from its iter-2 snapshot
                 (`--snapshot`, the run's batches 2-3 replayed) equals the
@@ -125,7 +126,36 @@ Phases (any failure exits non-zero, before the result line):
                 sync debug mode "error", snapshot ms in each format, the
                 host pipeline's resize and batch ms, a profiler window over
                 two loop iterations, and (f) no jax, mscnn_tpu or cv2 in
-                sys.modules.
+                sys.modules;
+ 14. cascade deploy -- kitti_car/cascade-mscnn-7s-576-2x (3 stages, max_out
+                512) at 576x1920, batch 4 of seeded uint8 images, seeded
+                random weights with nonzero biases, bf16 with the fused conv1
+                block, through detect_batch(cascade=) to KITTI text (2 K1,
+                1 K2 launches), then detect_cascade at batch 1; each launch
+                held to its plain version on the run's
+                tensors (nms_equal, conv1_compare); a CUDA-event stage split
+                (trunk, heads, propose, stage 1-3 heads, ensemble re-score,
+                postprocess), host-clock step ms and img/s, peak memory, and a
+                profiler window over two steps whose named ranges show the
+                sliding-max table built once a forward and no re-score head
+                (ensemble_avg off); the same cascade in int8 (trunk PTQ with
+                conv1 + calibrate_roi_head_scales(ccfg=), the JAX CLI's
+                --int8 --int8-heads): 15 trunk + 6 stage-head K4 launches,
+                each equal to its plain version; widerface/cascade-mscnn-12s-
+                align at 1024x1024, batch 1 (ROIAlign, the ensemble: 4
+                re-score heads over two steps, no table); a tiny float32
+                cascade (ROIAlign and the ensemble on and off) through
+                make_cascade_forward on the card and on the CPU must agree;
+ 15. cascade train -- `mscnn_torch.cli train2 --bf16 --uint8-input --conv1
+                auto`: stage 1 on zoo_export's kitti_car_7s_576_2x
+                trainval_1st, stage 2 on its cascade trainval (warm-started:
+                every stage-1 layer of the cascade's shape bit for bit),
+                4 + 4 iterations of batch 4 at 576x768 over 8 seeded PPM
+                images, on phase 13's harness (`train2_entry_point`): the
+                same launch counts and checks, with the resume required
+                bit-equal and every stage loss present and finite; 8 timed
+                iterations. No jax or mscnn_tpu module is loaded after any
+                phase.
 
 The lines before the last give the card's name and power limit
 (nvidia-smi) and one JSON object listing every kernel, each with its
@@ -361,11 +391,11 @@ def deploy_step(fwd, params, imgs, ratios, orig_wh):
     return statistics.median(times), torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def check_kitti(I, out, batch):
+def check_kitti(I, out, batch, names=None):
     """Write the batch's detections as KITTI label files; fail on a malformed
     line. Returns (line count, first line)."""
     with tempfile.TemporaryDirectory() as tmp:
-        names = I.KITTI_CLASS_NAMES["kitti_car"]
+        names = names or I.KITTI_CLASS_NAMES["kitti_car"]
         lines, first = 0, None
         for i in range(batch):
             det = {k: out[k][i] for k in ("boxes", "scores", "valid")}
@@ -403,11 +433,13 @@ def calibrate_int8(Q, params, cfg, cal):
     return Q.quantize_roi_heads(params, hscales), scales, hscales
 
 
-def trace_window(PROF, run, label, what, note):
+def trace_window(PROF, run, label, what, note, annotations=None):
     """One `torch.profiler` window over two calls of run(), each annotated
     `label`: logs the window, the device-busy share, the ten kernels with
     the most device time and the time of K1 and K2 by name. Returns the
-    busy share (None where the trace holds no device time)."""
+    busy share (None where the trace holds no device time). annotations:
+    an optional dict that receives the count of each named range of the
+    window (`utils/profiling.py::annotate`, `record_function`)."""
     import torch
     with tempfile.TemporaryDirectory() as tdir:
         with PROF.trace(tdir) as prof:
@@ -423,6 +455,10 @@ def trace_window(PROF, run, label, what, note):
             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
     steps = [(e["ts"], e["ts"] + e["dur"]) for e in events
              if e.get("cat") == "user_annotation" and e.get("name") == label]
+    if annotations is not None:
+        for e in events:
+            if e.get("cat") == "user_annotation":
+                annotations[e["name"]] = annotations.get(e["name"], 0) + 1
     if not (busy and steps and dev_total > 0):
         log("trace: device busy share not measured: the profiler window holds no "
             f"device time ({len(busy)} device events, key_averages device total "
@@ -540,21 +576,30 @@ def cli_args(cli, *argv):
     return p.parse_args(list(argv))
 
 
-def training_entry_point(dev, counts, zero_counts, PROF):
-    """Phase 13: `mscnn_torch.cli train2` on the flagship at full width
-    (module notes). Returns the figures the kernels line and the log use."""
+def train2_entry_point(tag, dev, counts, zero_counts, PROF, *, seed, train_hw,
+                       write_nets, check_warm, loss_keys, exact_resume, timed_iters,
+                       extra=None):
+    """`mscnn_torch.cli train2` from one model's stage-1 trainval to its
+    stage-2 trainval at full width: the harness phases 13 and 15 share
+    (module notes). write_nets(root, wf) writes and checks the texts and
+    returns {stage: (net, solver, snapshot prefix)}; check_warm(build, s1,
+    snap1, ref) checks stage 2's warm start from stage 1's final params s1
+    (ref: stage 2's final state; build(*args): cli._build_training of
+    stage 2 with those arguments) and returns its log line; loss_keys: the
+    display metrics every stage-2 iteration reports, finite; exact_resume:
+    the resumed run must equal the uninterrupted one bit for bit (else
+    within the training step's tolerance); extra(root, wf, paths, ref, out)
+    runs the model's own checks on ref. Returns the figures the kernels
+    line and the log use."""
     import warnings
 
     import numpy as np
     import torch
 
     from mscnn_torch import cli
-    from mscnn_torch.config import zoo_export as ZE
     from mscnn_torch.config import zoo_import as ZI
     from mscnn_torch.data import pipeline as P
-    from mscnn_torch.io import caffemodel as CM
     from mscnn_torch.io import checkpoint as CKPT
-    from mscnn_torch.models import mscnn as M
     from mscnn_torch.ops import nms as nms_ops
     from mscnn_torch.ops.kernels import conv1_kernel as CK
     from mscnn_torch.ops.kernels import nms_kernel as NK
@@ -563,31 +608,8 @@ def training_entry_point(dev, counts, zero_counts, PROF):
     out = {}
     tmp = tempfile.TemporaryDirectory()
     root = tmp.name
-    t0 = time.perf_counter()
-    wf = write_kitti_like(root, TRAIN_IMAGES, SEED + 13)
-    paths = {}
-    for stage in (1, 2):
-        cfg, tspec, aug, dspec, sspec, lspec = flagship_training_specs(stage, root)
-        net = os.path.join(root, f"trainval_{'1st' if stage == 1 else '2nd'}.prototxt")
-        with open(net, "w") as f:
-            f.write(ZE.trainval_prototxt(cfg, tspec, aug, dspec, source=wf))
-        solver = os.path.join(root, f"solver_{'1st' if stage == 1 else '2nd'}.prototxt")
-        with open(solver, "w") as f:
-            f.write(ZE.solver_prototxt(sspec, lspec, net=net, random_seed=SEED))
-        # the texts import back to the zoo config and the specs
-        icfg, itspec, iaug, idspec, src = ZI.model_from_prototxt(net)
-        if stage == 1:   # no ROI layer in stage 1: the importer's ROI default
-            icfg = dataclasses.replace(icfg, roi_spatial_scale=cfg.roi_spatial_scale)
-        if dataclasses.replace(icfg, name=cfg.name, extra_layers=cfg.extra_layers) != cfg \
-                or sorted(icfg.extra_layers) != sorted(cfg.extra_layers) \
-                or (itspec, iaug, idspec, src) != (tspec, aug, dspec, wf) \
-                or ZI.solver_from_prototxt(solver) != sspec:
-            fail(f"train entry: the stage-{stage} prototxts do not import back to "
-                 f"{cfg.name} and its specs")
-        paths[stage] = (net, solver, lspec.snapshot_prefix)
-    log(f"train entry: {TRAIN_IMAGES} synthetic KITTI images {KITTI_HW[0]}x"
-        f"{KITTI_HW[1]} (PPM) + window file, trainval_1st/2nd and solver_1st/2nd "
-        f"from zoo.kitti_car_8s_768() import back to it ({time.perf_counter() - t0:.1f} s)")
+    wf = write_kitti_like(root, TRAIN_IMAGES, seed)
+    paths = write_nets(root, wf)
 
     # -- the run: train2, counts from this run alone, the kernels' inputs kept
     calls = {"nms": [], "conv1": []}
@@ -631,92 +653,71 @@ def training_entry_point(dev, counts, zero_counts, PROF):
     nondet = sorted({str(w.message).split(" does not have")[0][:80] for w in caught
                      if "deterministic" in str(w.message)})
     if rc != 0:
-        fail(f"train entry: `mscnn_torch.cli train2` returned {rc}")
-    log(f"train entry: `python -m mscnn_torch.cli {' '.join(argv[:1])} ... --bf16 "
-        f"--uint8-input --conv1 auto`: {run_s:.1f} s for 4 + 4 iterations, launches "
-        f"{launches}; deterministic mode, ops without a deterministic kernel: "
-        f"{nondet or 'none'}")
+        fail(f"{tag}: `mscnn_torch.cli train2` returned {rc}")
+    log(f"{tag}: `python -m mscnn_torch.cli train2 ... --bf16 --uint8-input --conv1 "
+        f"auto`: {run_s:.1f} s for 4 + 4 iterations at {BATCH}x{train_hw[0]}x"
+        f"{train_hw[1]}, launches {launches}; deterministic mode, ops without a "
+        f"deterministic kernel: {nondet or 'none'}")
     # (d) K2 every iteration of both stages (conv1 auto: the fused kernel at
     # bf16 on the card), K1 every stage-2 iteration (its propose)
     if launches["conv1_pool"] != 8 or launches["nms"] != 4 or \
             launches["int8_gemm"] or launches["conv1_v5"]:
-        fail(f"train entry: launches {launches}, expected 8 conv1_pool and 4 nms")
+        fail(f"{tag}: launches {launches}, expected 8 conv1_pool (every iteration) "
+             f"and 4 nms (one a stage-2 iteration)")
     k2_share, k2_err = 1.0, 0.0
-    for a, o in calls["conv1"][:1] + calls["conv1"][4:5]:
-        want = CK.conv1_pool_plain(*a)
-        err, tol, eq, ulps, ok = conv1_compare(o.float(), want.float())
-        if tuple(a[0].shape) != (BATCH, *cfg.input_hw, 3) or not ok:
-            fail(f"train entry: K2 at {tuple(a[0].shape)} != plain (err {err:.4g}, "
-                 f"atol {tol:.4g}, {ulps:.4g} for 2 ulps, bit-equal share {eq:.4f})")
+    for a, o in calls["conv1"]:
+        err, tol, eq, ulps, ok = conv1_compare(o.float(), CK.conv1_pool_plain(*a).float())
+        if tuple(a[0].shape) != (BATCH, *train_hw, 3) or not ok:
+            fail(f"{tag}: K2 at {tuple(a[0].shape)} != plain (err {err:.4g}, atol "
+                 f"{tol:.4g}, {ulps:.4g} for 2 ulps, bit-equal share {eq:.4f})")
         k2_share, k2_err = min(k2_share, eq), max(k2_err, err)
     for a, kw, o in calls["nms"]:
         if not nms_equal(o, nms_ops.nms_xywh_plain(*a, **kw)):
-            fail(f"train entry: K1 at {tuple(a[0].shape)} != plain")
+            fail(f"{tag}: K1 at {tuple(a[0].shape)} != plain")
     na = calls["nms"][0][0]
-    log(f"train entry: K2 on stage 1's and stage 2's first batch at "
-        f"{tuple(calls['conv1'][0][0][0].shape)} within K2's gate (bit-equal share "
-        f">= {k2_share:.4f}, max err {k2_err:.4g}); K1 equal to plain on all 4 launches "
+    log(f"{tag}: K2 on all 8 batches within K2's gate (bit-equal share >= "
+        f"{k2_share:.4f}, max err {k2_err:.4g}); K1 equal to plain on all 4 launches "
         f"at P={na[0].shape[0]} N={na[0].shape[1]} "
         f"(kept {[int(o[2].sum()) for _, _, o in calls['nms']]})")
-    out["launches"] = launches
-    out["k2_share"], out["k2_err"] = k2_share, k2_err
+    out.update(launches=launches, k2_share=k2_share, k2_err=k2_err, run_s=run_s)
     del calls
 
-    # (a) warm start and frozen layers
+    # (a) warm start
     snap1 = CKPT.latest_snapshot(paths[1][2])
     snap2 = CKPT.latest_snapshot(paths[2][2])
     if not (snap1 and snap1.endswith("_iter_4") and snap2 and snap2.endswith("_iter_4")):
-        fail(f"train entry: snapshots {snap1}, {snap2}")
-    ref = torch.load(os.path.join(snap2, CKPT.STATE_FILE), map_location="cpu",
-                     weights_only=True)
+        fail(f"{tag}: snapshots {snap1}, {snap2}")
     s1 = torch.load(os.path.join(snap1, CKPT.STATE_FILE), map_location="cpu",
                     weights_only=True)["params"]
+    ref = torch.load(os.path.join(snap2, CKPT.STATE_FILE), map_location="cpu",
+                     weights_only=True)
     common = ("--bf16", "--uint8-input", "--conv1", "auto", "--seed", str(SEED))
-    warm, _, _, _, cfg2, _ = cli._build_training(
-        cli_args(cli, *common, "--weights", snap1), paths[2][1])
-    # both solvers seed the init alike, so stage 2's fresh init is stage 1's
-    fresh, _, _, _, _, _ = cli._build_training(cli_args(cli, *common), paths[2][1])
-    lm = M.param_lr_multipliers(s1, cfg2)
-    frozen = sorted(n for n in s1 if all(v == 0.0 for v in lm[n].values()))
-    copied = tree_diff(warm["params"], s1)
-    if copied:
-        fail(f"train entry: stage 2's warm start differs from stage 1's snapshot: {copied}")
-    # stage 1 trains the trunk past conv2 and the heads; the ROI head has no
-    # gradient there (no ProposalTarget), and its weight decay alone moves
-    # nothing at lr 5e-6
-    moved = [n for n in s1 if tree_diff(fresh["params"], {n: s1[n]})]
-    stage1_trained = [n for n in s1 if n not in frozen
-                      and not n.startswith(("roi_c1", "fc6", "cls_pred", "bbox_pred"))]
-    frozen1 = [n for n in frozen if n in moved]
-    frozen2 = tree_diff(ref["params"], {n: s1[n] for n in frozen})
-    trained2 = [n for n in s1 if n not in frozen and not tree_diff(ref["params"], {n: s1[n]})]
-    if frozen != ["conv1_1", "conv1_2", "conv2_1", "conv2_2"] or frozen1 or frozen2 \
-            or trained2 or not set(stage1_trained) <= set(moved):
-        fail(f"train entry: frozen {frozen}; frozen layers moved in stage 1 {frozen1}, in "
-             f"stage 2 {frozen2}; trained in stage 1 but equal to the init "
-             f"{sorted(set(stage1_trained) - set(moved))}; trainable layers stage 2 "
-             f"left as warm-started {trained2}")
-    log(f"train entry: (a) stage 2 warm-starts from {os.path.basename(snap1)}: all "
-        f"{len(s1)} layers equal to it bit for bit, {len(moved)} differ from the "
-        f"fresh init (every layer stage 1 trains); {', '.join(frozen)} bit-unchanged "
-        f"through both stages; every trainable layer moved in stage 2")
-    del warm, fresh, s1
+
+    def build(*args):
+        return cli._build_training(cli_args(cli, *common, *args), paths[2][1])
+
+    log(f"{tag}: (a) " + check_warm(build, s1, snap1, ref))
+    del s1
 
     # (b) resume: the iter-2 snapshot through the CLI's --snapshot path, then
     # stage 2's iterations 2 and 3 on the batches the run gave them
-    st2, step2, _, lspec2, _, _ = cli._build_training(
-        cli_args(cli, *common, "--snapshot", f"{paths[2][2]}_iter_2"), paths[2][1])
+    st2, step2, _, lspec2, _, _ = build("--snapshot", f"{paths[2][2]}_iter_2")
     if int(st2["solver"]["it"]) != 2 or len(batches) != 8:
-        fail(f"train entry: resumed at {int(st2['solver']['it'])}, {len(batches)} batches")
+        fail(f"{tag}: resumed at {int(st2['solver']['it'])}, {len(batches)} batches")
     replay = iter(batches[6:8])
+    seen = []
     resumed = LP.solve(step2, st2, lambda: next(replay),
-                       dataclasses.replace(lspec2, snapshot=0, snapshot_prefix=""),
-                       seed=SEED, log=lambda m: None)
+                       dataclasses.replace(lspec2, snapshot=0, snapshot_prefix="",
+                                           display=1),
+                       seed=SEED, log=lambda m: None,
+                       hooks=[lambda it, m: seen.append(dict(m))])
     torch.use_deterministic_algorithms(False)
-    diff = [k for part in ("params", "h1") for k in tree_diff(
-        (resumed["params"] if part == "params" else resumed["solver"]["h1"]),
-        (ref["params"] if part == "params" else ref["solver"]["h1"]))]
-    if not diff and int(resumed["solver"]["it"]) == int(ref["solver"]["it"]) == 4:
+    diff = tree_diff(resumed["params"], ref["params"]) + \
+        tree_diff(resumed["solver"]["h1"], ref["solver"]["h1"])
+    if int(resumed["solver"]["it"]) != 4 or (diff and exact_resume):
+        fail(f"{tag}: (b) the resumed run differs from the uninterrupted one: "
+             f"{diff[:5]} ({len(diff)} leaves), iter {int(resumed['solver']['it'])}")
+    if not diff:
         out["resume"] = "bit-equal"
     else:
         # the training step's tolerance (phase 11, tests/test_torch_train_step.py):
@@ -730,52 +731,36 @@ def training_entry_point(dev, counts, zero_counts, PROF):
                 mv = (w - w0).abs().max().item()
                 err = (g - w).abs().max().item()
                 if err > 1e-2 * mv + 4 * np.spacing(np.float32(w.abs().max().item())):
-                    fail(f"train entry: (b) the resumed {n}.{k} is {err:.4g} from the "
+                    fail(f"{tag}: (b) the resumed {n}.{k} is {err:.4g} from the "
                          f"uninterrupted run's (movement {mv:.4g})")
                 worst = max(worst, err / mv if mv else 0.0)
         out["resume"] = f"within the step tolerance ({len(diff)} leaves not " \
                         f"bit-equal, worst {worst:.3g} of the movement)"
-    log(f"train entry: (b) resumed from s2_iter_2 (`--snapshot`, stage 2's own "
-        f"batches 2-3 replayed: the data stream restarts on resume, as in the "
-        f"reference) to iter 4: {out['resume']} against the uninterrupted run")
+    if len(seen) != 2 or not all(set(loss_keys) <= set(m) and all(
+            math.isfinite(v) for v in m.values()) for m in seen):
+        fail(f"{tag}: (b) losses of iterations 2-3 {seen}")
+    out["losses"] = {k: seen[0][k] for k in sorted(loss_keys)}
+    log(f"{tag}: (b) resumed from {os.path.basename(paths[2][2])}_iter_2 "
+        f"(`--snapshot`, stage 2's own batches 2-3 replayed: the data stream "
+        f"restarts on resume, as in the reference) to iter 4: {out['resume']} "
+        f"against the uninterrupted run; iteration 2's "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out["losses"].items()))
     del resumed, st2, replay
+    if extra is not None:
+        extra(root, wf, paths, ref, out)
+    del ref
 
-    # (c) the same state as .caffemodel / .solverstate, read back
-    t0 = time.perf_counter()
-    cm = CKPT.snapshot_caffemodel(os.path.join(root, "bp"), ref, current_step=0)
-    out["snapshot_caffemodel_ms"] = (time.perf_counter() - t0) * 1e3
-    back = CKPT.restore_params(cm, {n: {k: torch.zeros_like(v) for k, v in p.items()}
-                                    for n, p in ref["params"].items()})
-    hist, it = CM.load_solverstate_history(
-        cm.replace(".caffemodel", ".solverstate"),
-        {"it": torch.zeros((), dtype=torch.int32),
-         "h1": {n: {k: torch.zeros_like(v) for k, v in p.items()}
-                for n, p in ref["solver"]["h1"].items()}})
-    bad = tree_diff(back, ref["params"]) + tree_diff(hist["h1"], ref["solver"]["h1"])
-    if bad or it != 4:
-        fail(f"train entry: (c) the .caffemodel / .solverstate pair read back differs: "
-             f"{bad[:5]}, iter {it}")
-    t0 = time.perf_counter()
-    CKPT.snapshot(os.path.join(root, "dir"), ref)
-    out["snapshot_torch_ms"] = (time.perf_counter() - t0) * 1e3
-    log(f"train entry: (c) stage 2's state written as {os.path.basename(cm)} + "
-        f".solverstate and read back: bit-equal (params, h1, iter 4); snapshot "
-        f"{out['snapshot_torch_ms']:.1f} ms (port directory) / "
-        f"{out['snapshot_caffemodel_ms']:.1f} ms (.caffemodel + .solverstate), "
-        f"{sum(v.numel() for p in ref['params'].values() for v in p.values())} params")
-    del back, hist, ref
-
-    # the loop's cost: stage 2 resumed from its final snapshot for 10 more
-    # iterations, display every 2 (a sync there), host clock between displays
-    state, step, make_source, lspec, _, _ = cli._build_training(
-        cli_args(cli, *common, "--snapshot", snap2), paths[2][1])
-    _, _, aug2, dspec2, _ = ZI.model_from_prototxt(paths[2][0])
+    # the loop's cost: stage 2 resumed from its final snapshot for timed_iters
+    # more iterations, display every 2 (a sync there), host clock between
+    # displays
+    state, step, make_source, lspec, _, _ = build("--snapshot", snap2)
+    aug2, dspec2 = ZI.model_from_prototxt(paths[2][0])[2:4]
     host = P.dataset_from_window_file(wf, dataclasses.replace(aug2, emit_uint8=True),
                                       dspec2).next_batch()   # the transfer check
-    lspec = dataclasses.replace(lspec, max_iter=14, display=2, snapshot=0,
+    lspec = dataclasses.replace(lspec, max_iter=4 + timed_iters, display=2, snapshot=0,
                                 snapshot_prefix="")
     marks, waits, it_box = [], [], [4]
-    SYNC_IT = 9   # display not due
+    SYNC_IT = 7   # display not due
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with make_source() as src:
@@ -792,11 +777,11 @@ def training_entry_point(dev, counts, zero_counts, PROF):
         try:
             state = LP.solve(step, state, source, lspec, seed=SEED, log=lambda m: None,
                              hooks=[lambda it, m: marks.append((it, time.perf_counter(),
-                                                                m["loss"]))])
+                                                                dict(m)))])
         except RuntimeError as e:
             if "synchroniz" not in str(e):
                 raise
-            fail(f"train entry: (e) a loop iteration synchronised with the host: {e}")
+            fail(f"{tag}: (e) a stage-2 iteration synchronised with the host: {e}")
         finally:
             torch.cuda.set_sync_debug_mode("default")
         # the batch transfer alone, under the same mode: pinned copy on the
@@ -809,31 +794,32 @@ def training_entry_point(dev, counts, zero_counts, PROF):
         except RuntimeError as e:
             if "synchroniz" not in str(e):
                 raise
-            fail(f"train entry: (e) the batch transfer synchronised with the host: {e}")
+            fail(f"{tag}: (e) the batch transfer synchronised with the host: {e}")
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         if not all(torch.equal(moved_batch[k].cpu(), torch.from_numpy(v))
                    for k, v in host.items()):
-            fail("train entry: the batch transfer changed the batch")
+            fail(f"{tag}: the batch transfer changed the batch")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         windows = [(b[1] - a[1]) / (b[0] - a[0]) for a, b in zip(marks, marks[1:])]
         iter_ms = statistics.median(windows) * 1e3
         wait = [w for it, w in waits if marks[0][0] < it <= marks[-1][0]]
         wait_ms = statistics.median(wait) * 1e3
         share = sum(wait) / (marks[-1][1] - marks[0][1])
-        losses = [m[2] for m in marks]
-        if len(marks) != 5 or not all(math.isfinite(v) for v in losses):
-            fail(f"train entry: display marks {marks}")
-        log(f"train entry: (e) iteration {SYNC_IT} (display not due: batch fetch, "
-            f"step, loop bookkeeping) under sync debug mode 'error': no host sync; "
-            f"the batch transfer alone under it: no host sync, the batch equal")
-        log(f"train entry: stage 2 iterations 4-13, display every 2: iteration "
-            f"{iter_ms:.2f} ms (median of {len(windows)} two-iteration windows: "
-            f"{', '.join(f'{w * 1e3:.2f}' for w in windows)}), input wait "
-            f"{wait_ms:.2f} ms a step (median; inside batch_source()), "
-            f"{share:.4f} of the iterations' time; peak {peak:.2f} GiB; losses "
-            f"{', '.join(f'{v:.4f}' for v in losses)}")
+        if len(marks) != timed_iters // 2 or not all(
+                set(loss_keys) <= set(m) and all(math.isfinite(v) for v in m.values())
+                for _, _, m in marks):
+            fail(f"{tag}: display marks {marks}")
+        log(f"{tag}: (e) iteration {SYNC_IT} (display not due: batch fetch, step, loop "
+            f"bookkeeping) under sync debug mode 'error': no host sync; the batch "
+            f"transfer alone under it: no host sync, the batch equal")
+        log(f"{tag}: stage 2 iterations 4-{3 + timed_iters}, display every 2: "
+            f"iteration {iter_ms:.2f} ms (median of {len(windows)} two-iteration "
+            f"windows: {', '.join(f'{w * 1e3:.2f}' for w in windows)}), input wait "
+            f"{wait_ms:.2f} ms a step (median; inside batch_source()), {share:.4f} of "
+            f"the iterations' time; peak {peak:.2f} GiB; losses "
+            f"{', '.join(f'{m[2]['loss']:.4f}' for m in marks)}")
 
         # two loop iterations in a profiler window (one solve call each)
         def one_iteration():
@@ -842,41 +828,468 @@ def training_entry_point(dev, counts, zero_counts, PROF):
                 lspec, max_iter=int(state["solver"]["it"]) + 1, display=0),
                 seed=SEED, log=lambda m: None)
 
-        busy = trace_window(PROF, one_iteration, "train_loop_iteration",
-                            "two loop iterations of the training entry point",
+        busy = trace_window(PROF, one_iteration, f"{tag.replace(' ', '_')}_iteration",
+                            f"two loop iterations of {tag}",
                             "the iteration ms above is a host-clock time")
-    # the host pipeline's parts on this machine's CPU: one image's resize to
-    # 768x2560 (data/resize.py) and one batch of the dataset (read, augment,
-    # assemble), each the median of 5
-    from mscnn_torch.data.resize import resize_bilinear_u8
-    img = P.load_image(os.path.join(root, "000000.ppm"))
-    rs = []
-    for _ in range(5):
-        t = time.perf_counter()
-        resize_bilinear_u8(img, (2560, 768))
-        rs.append(time.perf_counter() - t)
-    ds = P.dataset_from_window_file(wf, dataclasses.replace(aug2, emit_uint8=True), dspec2)
-    bs = []
-    for _ in range(5):
-        t = time.perf_counter()
-        ds.next_batch()
-        bs.append(time.perf_counter() - t)
-    resize_ms, batch_ms = statistics.median(rs) * 1e3, statistics.median(bs) * 1e3
-    log(f"train entry: host pipeline on this machine's CPU: resize "
-        f"{KITTI_HW[0]}x{KITTI_HW[1]} -> 768x2560 {resize_ms:.2f} ms an image, "
-        f"one batch of {BATCH} (read, augment, assemble) {batch_ms:.2f} ms "
-        f"(medians of 5)")
     out.update(iter_ms=iter_ms, wait_ms=wait_ms, wait_share=share, peak_gib=peak,
-               busy=busy, run_s=run_s, resize_ms=resize_ms, batch_ms=batch_ms)
+               busy=busy)
     del state, step, moved_batch, batches
     tmp.cleanup()
     torch.cuda.empty_cache()
     loaded = [m for m in sys.modules if m in ("jax", "mscnn_tpu", "cv2")
               or m.startswith(("jax.", "mscnn_tpu.", "cv2."))]
     if loaded:
-        fail(f"train entry: (f) {loaded[:5]} imported")
-    log("train entry: (f) neither jax, mscnn_tpu nor cv2 is in sys.modules")
+        fail(f"{tag}: (f) {loaded[:5]} imported")
+    log(f"{tag}: (f) neither jax, mscnn_tpu nor cv2 is in sys.modules")
     return out
+
+
+def training_entry_point(dev, counts, zero_counts, PROF):
+    """Phase 13: `mscnn_torch.cli train2` on the flagship at full width
+    (module notes). Returns the figures the kernels line and the log use."""
+    import torch
+
+    from mscnn_torch.config import zoo_export as ZE
+    from mscnn_torch.config import zoo_import as ZI
+    from mscnn_torch.data import pipeline as P
+    from mscnn_torch.data.resize import resize_bilinear_u8
+    from mscnn_torch.io import caffemodel as CM
+    from mscnn_torch.io import checkpoint as CKPT
+    from mscnn_torch.models import mscnn as M
+    from mscnn_torch.models import zoo
+
+    tag = "train entry"
+
+    def write_nets(root, wf):
+        t0 = time.perf_counter()
+        paths = {}
+        for stage in (1, 2):
+            cfg, tspec, aug, dspec, sspec, lspec = flagship_training_specs(stage, root)
+            net = os.path.join(root, f"trainval_{'1st' if stage == 1 else '2nd'}.prototxt")
+            with open(net, "w") as f:
+                f.write(ZE.trainval_prototxt(cfg, tspec, aug, dspec, source=wf))
+            solver = os.path.join(root, f"solver_{'1st' if stage == 1 else '2nd'}.prototxt")
+            with open(solver, "w") as f:
+                f.write(ZE.solver_prototxt(sspec, lspec, net=net, random_seed=SEED))
+            # the texts import back to the zoo config and the specs
+            icfg, itspec, iaug, idspec, src = ZI.model_from_prototxt(net)
+            if stage == 1:   # no ROI layer in stage 1: the importer's ROI default
+                icfg = dataclasses.replace(icfg, roi_spatial_scale=cfg.roi_spatial_scale)
+            if dataclasses.replace(icfg, name=cfg.name, extra_layers=cfg.extra_layers) \
+                    != cfg or sorted(icfg.extra_layers) != sorted(cfg.extra_layers) \
+                    or (itspec, iaug, idspec, src) != (tspec, aug, dspec, wf) \
+                    or ZI.solver_from_prototxt(solver) != sspec:
+                fail(f"{tag}: the stage-{stage} prototxts do not import back to "
+                     f"{cfg.name} and its specs")
+            paths[stage] = (net, solver, lspec.snapshot_prefix)
+        log(f"{tag}: {TRAIN_IMAGES} synthetic KITTI images {KITTI_HW[0]}x{KITTI_HW[1]} "
+            f"(PPM) + window file, trainval_1st/2nd and solver_1st/2nd from "
+            f"zoo.kitti_car_8s_768() import back to it "
+            f"({time.perf_counter() - t0:.1f} s)")
+        return paths
+
+    def check_warm(build, s1, snap1, ref):
+        """Stage 2 holds stage 1's every layer; the conv1-2 layers stay
+        frozen through both stages, every other layer trains in both."""
+        warm, _, _, _, cfg2, _ = build("--weights", snap1)
+        # both solvers seed the init alike, so stage 2's fresh init is stage 1's
+        fresh = build()[0]
+        lm = M.param_lr_multipliers(s1, cfg2)
+        frozen = sorted(n for n in s1 if all(v == 0.0 for v in lm[n].values()))
+        copied = tree_diff(warm["params"], s1)
+        if copied:
+            fail(f"{tag}: stage 2's warm start differs from stage 1's snapshot: {copied}")
+        # stage 1 trains the trunk past conv2 and the heads; the ROI head has
+        # no gradient there (no ProposalTarget), and its weight decay alone
+        # moves nothing at lr 5e-6
+        moved = [n for n in s1 if tree_diff(fresh["params"], {n: s1[n]})]
+        stage1_trained = [n for n in s1 if n not in frozen
+                          and not n.startswith(("roi_c1", "fc6", "cls_pred", "bbox_pred"))]
+        frozen1 = [n for n in frozen if n in moved]
+        frozen2 = tree_diff(ref["params"], {n: s1[n] for n in frozen})
+        trained2 = [n for n in s1 if n not in frozen
+                    and not tree_diff(ref["params"], {n: s1[n]})]
+        if frozen != ["conv1_1", "conv1_2", "conv2_1", "conv2_2"] or frozen1 or frozen2 \
+                or trained2 or not set(stage1_trained) <= set(moved):
+            fail(f"{tag}: frozen {frozen}; frozen layers moved in stage 1 {frozen1}, in "
+                 f"stage 2 {frozen2}; trained in stage 1 but equal to the init "
+                 f"{sorted(set(stage1_trained) - set(moved))}; trainable layers stage "
+                 f"2 left as warm-started {trained2}")
+        return (f"stage 2 warm-starts from {os.path.basename(snap1)}: all {len(s1)} "
+                f"layers equal to it bit for bit, {len(moved)} differ from the fresh "
+                f"init (every layer stage 1 trains); {', '.join(frozen)} bit-unchanged "
+                f"through both stages; every trainable layer moved in stage 2")
+
+    def extra(root, wf, paths, ref, out):
+        # (c) stage 2's state as .caffemodel / .solverstate, read back
+        t0 = time.perf_counter()
+        cm = CKPT.snapshot_caffemodel(os.path.join(root, "bp"), ref, current_step=0)
+        out["snapshot_caffemodel_ms"] = (time.perf_counter() - t0) * 1e3
+        back = CKPT.restore_params(cm, {n: {k: torch.zeros_like(v) for k, v in p.items()}
+                                        for n, p in ref["params"].items()})
+        hist, it = CM.load_solverstate_history(
+            cm.replace(".caffemodel", ".solverstate"),
+            {"it": torch.zeros((), dtype=torch.int32),
+             "h1": {n: {k: torch.zeros_like(v) for k, v in p.items()}
+                    for n, p in ref["solver"]["h1"].items()}})
+        bad = tree_diff(back, ref["params"]) + tree_diff(hist["h1"], ref["solver"]["h1"])
+        if bad or it != 4:
+            fail(f"{tag}: (c) the .caffemodel / .solverstate pair read back differs: "
+                 f"{bad[:5]}, iter {it}")
+        t0 = time.perf_counter()
+        CKPT.snapshot(os.path.join(root, "dir"), ref)
+        out["snapshot_torch_ms"] = (time.perf_counter() - t0) * 1e3
+        log(f"{tag}: (c) stage 2's state written as {os.path.basename(cm)} + "
+            f".solverstate and read back: bit-equal (params, h1, iter 4); snapshot "
+            f"{out['snapshot_torch_ms']:.1f} ms (port directory) / "
+            f"{out['snapshot_caffemodel_ms']:.1f} ms (.caffemodel + .solverstate), "
+            f"{sum(v.numel() for p in ref['params'].values() for v in p.values())} "
+            f"params")
+        # the host pipeline's parts on this machine's CPU: one image's resize
+        # to 768x2560 (data/resize.py) and one batch of the dataset (read,
+        # augment, assemble), each the median of 5
+        aug2, dspec2 = ZI.model_from_prototxt(paths[2][0])[2:4]
+        img = P.load_image(os.path.join(root, "000000.ppm"))
+        rs = []
+        for _ in range(5):
+            t = time.perf_counter()
+            resize_bilinear_u8(img, (2560, 768))
+            rs.append(time.perf_counter() - t)
+        ds = P.dataset_from_window_file(wf, dataclasses.replace(aug2, emit_uint8=True),
+                                        dspec2)
+        bs = []
+        for _ in range(5):
+            t = time.perf_counter()
+            ds.next_batch()
+            bs.append(time.perf_counter() - t)
+        out["resize_ms"] = statistics.median(rs) * 1e3
+        out["batch_ms"] = statistics.median(bs) * 1e3
+        log(f"{tag}: host pipeline on this machine's CPU: resize "
+            f"{KITTI_HW[0]}x{KITTI_HW[1]} -> 768x2560 {out['resize_ms']:.2f} ms an "
+            f"image, one batch of {BATCH} (read, augment, assemble) "
+            f"{out['batch_ms']:.2f} ms (medians of 5)")
+
+    return train2_entry_point(
+        tag, dev, counts, zero_counts, PROF, seed=SEED + 13,
+        train_hw=zoo.kitti_car_8s_768().input_hw,
+        write_nets=write_nets, check_warm=check_warm,
+        loss_keys=("loss", "loss_cls", "loss_bbox"), exact_resume=False,
+        timed_iters=10, extra=extra)
+
+
+CASCADE_HW = (576, 1920)      # kitti_car/cascade-mscnn-7s-576-2x deploy
+WIDERFACE_HW = (1024, 1024)   # examples/profile_widerface_stages.py:69
+CASCADE_TRAIN_HW = (576, 768)
+
+
+def nonzero_biases(params, seed):
+    """Every float bias of the tree replaced by seeded N(0, 0.05) values
+    (init_params gives zeros)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return {n: {k: (torch.randn(v.shape, generator=g) * 0.05).to(v.device, v.dtype)
+                if k == "b" else v for k, v in p.items()} for n, p in params.items()}
+
+
+def cascade_bf16(maker, **kw):
+    """A zoo cascade in the deploy configuration the phase runs: bf16, the
+    fused conv1 block (K2)."""
+    ccfg = maker(deploy=True)
+    base = dataclasses.replace(ccfg.base, compute_dtype="bfloat16", pallas_conv1=True,
+                               **kw)
+    return dataclasses.replace(ccfg, base=base)
+
+
+def cascade_deploy(dev, counts, zero_counts, PROF, rec):
+    """Phase 14: the cascade deploy paths (module notes). rec(on, sink)
+    switches the kernels' recording wrappers on or off. Returns the
+    figures the kernels line and the log use."""
+    import numpy as np
+    import torch
+
+    from mscnn_torch import inference as I
+    from mscnn_torch.examples import profile_cascade_stages as PCS
+    from mscnn_torch.models import cascade as CC
+    from mscnn_torch.models import mscnn as M
+    from mscnn_torch.models import zoo
+    from mscnn_torch.ops import nms as nms_ops
+    from mscnn_torch.ops import quant as Q
+    from mscnn_torch.ops.kernels import conv1_kernel as CK
+    from mscnn_torch.ops.kernels import int8_kernel as IK
+
+    out = {"nms_err": 0.0, "conv1_err": 0.0, "conv1_share": 1.0, "int8_err": 0.0}
+
+    def hold_to_plain(sink, tag):
+        for a, kw, got in sink["nms"]:
+            want = nms_ops.nms_xywh_plain(*a, **kw)
+            if not nms_equal(got, want):
+                fail(f"{tag}: K1 != plain at P={a[0].shape[0]} N={a[0].shape[1]}")
+            out["nms_err"] = max(out["nms_err"], nms_err(got, want))
+        for a, got in sink["conv1"]:
+            want = CK.conv1_pool_plain(*a).float()
+            err, tol, eq, ulps, ok = conv1_compare(got.float(), want)
+            if not ok:
+                fail(f"{tag}: K2 != plain at {tuple(a[0].shape)} (err {err}, bit-equal "
+                     f"share {eq})")
+            out["conv1_err"] = max(out["conv1_err"], err)
+            out["conv1_share"] = min(out["conv1_share"], eq)
+        for a, kw, got in sink["int8"]:
+            want = IK.int8_conv_plain(*a, **kw)
+            pairs = [(got, want)] if torch.is_tensor(want) else \
+                [(got[0], want[0])] + list(zip(got[1], want[1]))
+            if (not torch.is_tensor(want)) and len(got[1]) != len(want[1]):
+                fail(f"{tag}: K4 wrote {len(got[1])} int8 copies, plain {len(want[1])}")
+            for g, w in pairs:
+                if not torch.equal(g, w):
+                    fail(f"{tag}: K4 != plain at x {tuple(a[0].shape)} w {tuple(a[1].shape)}")
+                out["int8_err"] = max(out["int8_err"], (g.double() - w.double()).abs()
+                                      .max().item() if g.numel() else 0.0)
+        return (f"K1 {len(sink['nms'])}, K2 {len(sink['conv1'])}, K4 {len(sink['int8'])} "
+                f"launches equal to their plain versions on the run's tensors")
+
+    def run_path(tag, params, ccfg, imgs, expect):
+        """detect_batch(cascade=) on the images: launches from this run
+        alone, each kernel held to its plain version, KITTI text."""
+        sink = {"nms": [], "conv1": [], "int8": []}
+        rec(True, sink)
+        zero_counts()
+        t0 = time.perf_counter()
+        dets = I.detect_batch(params, imgs, ccfg.base, I.DetectSpec(), cascade=ccfg)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        launches = counts()
+        rec(False, sink)
+        if launches != expect:
+            fail(f"{tag}: launches {launches}, expected {expect}")
+        nc = ccfg.base.num_classes
+        for d in dets:
+            if d["boxes"].shape != (nc - 1, 100, 4) or not np.isfinite(d["boxes"]).all() \
+                    or not np.isfinite(d["scores"]).all() or \
+                    d["proposals"].shape != (ccfg.base.proposal.max_out, 4):
+                fail(f"{tag}: detections {d['boxes'].shape}, proposals "
+                     f"{d['proposals'].shape}, or not finite")
+        held = hold_to_plain(sink, tag)
+        names = I.KITTI_CLASS_NAMES["kitti_car"] if nc == 5 else ("bg", "face")
+        lines, first_line = check_kitti(I, {k: [d[k] for d in dets] for k in
+                                            ("boxes", "scores", "valid")}, len(imgs), names)
+        log(f"{tag}: first call {first:.2f} s, launches {launches}; {held}; "
+            f"{sum(int(d['proposal_valid'].sum()) for d in dets)} proposals, "
+            f"{lines} KITTI lines over {len(imgs)} images, first: {first_line or '(none)'}")
+        del sink
+        return launches, dets
+
+    def figures(tag, params, ccfg, img_u8):
+        """Stage split (CUDA events), host-clock step, img/s, peak memory and
+        a profiler window of two steps with its named-range counts."""
+        B = img_u8.shape[0]
+        h, w = ccfg.base.input_hw
+        ratios = torch.ones((B, 2))
+        orig = torch.tensor([[float(w), float(h)]] * B)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        split = PCS.stage_split(params, img_u8, ccfg, ratios, orig, iters=3)
+        step = PCS.step_ms(params, img_u8, ccfg, ratios, orig, iters=5)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        names = {}
+        busy = trace_window(
+            PROF, lambda: I._cascade_detect(params, img_u8, ratios, orig, ccfg,
+                                            I.DetectSpec(), MEAN),
+            f"cascade_step_{tag}", f"two {tag} cascade detect steps",
+            "the step ms is a host-clock time", annotations=names)
+        log(f"{tag}: stage split (CUDA events, median of 3, ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f"; step {step:.2f} ms (host clock, median of 5) = {B * 1e3 / step:.2f} "
+              f"img/s; peak {peak:.2f} GiB; busy share "
+            + (f"{busy:.4f}" if busy is not None else "not measured"))
+        return {"split": split, "step_ms": step, "img_s": B * 1e3 / step,
+                "peak_gib": peak, "busy": busy,
+                "ranges": {k: v for k, v in names.items() if k.startswith("cascade_")}}
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    t0 = time.perf_counter()
+    ccfg = cascade_bf16(zoo.cascade_kitti_car_7s_576_2x)
+    p32 = nonzero_biases(CC.init_params(gen, ccfg, device=dev), SEED + 15)
+    params = M.cast_params(p32, torch.bfloat16)
+    H, W = ccfg.base.input_hw
+    imgs = torch.randint(0, 256, (BATCH, H, W, 3), generator=gen, dtype=torch.uint8)
+    log(f"cascade: {ccfg.base.name} deploy {H}x{W}, max_out {ccfg.base.proposal.max_out}, "
+        f"{sum(t.numel() for p in params.values() for t in p.values())} params (seeded "
+        f"random, nonzero biases, bf16) in {time.perf_counter() - t0:.1f} s")
+
+    # -- KITTI cascade, bf16 + K2: the batch, then detect_cascade at batch 1
+    launches, dets = run_path("cascade kitti", params, ccfg,
+                              list(imgs.numpy()), {"nms": 2, "conv1_pool": 1,
+                                                   "int8_gemm": 0, "conv1_v5": 0})
+    out["launches"] = launches
+    zero_counts()
+    one = I.detect_cascade(params, imgs[0].numpy(), ccfg)
+    one_launches = counts()
+    if one_launches["nms"] != 2 or one_launches["conv1_pool"] != 1 or \
+            not np.isfinite(one["boxes"]).all():
+        fail(f"cascade detect_cascade: launches {one_launches}")
+    # the batch-1 call on the batch's first image (bf16 convs at another
+    # batch size sum in another order, and random weights give near-equal
+    # scores, so the kept slots may come in another order: counts only)
+    log(f"cascade kitti: detect_cascade at batch 1: launches {one_launches}; "
+        f"{int(one['valid'].sum())} detections (the batched call: "
+        f"{int(dets[0]['valid'].sum())} on that image)")
+    out["kitti"] = figures("kitti", params, ccfg, imgs.to(dev))
+    rng_ = out["kitti"]["ranges"]
+    if rng_.get("cascade_sliding_max_table") != 2 or any(
+            k.startswith("cascade_rescore") for k in rng_) or \
+            sum(v for k, v in rng_.items() if k.startswith("cascade_roi_head")) != 6:
+        fail(f"cascade kitti: named ranges over two steps {rng_}: expected 2 "
+             f"sliding-max tables, 6 stage heads, no re-score head")
+    log(f"cascade kitti: two steps' named ranges {rng_}: the sliding-max table "
+        f"once a forward, no ensemble re-score head (ensemble_avg False)")
+    del params
+
+    # -- int8 cascade, as the JAX CLI calibrates it (cli.py:489-545): the
+    # trunk (conv1 included: --int8 leaves conv1 unfused) at percentile
+    # 99.9, then calibrate_roi_head_scales(ccfg=) on the int8 trunk
+    t0 = time.perf_counter()
+    fcfg = dataclasses.replace(ccfg.base, pallas_conv1=False)
+    cal = np.random.RandomState(SEED + 16).randn(1, H, W, 3).astype(np.float32) * 40.0
+    scales = Q.calibrate_trunk_scales(p32, fcfg, cal, include_conv1=True)
+    q = Q.quantize_trunk(p32, scales)
+    qbase = dataclasses.replace(fcfg, int8_trunk=True)
+    hscales = Q.calibrate_roi_head_scales(q, qbase, cal,
+                                          ccfg=dataclasses.replace(ccfg, base=qbase))
+    q = Q.quantize_roi_heads(q, hscales)
+    ccfg8 = dataclasses.replace(ccfg, base=dataclasses.replace(qbase, int8_roi_head=True))
+    params8 = M.cast_params(q, torch.bfloat16)
+    del p32, q
+    torch.cuda.empty_cache()
+    n8 = len(scales) + 2 * len(ccfg.stages)
+    log(f"cascade int8: {len(scales)} trunk layers + {sorted(hscales)} calibrated in "
+        f"{time.perf_counter() - t0:.1f} s; expected K4 launches a step: {len(scales)} "
+        f"trunk + 2 x {len(ccfg.stages)} stages = {n8}")
+    launches8, _ = run_path("cascade int8", params8, ccfg8, list(imgs.numpy()),
+                            {"nms": 2, "conv1_pool": 0, "int8_gemm": n8, "conv1_v5": 0})
+    out["launches8"] = launches8
+    out["int8"] = figures("int8", params8, ccfg8, imgs.to(dev))
+    del params8
+    torch.cuda.empty_cache()
+
+    # -- widerface cascade-12s-align at 1024x1024, batch 1: ROIAlign, the
+    # ensemble re-score
+    wcfg = cascade_bf16(zoo.cascade_widerface_12s_align, input_hw=WIDERFACE_HW)
+    wparams = M.cast_params(nonzero_biases(CC.init_params(gen, wcfg, device=dev),
+                                           SEED + 17), torch.bfloat16)
+    wimg = torch.randint(0, 256, (1, *WIDERFACE_HW, 3), generator=gen, dtype=torch.uint8)
+    wl, _ = run_path("cascade widerface align", wparams, wcfg, list(wimg.numpy()),
+                     {"nms": 2, "conv1_pool": 1, "int8_gemm": 0, "conv1_v5": 0})
+    out["launches_wf"] = wl
+    out["widerface"] = figures("widerface", wparams, wcfg, wimg.to(dev))
+    rng_ = out["widerface"]["ranges"]
+    if "cascade_sliding_max_table" in rng_ or \
+            sum(v for k, v in rng_.items() if k.startswith("cascade_rescore")) != 4:
+        fail(f"cascade widerface: named ranges over two steps {rng_}: expected no "
+             f"sliding-max table (ROIAlign) and 4 re-score heads")
+    del wparams
+    torch.cuda.empty_cache()
+
+    # -- a tiny float32 cascade on the card and on the CPU: ROIAlign and the
+    # ensemble on and off
+    tiny = dataclasses.replace(zoo.tiny_test_config(), fc_dim=256)
+    timg = torch.randint(0, 256, (2, *tiny.input_hw, 3),
+                         generator=torch.Generator().manual_seed(1), dtype=torch.uint8)
+    tx = timg.float() - torch.tensor(MEAN)
+    for align in (False, True):
+        tcc = CC.CascadeConfig(base=dataclasses.replace(tiny, roi_align=align))
+        tp = nonzero_biases(CC.init_params(torch.Generator().manual_seed(SEED), tcc,
+                                           device="cpu"), SEED + 18)
+        dp = {k: {n: t.to(dev) for n, t in p.items()} for k, p in tp.items()}
+        for ens in (False, True):
+            tcc = dataclasses.replace(tcc, ensemble_avg=ens)
+            ref = I.make_cascade_forward(tp, tcc)(tp, tx)
+            got = I.make_cascade_forward(dp, tcc)(dp, tx.to(dev))
+            if set(ref) != set(got) or not torch.equal(got["roi_valid"].cpu(),
+                                                       ref["roi_valid"]):
+                fail(f"tiny cascade (align {align}, ensemble {ens}): outputs or valid "
+                     f"flags differ between card and CPU")
+            for k in ("rois", "cls_pred", "bbox_pred") + (("cls_prob",) if ens else ()):
+                if not torch.allclose(got[k].cpu(), ref[k], rtol=1e-4, atol=1e-3):
+                    err = (got[k].cpu() - ref[k]).abs().max().item()
+                    fail(f"tiny cascade (align {align}, ensemble {ens}): {k} differs "
+                         f"between card and CPU ({err})")
+    log("tiny cascade float32 (ROIAlign off / on x ensemble off / on): card agrees "
+        "with the CPU")
+    if jax_loaded():
+        fail("the cascade deploy phase imported jax or the JAX package")
+    return out
+
+def cascade_training(dev, counts, zero_counts, PROF):
+    """Phase 15: `cli train2` from the plain kitti_car_7s_576_2x trainval
+    (stage 1) to its cascade trainval (stage 2), on phase 13's harness.
+    Returns the figures the kernels line and the log use."""
+    from mscnn_torch.config import zoo_export as ZE
+    from mscnn_torch.config import zoo_import as ZI
+    from mscnn_torch.data.augment import AugmentSpec
+    from mscnn_torch.data.pipeline import DatasetSpec
+    from mscnn_torch.models import zoo
+    from mscnn_torch.train import loop as LP
+    from mscnn_torch.train.solver import SolverSpec
+    from mscnn_torch.train.train_step import TrainSpec
+
+    tag = "cascade train"
+    ccfg = zoo.cascade_kitti_car_7s_576_2x()
+    cfg = ccfg.base
+    if cfg.input_hw != CASCADE_TRAIN_HW:
+        fail(f"{tag}: the zoo's training geometry is {cfg.input_hw}")
+
+    def write_nets(root, wf):
+        # the kitti_car trainval's augmentation shape, resize to the deploy size
+        aug = AugmentSpec(template_hw=cfg.input_hw, resize_hw=CASCADE_HW, mirror=True,
+                          do_multiple_scale=True, min_scale=60, max_scale=480,
+                          min_gt_height=35.0)
+        dspec = DatasetSpec(batch_size=BATCH)
+        sspec = SolverSpec(type="sgd", base_lr=5e-6, lr_policy="step", gamma=0.1,
+                           stepsize=10000, max_iter=4, momentum=0.9, weight_decay=5e-4)
+        paths = {}
+        for stage in (1, 2):
+            if stage == 1:
+                tspec = TrainSpec(stage=1, sample_mode="random", roi_bg_thr_hg=0.5)
+                text = ZE.trainval_prototxt(cfg, tspec, aug, dspec, source=wf)
+            else:
+                tspec = TrainSpec(stage=2)
+                text = ZE.cascade_trainval_prototxt(ccfg, tspec, aug, dspec, source=wf)
+            net = os.path.join(root, f"trainval_{stage}.prototxt")
+            with open(net, "w") as f:
+                f.write(text)
+            lspec = LP.LoopSpec(max_iter=4, display=2, snapshot=2 if stage == 2 else 0,
+                                snapshot_prefix=os.path.join(root, f"c{stage}"))
+            solver = os.path.join(root, f"solver_{stage}.prototxt")
+            with open(solver, "w") as f:
+                f.write(ZE.solver_prototxt(sspec, lspec, net=net, random_seed=SEED))
+            paths[stage] = (net, solver, lspec.snapshot_prefix)
+        icc = ZI.cascade_from_prototxt(paths[2][0])[0]
+        if not ZI.is_cascade_prototxt(paths[2][0]) or icc.stages != ccfg.stages:
+            fail(f"{tag}: the cascade trainval imports to {icc.stages}")
+        log(f"{tag}: {TRAIN_IMAGES} synthetic KITTI images + window file, "
+            f"{cfg.name}'s trainval_1st and its cascade trainval from zoo_export; the "
+            f"cascade text imports back to the zoo's {len(ccfg.stages)} stages")
+        return paths
+
+    def check_warm(build, s1, snap1, ref):
+        """Every stage-1 layer whose shape the cascade shares, by name."""
+        warm = build("--weights", snap1)[0]["params"]
+        shared = {n: p for n, p in s1.items() if n in warm
+                  and all(warm[n][k].shape == v.shape for k, v in p.items())}
+        copied = tree_diff(warm, shared)
+        fresh8 = [n for n in s1 if n in warm and n not in shared]
+        if copied or fresh8 != ["bbox_pred"] or not {"roi_c1_2nd", "fc6_3rd"} <= set(warm):
+            fail(f"{tag}: warm start: not copied {copied}, not shared {fresh8}")
+        return (f"stage 2 warm-starts from {os.path.basename(snap1)}: {len(shared)} "
+                f"layers equal to it bit for bit; bbox_pred (8-wide in the cascade) "
+                f"and the _2nd / _3rd heads fresh")
+
+    return train2_entry_point(
+        tag, dev, counts, zero_counts, PROF, seed=SEED + 15, train_hw=cfg.input_hw,
+        write_nets=write_nets, check_warm=check_warm,
+        loss_keys=("loss",) + tuple(f"loss_{k}{t}" for k in ("cls", "bbox")
+                                    for t in ("_1st", "_2nd", "_3rd")),
+        exact_resume=True, timed_iters=8)
 
 
 def main():
@@ -1967,6 +2380,23 @@ def main():
     # -- 13. the training entry point: prototxts, window file, train2 ----------
     tr = training_entry_point(dev, counts, zero_counts, PROF)
 
+    # -- 14. the cascade deploy paths ------------------------------------------
+    def rec_into(on, target):
+        nonlocal sink
+        sink = target
+        recording(on)
+
+    cd = cascade_deploy(dev, counts, zero_counts, PROF, rec_into)
+    nms_max_err = max(nms_max_err, cd["nms_err"])
+    conv1_max_err = max(conv1_max_err, cd["conv1_err"])
+    conv1_min_share = min(conv1_min_share, cd["conv1_share"])
+    int8_max_err = max(int8_max_err, cd["int8_err"])
+
+    # -- 15. cascade training through cli train2 --------------------------------
+    ct = cascade_training(dev, counts, zero_counts, PROF)
+    conv1_max_err = max(conv1_max_err, ct["k2_err"])
+    conv1_min_share = min(conv1_min_share, ct["k2_share"])
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -1981,6 +2411,17 @@ def main():
         f"{tr['batch_ms']:.2f} ms a batch, device busy share "
         + (f"{tr['busy']:.4f}" if tr["busy"] is not None else "not measured")
         + f" (two loop iterations); resume {tr['resume']}")
+    for tag in ("kitti", "int8", "widerface"):
+        f = cd[tag]
+        log(f"cascade {tag} on {card}: step {f['step_ms']:.2f} ms = {f['img_s']:.2f} "
+            f"img/s, stage heads {sum(f['split'][k] for k in ('stage_1', 'stage_2', 'stage_3')):.3f}"
+            f" ms of the split's {sum(f['split'].values()):.3f}, peak {f['peak_gib']:.2f} "
+            f"GiB, busy share " + (f"{f['busy']:.4f}" if f["busy"] is not None
+                                   else "not measured"))
+    log(f"cascade train on {card}: iteration {ct['iter_ms']:.2f} ms (median), input "
+        f"wait {ct['wait_ms']:.2f} ms a step = {ct['wait_share']:.4f} of the "
+        f"iteration, peak {ct['peak_gib']:.2f} GiB, busy share "
+        + (f"{ct['busy']:.4f}" if ct["busy"] is not None else "not measured"))
 
     kernels = [
         {"name": "nms_xywh", "route": "cuda",
@@ -1997,6 +2438,10 @@ def main():
          "design": "sorted-order scan",
          "launches_train_step": launches_t["nms"],
          "launches_train_entry": tr["launches"]["nms"],
+         "launches_cascade": {"kitti": cd["launches"]["nms"],
+                              "int8": cd["launches8"]["nms"],
+                              "widerface_align": cd["launches_wf"]["nms"],
+                              "train2": ct["launches"]["nms"]},
          "train": {tag: {"shape": [BATCH, fcfg.proposal.max_nms_num,
                                    fcfg.proposal.max_out], "kept": v[4],
                          "ms": v[0], "plain_ms": v[1], "device_ms": v[2],
@@ -2013,6 +2458,10 @@ def main():
          "k3_best_ms": k3["4x768x2560"]["k3_best"][1],
          "launches_train_step": launches_t["conv1_pool"],
          "launches_train_entry": tr["launches"]["conv1_pool"],
+         "launches_cascade": {"kitti": cd["launches"]["conv1_pool"],
+                              "int8": cd["launches8"]["conv1_pool"],
+                              "widerface_align": cd["launches_wf"]["conv1_pool"],
+                              "train2": ct["launches"]["conv1_pool"]},
          "train_entry_min_bit_equal_share": tr["k2_share"],
          "launches_train_pallas_tiny": k2_train_launches,
          "backward": "autograd, plain ops",
@@ -2029,6 +2478,10 @@ def main():
          "library_ms": None,
          "bf16_cudnn_ms": sum(v["bf16_cudnn"] for v in layer_ms.values()),
          "int_mm": int_mm, "probe_launches": probe8_launches["int8_gemm"],
+         "launches_cascade": {"kitti": cd["launches"]["int8_gemm"],
+                              "int8": cd["launches8"]["int8_gemm"],
+                              "widerface_align": cd["launches_wf"]["int8_gemm"],
+                              "train2": ct["launches"]["int8_gemm"]},
          "per_step": "sum of the 17 launches of one int8 deploy step; no one "
                      "PyTorch call computes an int8 conv with its epilogue, "
                      "torch._int_mm computes the raw int32 product at the "

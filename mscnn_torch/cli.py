@@ -12,17 +12,19 @@ heads, BoxOutput, ROI head) that the reference's model zoo trains:
 It runs on the card unless `--device cpu` asks for the CPU; with no card
 and no such request it raises. `--conv1 auto` picks the fused conv1
 kernel (`pallas_conv1`, K2) on a card at bf16 unless `--int8` is set, as
-the JAX CLI picks its Pallas kernel on a TPU. Not ported, each raising
+the JAX CLI picks its Pallas kernel on a TPU. A cascade trainval (more
+than one TRAIN ProposalTarget) trains the cascade (`models/cascade.py`),
+with `--bf16` and `--conv1` applied to it too. Not ported, each raising
 where the JAX CLI would take it: the generic-prototxt branch (ROADMAP
-Queue 1 item 17), cascade nets (item 15), `--devices > 1` (item 20), the
-C++ data loader and record shards (item 14c); the other subcommands are
-item 18.
+Queue 1 item 17), `--devices > 1` (item 20), the C++ data loader and
+record shards (item 14c); the other subcommands are item 18.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import sys
 
@@ -55,6 +57,15 @@ def _apply_conv1(cfg, args, device):
                                s2d_conv1=conv1 == "s2d")
 
 
+def _cascade_objective(params, batch, cfg, tspec, *, ccfg, roi_batch, draws,
+                       generator, mark):
+    """The cascade's loss with `make_train_step`'s objective signature."""
+    from mscnn_torch.models import cascade as CC
+
+    return CC.loss_fn(params, batch, ccfg, tspec, roi_batch=roi_batch,
+                      draws=draws, generator=generator, mark=mark)
+
+
 def _build_training(args, solver_path):
     """(state, step, make_batch_source, loop spec, cfg, tspec) of a solver
     prototxt and the net it names."""
@@ -77,19 +88,20 @@ def _build_training(args, solver_path):
         raise NotImplementedError(
             "--devices > 1 is data parallelism, not ported yet (ROADMAP "
             "Queue 1 item 20)")
+    ccfg = None
     if Z.is_cascade_prototxt(net_path):
-        raise NotImplementedError(
-            f"{net_path}: cascade training is not ported yet (ROADMAP Queue 1 "
-            f"item 15, Slice C)")
-    try:
-        cfg, tspec, aug, dspec, source = Z.model_from_prototxt(
-            net_path, phase=getattr(args, "phase", "TRAIN"))
-    except ValueError as e:
-        if "ImageGtData" not in str(e):
-            raise
-        raise NotImplementedError(
-            f"{net_path} is not an MS-CNN net: generic-prototxt training is "
-            f"not ported yet (ROADMAP Queue 1 item 17, Slice D)") from e
+        ccfg, tspec, aug, dspec, source = Z.cascade_from_prototxt(net_path)
+        cfg = ccfg.base
+    else:
+        try:
+            cfg, tspec, aug, dspec, source = Z.model_from_prototxt(
+                net_path, phase=getattr(args, "phase", "TRAIN"))
+        except ValueError as e:
+            if "ImageGtData" not in str(e):
+                raise
+            raise NotImplementedError(
+                f"{net_path} is not an MS-CNN net: generic-prototxt training "
+                f"is not ported yet (ROADMAP Queue 1 item 17, Slice D)") from e
     if args.batch_size:
         dspec = dataclasses.replace(dspec, batch_size=args.batch_size)
     if args.bf16:
@@ -105,15 +117,28 @@ def _build_training(args, solver_path):
         os.path.dirname(net_path), source)
 
     gen = torch.Generator().manual_seed(int(fields.get("random_seed", 0)))
-    params = M.init_params(gen, cfg, device=dev)
-    lr_mults = M.param_lr_multipliers(params, cfg)
-    if args.weights:
+    loss_function = None
+    if ccfg is not None:
+        from mscnn_torch.models import cascade as CC
+
+        # the objective gets the config --bf16 / --conv1 made (the JAX CLI
+        # binds the imported one, ROADMAP Queue 3)
+        ccfg = dataclasses.replace(ccfg, base=cfg)
+        loss_function = functools.partial(_cascade_objective, ccfg=ccfg,
+                                          roi_batch=tspec.roi_batch)
+        params = CC.init_params(gen, ccfg, device=dev)
+        lr_mults = CC.param_lr_multipliers(params, ccfg)
+    else:
+        params = M.init_params(gen, cfg, device=dev)
+        lr_mults = M.param_lr_multipliers(params, cfg)
+    if args.weights:   # warm start: the snapshot's layers by name
         params = CKPT.restore_params(args.weights, params)
     state = {"params": params, "solver": S.init_state(params, sspec)}
     if args.snapshot:
         state = CKPT.restore(args.snapshot, state)
     step = T.make_train_step(cfg, tspec, sspec, lr_mults=lr_mults,
-                             decay_mults=M.param_decay_multipliers(params, cfg))
+                             decay_mults=M.param_decay_multipliers(params, cfg),
+                             loss_function=loss_function)
 
     def make_batch_source():
         return NL.make_loader(window_file, aug, dspec,

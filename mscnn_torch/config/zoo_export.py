@@ -5,10 +5,14 @@ reads the reference's own files and writes none): `trainval_prototxt`
 renders an MSCNNConfig with its TrainSpec, AugmentSpec and DatasetSpec as
 a trainval net (`trainval_1st` for stage 1, `trainval_2nd` for stage 2:
 stage 1 is stage 2 without the BoxOutput / ProposalTarget / ROI tail),
-and `solver_prototxt` a SolverSpec with its LoopSpec as a solver file.
-`zoo_import.model_from_prototxt` / `solver_from_prototxt` read them back
-to the same specs (`tests/test_torch_zoo_import.py`), the trunk tail in
-the order of the branches' sources.
+`cascade_trainval_prototxt` a CascadeConfig's (one ProposalTarget, ROI
+head and loss block per stage, a DecodeBBox between the stages; the repo
+holds no cascade prototxt of the reference's), and `solver_prototxt` a
+SolverSpec with its LoopSpec as a solver file.
+`zoo_import.model_from_prototxt` / `cascade_from_prototxt` /
+`solver_from_prototxt` read them back to the same specs
+(`tests/test_torch_zoo_import.py`), the trunk tail in the order of the
+branches' sources.
 
 Only the layers the importer reads are written: the data layer, the
 trunk tail past VGG16, the per-scale heads and their DetectionLoss
@@ -17,6 +21,8 @@ the `conv4_3_2x` upsampler where the config has one.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from mscnn_torch.config import prototxt as PB
 
@@ -36,6 +42,11 @@ def _floats(xs):
 
 def trainval_prototxt(cfg, tspec, aug, dspec, *, source: str) -> str:
     """The trainval net text of a config (module notes)."""
+    return PB.emit_prototxt({"name": cfg.name, "layer": _trainval_layers(
+        cfg, tspec, aug, dspec, source)}) + "\n"
+
+
+def _trainval_layers(cfg, tspec, aug, dspec, source):
     br = cfg.branches
     data = {"source": source, "batch_size": dspec.batch_size}
     if aug.resize_hw is not None:
@@ -83,7 +94,66 @@ def trainval_prototxt(cfg, tspec, aug, dspec, *, source: str) -> str:
                 "pos_neg_weighted": tspec.pos_neg_weighted}))
     if tspec.stage >= 2:
         layers += _stage2_layers(cfg, tspec)
-    return PB.emit_prototxt({"name": cfg.name, "layer": layers}) + "\n"
+    return layers
+
+
+def cascade_trainval_prototxt(ccfg, tspec, aug, dspec, *, source: str) -> str:
+    """The cascade trainval net text of a CascadeConfig: the stage-2 net of
+    its base (stage 1's ProposalTarget carries the first stage's thresholds
+    and std, tspec's roi batch and fg fraction), then per stage the ROI
+    head, its SoftmaxWithLoss `loss_cls<s>` (the stage's loss weight) and
+    SmoothL1Loss, and before every later stage a DecodeBBox and a
+    keep-all (batch_size -1) or sampling ProposalTarget."""
+    st0 = ccfg.stages[0]
+    tspec = dataclasses.replace(tspec, stage=2, roi_fg_thr=st0.fg_thr,
+                                roi_bg_thr_hg=st0.bg_thr_hg,
+                                roi_bg_thr_lw=st0.bg_thr_lw)
+    cfg = dataclasses.replace(ccfg.base, bbox_std=st0.bbox_std)
+    layers = _trainval_layers(cfg, tspec, aug, dspec, source)
+    h, w = cfg.input_hw
+    feat = "conv4_3_2x" if cfg.use_2x_upsample else "conv4_3"
+    for i, st in enumerate(ccfg.stages):
+        s = st.suffix
+        info = f"proposal_info{s}"
+        if i:
+            prev = ccfg.stages[i - 1]
+            layers.append(_layer(
+                f"proposals{s}", "DecodeBBox",
+                [f"bbox_pred{prev.suffix}", f"proposal_info{prev.suffix}"],
+                include=_TRAIN,
+                bbox_reg_param={"bbox_mean": _floats((0.0,) * 4),
+                                "bbox_std": _floats(prev.bbox_std)},
+                decode_bbox_param={"gt_iou_thr": float(ccfg.gt_iou_thr)}))
+            layers.append(_layer(
+                info, "ProposalTarget", [f"proposals{s}"], include=_TRAIN,
+                proposal_target_param={
+                    "cls_num": cfg.num_classes,
+                    "batch_size": -1 if st.keep_all else tspec.roi_batch,
+                    "fg_fraction": float(tspec.roi_fg_fraction),
+                    "fg_thr": float(st.fg_thr), "bg_thr_hg": float(st.bg_thr_hg),
+                    "bg_thr_lw": float(st.bg_thr_lw),
+                    "img_width": w, "img_height": h},
+                bbox_reg_param={"bbox_mean": _floats((0.0,) * 4),
+                                "bbox_std": _floats(st.bbox_std),
+                                "cls_aware": False}))
+            layers += _roi_pools(cfg, feat, info, s)
+        else:
+            next(l for l in layers if l["name"] == info)[
+                "bbox_reg_param"]["cls_aware"] = False
+        layers += [
+            _layer(f"roi_c1{s}", "Convolution", [f"roi_pool{s}", f"roi_pool_ctx{s}"],
+                   convolution_param={"num_output": 512, "kernel_size": 3}),
+            _layer(f"fc6{s}", "InnerProduct", [f"roi_c1{s}"],
+                   inner_product_param={"num_output": cfg.fc_dim}),
+            _layer(f"cls_pred{s}", "InnerProduct", [f"fc6{s}"],
+                   inner_product_param={"num_output": cfg.num_classes}),
+            _layer(f"bbox_pred{s}", "InnerProduct", [f"fc6{s}"],
+                   inner_product_param={"num_output": 8}),
+            _layer(f"loss_cls{s}", "SoftmaxWithLoss", [f"cls_pred{s}", info],
+                   include=_TRAIN, loss_weight=float(st.loss_weight)),
+            _layer(f"loss_bbox{s}", "SmoothL1Loss", [f"bbox_pred{s}", info],
+                   include=_TRAIN, loss_weight=float(st.loss_weight))]
+    return PB.emit_prototxt({"name": ccfg.base.name, "layer": layers}) + "\n"
 
 
 def _stage2_layers(cfg, tspec):
@@ -117,15 +187,19 @@ def _stage2_layers(cfg, tspec):
                                              "kernel_size": 4, "stride": 2,
                                              "pad": 1}))
         feat = "conv4_3_2x"
+    return out + _roi_pools(cfg, feat, "proposal_info")
+
+
+def _roi_pools(cfg, feat, info, suffix=""):
+    """The org and ctx ROI pooling layers of a head (ROIAlign with
+    cfg.roi_align)."""
     pool_type = "ROIAlign" if cfg.roi_align else "ROIPooling"
-    for name, pad in (("roi_pool", 0.0), ("roi_pool_ctx", cfg.roi_pad_ratio)):
-        out.append(_layer(name, pool_type, [feat, "proposal_info"],
-                          roi_pooling_param={
-                              "pooled_w": cfg.roi_pooled,
-                              "pooled_h": cfg.roi_pooled,
-                              "spatial_scale": float(cfg.roi_spatial_scale),
-                              "pad_ratio": float(pad)}))
-    return out
+    return [_layer(name, pool_type, [feat, info], roi_pooling_param={
+                "pooled_w": cfg.roi_pooled, "pooled_h": cfg.roi_pooled,
+                "spatial_scale": float(cfg.roi_spatial_scale),
+                "pad_ratio": float(pad)})
+            for name, pad in ((f"roi_pool{suffix}", 0.0),
+                              (f"roi_pool_ctx{suffix}", cfg.roi_pad_ratio))]
 
 
 def solver_prototxt(sspec, lspec, *, net: str, random_seed: int = 0) -> str:

@@ -11,9 +11,8 @@ by design — the graph topology here is code, not config.
 
 Ports `mscnn_tpu/config/zoo_import.py` onto the port's config classes
 (`models/mscnn.py`, `data/augment.py`, `data/pipeline.py`,
-`train/solver.py`, `train/train_step.py`), which equal the JAX ones
-field for field; `cascade_from_prototxt` raises until the cascade's
-training is ported.
+`train/solver.py`, `train/train_step.py`, `models/cascade.py`), which
+equal the JAX ones field for field.
 """
 
 from __future__ import annotations
@@ -268,11 +267,41 @@ def is_cascade_prototxt(path: str) -> bool:
 
 
 def cascade_from_prototxt(path: str, *, max_out: int = 512):
-    """Cascade trainval prototxt -> CascadeConfig and specs: the cascade's
-    training is ROADMAP Queue 1 item 15 (Slice C), not ported yet."""
-    raise NotImplementedError(
-        f"{path}: cascade training (cascade_from_prototxt) is not ported "
-        f"yet (ROADMAP Queue 1 item 15, Slice C)")
+    """Parse a cascade trainval prototxt -> (CascadeConfig, TrainSpec,
+    AugmentSpec, DatasetSpec, source). Stage thresholds, stds, loss weights
+    and keep_all come from the per-stage ProposalTarget and SoftmaxWithLoss
+    layers (cascade trainval_2nd.prototxt:1009-1857); stage k's lr
+    multiplier is 2^k."""
+    from mscnn_torch.models.cascade import CascadeConfig, CascadeStageSpec
+
+    cfg, tspec, aug, ds, source = model_from_prototxt(path, max_out=max_out)
+    net = PB.parse_prototxt_file(path)
+
+    pt_layers = [l for l in PB.layers_by_type(net, "ProposalTarget")
+                 if PB.layer_phase(l) in ("TRAIN", "BOTH")]
+    loss_weights = {}
+    for l in PB.layers_by_type(net, "SoftmaxWithLoss"):
+        loss_weights[str(l.get("name"))] = float(l.get("loss_weight", 1.0))
+    stages = []
+    suffixes = ("", "_2nd", "_3rd", "_4th")
+    for i, l in enumerate(pt_layers):
+        pp = l.get("proposal_target_param", {})
+        br = l.get("bbox_reg_param", {})
+        std = tuple(float(x) for x in PB.as_list(br.get("bbox_std"))) or \
+            (0.1, 0.1, 0.2, 0.2)
+        sfx = suffixes[i]
+        stages.append(CascadeStageSpec(
+            suffix=sfx,
+            fg_thr=float(pp.get("fg_thr", 0.5)),
+            bg_thr_hg=float(pp.get("bg_thr_hg", 0.5)),
+            bg_thr_lw=float(pp.get("bg_thr_lw", 0.1)),
+            bbox_std=std,
+            loss_weight=loss_weights.get(f"loss_cls{sfx}", 1.0),
+            lr_mult=float(2 ** i),
+            keep_all=int(pp.get("batch_size", 256)) < 0,
+        ))
+    return (CascadeConfig(base=cfg, stages=tuple(stages)), tspec, aug, ds,
+            source)
 
 
 def deploy_model_from_prototxt(path: str, *, max_out: int = 512,

@@ -1,10 +1,13 @@
 """Deploy-time detection: post-processing + KITTI-format output.
 
 Ports `mscnn_tpu/inference.py`: `KITTI_CLASS_NAMES`, `DetectSpec`,
-`postprocess`, `make_e2e_forward`, `detect`, `detect_batch`,
-`write_detections_txt`, `write_kitti_labels`, `detections_to_xywh` and
-`detections_to_kitti` (inference.py:26-265, 353-406). The cascade
-functions and the mesh-sharded forward wait for later slices.
+`postprocess`, `make_e2e_forward`, `detect`, `detect_batch` (with its
+`cascade=`), the cascade half (`cascade_deploy_outputs`,
+`cascade_post_cfg`, `expand_cascade_bbox`, `make_cascade_forward`,
+`detect_cascade`), `write_detections_txt`, `write_kitti_labels`,
+`detections_to_xywh` and `detections_to_kitti` (inference.py:26-406). The
+mesh-sharded forwards are ROADMAP item 20 (`make_cascade_forward(mesh=)`
+raises).
 
 `postprocess_batch` is the batched core: every image x class NMS problem
 of a batch goes to NMS in one call (one kernel launch on the card).
@@ -185,30 +188,125 @@ def detect(params, image_bgr: np.ndarray, cfg: M.MSCNNConfig,
                         mean_values=mean_values)[0]
 
 
-def detect_batch(params, images_bgr: Sequence[np.ndarray],
-                 cfg: M.MSCNNConfig, spec: DetectSpec = DetectSpec(), *,
-                 mean_values=(104.0, 117.0, 123.0)) -> list:
-    """Batched detection: one deploy-graph call for N images, then one
-    batched decode + NMS. Returns one `detect()`-shaped dict per image.
-    Each image is resized on the host by `data/resize.py` (cv2's
-    INTER_LINEAR, bit for bit)."""
-    net_h, net_w = cfg.input_hw
-    dev = M.params_device(params)
+def _resize_batch(images_bgr, net_hw):
+    """Host-side resize of each image to the net size (cv2's INTER_LINEAR,
+    bit for bit): (uint8 [B, H, W, 3] tensor, ratios [B, 2], orig_wh
+    [B, 2])."""
+    net_h, net_w = net_hw
     xs, ratios, origs = [], [], []
     for img in images_bgr:
         oh, ow = img.shape[:2]
         xs.append(resize_bilinear_u8(img, (net_w, net_h)))
         ratios.append([net_h / oh, net_w / ow])
         origs.append([ow, oh])
-    img_u8 = torch.from_numpy(np.stack(xs).astype(np.uint8)).to(dev)
-    ratios_t = torch.tensor(ratios, dtype=torch.float32)
-    out = make_e2e_forward(params, cfg, spec, mean_values=mean_values)(
-        params, img_u8, ratios_t, torch.tensor(origs, dtype=torch.float32))
+    return (torch.from_numpy(np.stack(xs).astype(np.uint8)),
+            torch.tensor(ratios, dtype=torch.float32),
+            torch.tensor(origs, dtype=torch.float32))
+
+
+def detect_batch(params, images_bgr: Sequence[np.ndarray],
+                 cfg: M.MSCNNConfig, spec: DetectSpec = DetectSpec(), *,
+                 mean_values=(104.0, 117.0, 123.0), cascade=None) -> list:
+    """Batched detection: one deploy-graph call for N images, then one
+    batched decode + NMS. Returns one `detect()`-shaped dict per image.
+    Each image is resized on the host by `data/resize.py` (cv2's
+    INTER_LINEAR, bit for bit). Pass the CascadeConfig as `cascade` for
+    staged models (then `cfg` must be `cascade.base`)."""
+    dev = M.params_device(params)
+    img_u8, ratios_t, orig_t = _resize_batch(images_bgr, cfg.input_hw)
+    img_u8 = img_u8.to(dev)
+    if cascade is None:
+        out = make_e2e_forward(params, cfg, spec, mean_values=mean_values)(
+            params, img_u8, ratios_t, orig_t)
+    else:
+        out = _cascade_detect(params, img_u8, ratios_t, orig_t, cascade, spec,
+                              mean_values)
     return [_host_result(out["boxes"][i], out["scores"][i], out["valid"][i],
                          out["rois"][i], out["roi_scores"][i],
                          out["roi_valid"][i], float(ratios_t[i, 0]),
                          float(ratios_t[i, 1]))
-            for i in range(len(xs))]
+            for i in range(len(images_bgr))]
+
+
+# ---------------------------------------------------------------------------
+# Cascade
+# ---------------------------------------------------------------------------
+
+def cascade_deploy_outputs(params, images, ccfg, *, mark=None):
+    """Cascade deploy forward with the scoring choice applied: per
+    ccfg.ensemble_avg either the last head's own softmax (cls_prob_3rd, the
+    KITTI cascade) or every head re-scored on the final proposals and
+    averaged (cls_prob_3rd_avg, citypersons / widerface). Without the
+    ensemble the re-score heads do not run (the JAX function discards
+    their result and XLA drops them). mark: see `cascade.deploy_forward`."""
+    from mscnn_torch.models import cascade as CC
+
+    out = CC.deploy_forward(params, images, ccfg, ensemble=ccfg.ensemble_avg,
+                            mark=mark)
+    if ccfg.ensemble_avg:
+        out["cls_prob"] = out.pop("cls_prob_avg")
+    return out
+
+
+def cascade_post_cfg(ccfg):
+    """Decode config for the cascade's final outputs: the last stage's
+    bbox std and a zero mean (run_cascademscnn.m:42-48)."""
+    return dataclasses.replace(ccfg.base, bbox_mean=(0.0,) * 4,
+                               bbox_std=ccfg.stages[-1].bbox_std)
+
+
+def expand_cascade_bbox(outputs, num_classes):
+    """The cascade's bbox_pred is class-agnostic and 8-wide
+    (decode_bbox_layer.cpp: channels == 8); postprocess slices per class,
+    so the fg slot is repeated into every class column."""
+    outputs = dict(outputs)
+    outputs["bbox_pred"] = outputs["bbox_pred"][:, 4:8].repeat(1, num_classes)
+    return outputs
+
+
+def make_cascade_forward(params, ccfg, mesh=None):
+    """Cascade deploy forward: f(params, images [B, H, W, 3] BGR
+    mean-subtracted) -> `cascade_deploy_outputs` (the last stage's rois and
+    the scoring), under inference mode. mesh: ROADMAP item 20, raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_cascade_forward(mesh=...) is data parallelism, ROADMAP item 20")
+
+    def fwd(p, images):
+        with torch.inference_mode():
+            return cascade_deploy_outputs(p, images, ccfg)
+
+    return fwd
+
+
+def _cascade_detect(params, img_u8, ratios, orig_wh, ccfg, spec, mean_values):
+    """uint8 net-size images on the device -> the cascade forward -> one
+    batched decode + per-class NMS with the last stage's std."""
+    cfg = ccfg.base
+    with torch.inference_mode():
+        mean = torch.tensor(mean_values, dtype=torch.float32).to(
+            img_u8.device, non_blocking=True)
+        outputs = expand_cascade_bbox(
+            cascade_deploy_outputs(params, img_u8.float() - mean, ccfg),
+            cfg.num_classes)
+        per = _per_image(outputs, img_u8.shape[0], cfg.proposal.max_out)
+        boxes, scores, valid = postprocess_batch(per, ratios, orig_wh,
+                                                 cascade_post_cfg(ccfg), spec)
+    return {"boxes": boxes, "scores": scores, "valid": valid,
+            "rois": per["rois"], "roi_scores": per["roi_scores"],
+            "roi_valid": per["roi_valid"]}
+
+
+def detect_cascade(params, image_bgr: np.ndarray, ccfg,
+                   spec: DetectSpec = DetectSpec(), *,
+                   mean_values=(104.0, 117.0, 123.0)):
+    """Cascade detection of one image: host resize, staged refinement,
+    class-agnostic final regression. Scores follow ccfg.ensemble_avg.
+    Returns per-class fixed-shape boxes / scores / valid as numpy."""
+    img_u8, ratios, orig_wh = _resize_batch([image_bgr], ccfg.base.input_hw)
+    out = _cascade_detect(params, img_u8.to(M.params_device(params)), ratios,
+                          orig_wh, ccfg, spec, mean_values)
+    return {k: out[k][0].cpu().numpy() for k in ("boxes", "scores", "valid")}
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,10 @@ Ports `mscnn_tpu/models/mscnn.py`: the configuration (`VGG_BLOCKS`,
 and ROI head (`int8_trunk`, `int8_roi_head`: `_cb(..., int8=)`, the int8
 branches of `roi_head` and the `captures` that calibrate them; see
 `ops/quant.py`) and the training-time `roi_head` (dropout after fc6's
-ReLU, its keep mask passed in).
-
-Not ported yet (each raises NotImplementedError where the JAX function
-would take it): the `s2d_conv1` rewrite and ROIAlign (`roi_align`).
+ReLU, its keep mask passed in), and the ROIAlign pools
+(`cfg.roi_align`, the cascade's widerface variant). Not ported yet (it
+raises NotImplementedError where the JAX function would take it): the
+`s2d_conv1` rewrite.
 
 Activations are NHWC at every function; params are {layer: {"w", "b"}}
 in the port's layouts (OIHW conv kernels, [out, in] dense weights; see
@@ -428,12 +428,21 @@ def upsampled_roi_feature(params, conv4_3, cfg: MSCNNConfig):
 
 
 def roi_head(params, conv4_3, batch_idx, rois, valid, cfg: MSCNNConfig, *,
-             train: bool = False, suffix: str = "", feat=None,
-             captures: Optional[dict] = None, dropout_mask=None):
+             train: bool = False, suffix: str = "", feat=None, table=None,
+             image_major: bool = False, captures: Optional[dict] = None,
+             dropout_mask=None):
     """Detection sub-network over proposals.
 
     conv4_3: [B, H/8, W/8, 512]; batch_idx: [R]; rois: [R, 4] corners;
-    valid: [R]. Returns (cls_pred [R, C], bbox_pred [R, 4C]) in f32.
+    valid: [R]. Returns (cls_pred [R, C], bbox_pred [R, 4C or 8]) in f32.
+    suffix selects a cascade stage's head params; feat: the already
+    upsampled ROI source map; table: `sliding_max_table(feat, 2)`, the fast
+    max pool's source, so that the stages of a cascade forward build it
+    once (XLA's CSE does so for the JAX function). With cfg.roi_align both
+    pools are ROIAlign on a (roi_pooled + 1)^2 grid. The JAX `roi_chunk`
+    split of the gathers and its per-image gather (`image_major`) are
+    bit-equal to one batched gather, which the port always runs:
+    `image_major` is accepted and changes nothing.
     roi_c1's output is flattened in NHWC (h, w, c) order, as in JAX.
     captures: optional dict that receives the max-abs of roi_c1's and
     fc6's inputs (0-d tensors, folded across calls), for
@@ -441,13 +450,18 @@ def roi_head(params, conv4_3, batch_idx, rois, valid, cfg: MSCNNConfig, *,
     cfg.dropout > 0) fc6's output goes through inverted dropout with the
     keep mask ``dropout_mask`` [R, fc_dim] bool.
     """
-    if cfg.roi_align:
-        raise NotImplementedError("roi_align is not ported yet")
-    if feat is None:
+    fast = cfg.roi_method == "fast" and not cfg.roi_align
+    if feat is None and not (fast and table is not None):
         feat = upsampled_roi_feature(params, conv4_3, cfg)
     scale = cfg.roi_spatial_scale
-    if cfg.roi_method == "fast":
-        table = roi_ops.sliding_max_table(feat, 2)
+    if cfg.roi_align:
+        org, ctx = (roi_ops.roi_align(feat, batch_idx, rois, valid,
+                                      spatial_scale=scale, pad_ratio=pr,
+                                      pooled=cfg.roi_pooled)
+                    for pr in (0.0, cfg.roi_pad_ratio))
+    elif fast:
+        if table is None:
+            table = roi_ops.sliding_max_table(feat, 2)
         kw = dict(spatial_scale=scale, pooled=cfg.roi_pooled,
                   samples=max(cfg.roi_samples // 2, 2), table_k=2,
                   is_table=True)

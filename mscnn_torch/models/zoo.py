@@ -212,9 +212,9 @@ def cascade_widerface_12s_align(*, deploy: bool = False, max_out: int = 512):
     import dataclasses
 
     from mscnn_torch.models.cascade import CascadeConfig
-    # roi_chunk=64: the bilinear-sample gathers hit the same volume cliff
-    # as the fast table but plateau lower — 512-roi stages read 21.7 ms
-    # fused, 19.2 at 128, 18.2 at 64/32 (BENCH.md round 5 align-chunk A/B)
+    # roi_chunk=64: the JAX package's split of the bilinear-sample gathers
+    # (a TPU gather-volume workaround); the port's one batched gather gives
+    # the same values and ignores it
     base = dataclasses.replace(
         widerface_12s_2x(deploy=deploy, max_out=max_out,
                          roi_align=True, use_2x=False),

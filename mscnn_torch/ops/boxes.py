@@ -3,9 +3,8 @@
 Ports `mscnn_tpu/ops/boxes.py`: `iou_xywh`, `iou_aligned_xywh`,
 `iou_corners`, `xywh_to_corners`, `corners_to_xywh`, `cell_centers`,
 `decode_anchor_field`, the training target encoders
-`encode_anchor_field_targets` and `encode_roi_targets`, and
-`decode_with_prior`. `decode_bbox` belongs to the cascade and is not
-ported yet.
+`encode_anchor_field_targets` and `encode_roi_targets`,
+`decode_with_prior` and the cascade's `decode_bbox`.
 
 No function copies a host value to the card: constants enter as Python
 scalars, so a training step on the card makes no host sync here.
@@ -216,3 +215,25 @@ def decode_with_prior(deltas, priors_corners, bbox_mean=None, bbox_std=None):
     y1 = cy - (bh - 1.0) / 2.0
     out = torch.stack([x1, y1, x1 + bw - 1.0, y1 + bh - 1.0], -1)
     return out.reshape(n, 4 * k)
+
+
+def decode_bbox(bbox_pred, rois_corners, valid, *, bbox_mean=None,
+                bbox_std=None, match_overlap=None, gt_iou_thr: float = 0.95,
+                train: bool = True):
+    """DecodeBBox layer (cascade): stage-k bbox_pred -> stage-k+1 proposals
+    (boxes.py:223-244).
+
+    bbox_pred: [R, 8] class-agnostic two-slot deltas; rois_corners: [R, 4]
+    inclusive corners; valid: [R]. The fg slot [:, 4:8] is decoded. In
+    train mode malformed boxes (x1 > x2 or y1 > y2) and boxes whose matched
+    overlap is already >= gt_iou_thr are masked invalid rather than dropped
+    (the reference emits a variable row count), so the capacity stays R.
+    Returns (new_rois_corners [R, 4], new_valid [R]).
+    """
+    new = decode_with_prior(bbox_pred, rois_corners, bbox_mean, bbox_std)[:, 4:8]
+    out_valid = valid
+    if train:
+        out_valid = out_valid & (new[:, 0] <= new[:, 2]) & (new[:, 1] <= new[:, 3])
+        if match_overlap is not None:
+            out_valid = out_valid & (match_overlap < gt_iou_thr)
+    return new, out_valid

@@ -177,23 +177,27 @@ def _input_blob(layer: str, cfg) -> str:
 
 def calibrate_roi_head_scales(params, cfg, images, ccfg=None
                               ) -> Dict[str, float]:
-    """Activation scales for the ROI-head matmuls (roi_c1 / fc6) from
-    representative images: the deploy graph runs with `captures`, which
-    brings back each quantizable input's max-abs per layer name. Plain
-    max-abs, not a percentile: the pooled blob is mostly exact zeros
-    (masked invalid-roi rows). The cascade variant (`ccfg`) waits for the
-    cascade slice."""
+    """Activation scales for the ROI-head matmuls (roi_c1 / fc6, with the
+    cascade stages' suffixes) from representative images: the deploy graph
+    (the cascade's with `ccfg`) runs with `captures`, which brings back
+    each quantizable input's max-abs per layer name. Plain max-abs, not a
+    percentile: the pooled blob is mostly exact zeros (masked invalid-roi
+    rows). The cascade's maxima include the ensemble re-score heads'
+    inputs, whatever ccfg.ensemble_avg says: the JAX function runs
+    `cascade.deploy_forward`, which always computes them."""
+    from mscnn_torch.models import cascade as CC
     from mscnn_torch.models import mscnn as M
 
-    if ccfg is not None:
-        raise NotImplementedError("cascade deploy is not ported yet")
     dev = M.params_device(params)
     maxima: Dict[str, float] = {}
     for i in range(images.shape[0]):
         caps: Dict[str, torch.Tensor] = {}
+        x = torch.as_tensor(images[i: i + 1]).to(dev)
         with torch.inference_mode():
-            M.deploy_forward(params, torch.as_tensor(images[i: i + 1]).to(dev),
-                             cfg, captures=caps)
+            if ccfg is not None:
+                CC.deploy_forward(params, x, ccfg, captures=caps)
+            else:
+                M.deploy_forward(params, x, cfg, captures=caps)
         for name, m in caps.items():
             maxima[name] = max(maxima.get(name, 0.0), float(m))
     return {k: max(v, 1e-6) / 127.0 for k, v in maxima.items()}

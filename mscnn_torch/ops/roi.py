@@ -1,9 +1,9 @@
-"""ROI feature extraction: context-padded max pooling.
+"""ROI feature extraction: context-padded max pooling and ROIAlign.
 
 Ports `mscnn_tpu/ops/roi.py`: `round_half_away`, `_bin_edges`,
 `sliding_max_table`, `roi_max_pool_fast` (the deploy default) and the exact
-`roi_max_pool` (roi.py:25-211). `roi_align` belongs to the cascade and
-waits.
+`roi_max_pool` (roi.py:25-211), and the cascade's bilinear `roi_align`
+(roi.py:214-282).
 
 Feature maps are NHWC [B, H, W, C]; rois are image-space corners
 (x1, y1, x2, y2) with the reference's inclusive-pixel convention, plus a
@@ -124,3 +124,62 @@ def roi_max_pool_fast(feat_or_table, batch_idx, boxes, valid, *,
 
     return _grid_max(table, batch_idx, positions(lo_h, bin_h, H),
                      positions(lo_w, bin_w, W), valid, bin_h, bin_w)
+
+
+def roi_align(feat, batch_idx, boxes, valid, *, spatial_scale: float,
+              pad_ratio: float = 0.0, pooled: int = 7):
+    """Bilinear ROI align on a (pooled+1)^2 grid with the -0.5 coordinate
+    shift (roi.py:214-282).
+
+    feat: [B, H, W, C]; returns [R, pooled+1, pooled+1, C] float32. Grid
+    points off the map (< -0.5 or > size - 0.5), malformed rois (roi_h or
+    roi_w <= 0) and invalid rois give zeros. The weights are float32 and the
+    four gathered corners keep feat's dtype (not cast first), so each
+    product promotes to float32, and the sum runs w00*v00 + w10*v10 +
+    w01*v01 + w11*v11, the JAX function's order; each added product is
+    rounded once with the sum, as XLA's fused multiply-add rounds it.
+    """
+    B, H, W, _ = feat.shape
+    x1, y1, x2, y2 = boxes.float().unbind(-1)
+    pad_w = (x2 - x1 + 1.0) * pad_ratio
+    pad_h = (y2 - y1 + 1.0) * pad_ratio
+    start_w = (x1 - pad_w) * spatial_scale - 0.5
+    start_h = (y1 - pad_h) * spatial_scale - 0.5
+    end_w = (x2 + pad_w) * spatial_scale - 0.5
+    end_h = (y2 + pad_h) * spatial_scale - 0.5
+    roi_w = end_w - start_w
+    roi_h = end_h - start_h
+    # XLA rewrites the division by the constant `pooled` as a product with
+    # its float32 reciprocal and fuses each multiply-add into one rounding
+    # (an FMA): torch.addcmul rounds once as well
+    g = torch.arange(pooled + 1, dtype=torch.float32, device=feat.device)[None, :]
+    hf = torch.addcmul(start_h[:, None], g, (roi_h * (1.0 / pooled))[:, None])
+    wf = torch.addcmul(start_w[:, None], g, (roi_w * (1.0 / pooled))[:, None])
+    oob_h = (hf < -0.5) | (hf > H - 0.5)
+    oob_w = (wf < -0.5) | (wf > W - 0.5)
+
+    def corners(f, size):
+        lo = torch.floor(f).long()
+        hi = (lo + 1).clamp(0, size - 1)
+        lo = lo.clamp(0, size - 1)
+        frac = f.clamp(0.0, size - 1.0) - lo.float()
+        return lo, hi, frac, 1.0 - frac
+
+    hlo, hhi, lh, hh = corners(hf, H)
+    wlo, whi, lw, hw = corners(wf, W)
+    bidx = batch_idx.long().clamp(0, B - 1)[:, None, None]
+
+    def gat(hi_, wi_):
+        return feat[bidx, hi_[:, :, None], wi_[:, None, :]]   # [R, G, G, C]
+
+    def wt(a, b):
+        return (a[:, :, None] * b[:, None, :])[..., None]
+
+    out = wt(hh, hw) * gat(hlo, wlo)
+    out = torch.addcmul(out, wt(hh, lw), gat(hlo, whi))
+    out = torch.addcmul(out, wt(lh, hw), gat(hhi, wlo))
+    out = torch.addcmul(out, wt(lh, lw), gat(hhi, whi))
+    malformed = (roi_h <= 0) | (roi_w <= 0)
+    zero = oob_h[:, :, None] | oob_w[:, None, :] \
+        | (malformed | ~valid.bool())[:, None, None]
+    return out.masked_fill(zero[..., None], 0.0)

@@ -220,13 +220,20 @@ def test_writers_match_jax(tmp_path):
 
 
 def test_unported_branches_raise(setup):
-    # the int8 branches are ported (tests/test_torch_quant.py)
+    # the int8 branches are ported (tests/test_torch_quant.py), and ROIAlign
+    # (the cascade's, held to JAX in tests/test_torch_cascade.py) runs
     cfg = setup["cfg_t"]
     x = t(setup["x"])
     for field in ("s2d_conv1",):
         with pytest.raises(NotImplementedError):
             TM.trunk(setup["pt"], x, dataclasses.replace(cfg, **{field: True}))
-    for field in ("roi_align",):
-        with pytest.raises(NotImplementedError):
-            TM.roi_head(setup["pt"], None, None, None, None,
-                        dataclasses.replace(cfg, **{field: True}), feat=x)
+    out = setup["out"]
+    acfg = dataclasses.replace(cfg, roi_align=True)
+    grid = {k: v for k, v in setup["pt"].items() if not k.startswith(("roi_c1", "fc6"))}
+    grid.update(TM.init_roi_head_params(torch.Generator().manual_seed(0), acfg,
+                                        device="cpu"))
+    with torch.inference_mode():
+        cls, bbox = TM.roi_head(grid, t(setup["feats"]["conv4_3"]), t(out["batch_idx"]),
+                                t(out["rois"]), t(out["roi_valid"]), acfg)
+    assert tuple(cls.shape) == (out["rois"].shape[0], cfg.num_classes)
+    assert torch.isfinite(bbox).all()

@@ -467,3 +467,71 @@ def test_int8_kernel_rejects_bad_input(gen, cuda):
         IK.int8_conv_cuda(x, w, xs, ws, b, requant=[(xs.cpu(), True)], **dq)
     with pytest.raises(ValueError):                                  # scale not 0-d
         IK.int8_conv_cuda(x, w, xs, ws, b, requant=[(ws, True)], **dq)
+
+
+# -- the cascade's shapes (kitti_car/cascade-mscnn-7s-576-2x: deploy at
+# 576x1920, batch 4, max_out 512; training at 576x768, batch 4;
+# widerface/cascade-mscnn-12s-align at 1024x1024, batch 1)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n,max_out,thr", [
+    (4, 2000, 512, 0.65),     # KITTI cascade propose: B x top-2000 -> 512
+    (16, 512, 100, 0.5),      # its postprocess: B x 4 classes on the final rois
+    (4, 3000, 512, 0.65),     # the cascade training step's propose
+    (1, 2000, 512, 0.65),     # widerface align propose, batch 1
+    (1, 512, 100, 0.5),       # its postprocess: one class
+], ids=["kitti_propose", "kitti_post", "train_propose", "wf_propose", "wf_post"])
+def test_nms_kernel_at_cascade_shapes(gen, cuda, p, n, max_out, thr):
+    b, s, v = (t.to(cuda) for t in candidates(gen, p, n, img=1920.0))
+    kw = dict(iou_thr=thr, mode="iou", max_out=max_out)
+    want = TN.nms_xywh_plain(b, s, v, **kw)
+    before = NK.launches
+    got = TN.nms_xywh(b, s, v, **kw)
+    torch.cuda.synchronize()
+    assert NK.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(4, 576, 1920), (4, 576, 768)],
+                         ids=["deploy", "train"])
+def test_conv1_kernel_at_cascade_shapes(gen, cuda, b, h, w):
+    """K2 on the KITTI cascade's deploy batch and training crops, with
+    nonzero biases: K2's gate."""
+    args = conv1_inputs(gen, b, h, w, cuda, False)
+    want = CK.conv1_pool_plain(*args).float()
+    before = CK.launches
+    got = CK.conv1_pool_fused(*args)
+    torch.cuda.synchronize()
+    assert CK.launches == before + 1
+    err, share = conv1_gate(got, want)
+    print(f"conv1 kernel {(b, h, w)}: max_abs_err {err:.4g}, bit-equal share {share:.6f}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,f,pad,copies", [
+    (4, 72, 240, 512, 512, 1, (True, False)),   # conv4_3 at 576x1920: pool + loss1_conv1
+    (4, 288, 960, 64, 64, 1, (True,)),          # conv1_2 at 576x1920, pooled copy
+    (2048, 7, 7, 1024, 512, 0, (False,)),       # a stage's roi_c1 on 4 x 512 rois
+    (2048, 1, 1, 12800, 4096, 0, ()),           # a stage's fc6
+], ids=["conv4_3", "conv1_2", "roi_c1", "fc6"])
+def test_int8_kernel_at_cascade_shapes(gen, cuda, b, h, w, c, f, pad, copies):
+    """K4 at the int8 KITTI cascade's shapes, in the deploy epilogue (bf16,
+    ReLU) with the int8 copies each layer writes: equal to the plain
+    version."""
+    k = 3 if h > 1 else 1
+    args = int8_tensors(gen, cuda, (b, h, w, c), (f, k, k, c))
+    requant = [(torch.tensor(v, device=cuda), pooled)
+               for v, pooled in zip((0.125, 0.0371), copies)]
+    kw = dict(padding=(pad, pad), out_dtype=torch.bfloat16, relu=True, requant=requant)
+    want = IK.int8_conv_plain(*args, **kw)
+    before = IK.launches
+    got = IK.int8_conv(*args, **kw)
+    torch.cuda.synchronize()
+    assert IK.launches == before + 1
+    got, want = (got, want) if requant else ((got, []), (want, []))
+    assert torch.equal(got[0], want[0])
+    assert len(got[1]) == len(want[1]) == len(copies)
+    for g, w in zip(got[1], want[1]):
+        assert torch.equal(g, w)

@@ -308,7 +308,9 @@ def test_calibrate_trunk_scales_matches_jax(tiny, include_conv1):
 
 def test_calibrate_roi_head_scales_matches_jax(tiny):
     """On the same int8 trunk (the JAX-quantized params, carried across),
-    as `mscnn detect --int8 --int8-heads` calibrates the heads."""
+    as `mscnn detect --int8 --int8-heads` calibrates the heads. (The
+    cascade's branch, `ccfg=`, is held to JAX's in
+    tests/test_torch_cascade_train.py.)"""
     trunk_only = {k: {n: v for n, v in p.items()
                       if not (k in tiny["hj"] and n in ("w_q", "w_s", "x_s"))}
                   for k, p in tiny["qt"].items()}
@@ -317,8 +319,6 @@ def test_calibrate_roi_head_scales_matches_jax(tiny):
     assert got.keys() == tiny["hj"].keys() == {"roi_c1", "fc6"}
     for k, v in tiny["hj"].items():
         np.testing.assert_allclose(got[k], v, rtol=1e-5, err_msg=k)
-    with pytest.raises(NotImplementedError):
-        TQ.calibrate_roi_head_scales(trunk_only, cfg, tiny["cal"], ccfg=object())
 
 
 def test_quantize_trunk_and_heads_match_jax(tiny):

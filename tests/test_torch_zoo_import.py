@@ -8,7 +8,9 @@ tests/_torch_tiny_train.py), its stage-1 cut, a tiny deploy net, a legacy
 V1 net, and the flagship-shaped stage-1 / stage-2 texts
 that `zoo_export` writes from `zoo.kitti_car_8s_768()` with bench.py's
 solver, which must also import back to the zoo config in training
-geometry. `zoo_export` round-trips every non-cascade zoo config.
+geometry. `zoo_export` round-trips every zoo config, the two cascades
+through `cascade_trainval_prototxt` and `cascade_from_prototxt`, which
+must equal JAX's import of the same text.
 """
 
 import dataclasses
@@ -184,16 +186,39 @@ def test_flagship_text_imports_to_the_zoo_config(tmp_path, stage):
     assert fields["random_seed"] == 3 and fields["net"] == net
 
 
-@pytest.mark.parametrize("name", sorted(n for n in TZ.REGISTRY if "cascade" not in n))
+def cascade_equal(got, ccfg):
+    """An imported cascade against a zoo cascade: the base as `zoo_equal`
+    (with `roi_chunk`, a TPU gather split, which no prototxt holds), the
+    stages field for field; `ensemble_avg` is a deploy choice, no trainval
+    field."""
+    zoo_equal(dataclasses.replace(got.base, roi_chunk=ccfg.base.roi_chunk), ccfg.base)
+    assert dataclasses.replace(got, base=ccfg.base,
+                               ensemble_avg=ccfg.ensemble_avg) == ccfg
+
+
+@pytest.mark.parametrize("name", sorted(TZ.REGISTRY))
 def test_zoo_export_round_trips(tmp_path, name):
     cfg = TZ.get(name)
+    cascade = "cascade" in name
+    base = cfg.base if cascade else cfg
     tspec = TrainSpec(stage=2, roi_batch=128, bg_multiple=3.0)
-    aug = AugmentSpec(template_hw=cfg.input_hw, min_whaspect=0.5, max_whaspect=1.5)
-    net = write(tmp_path, "t.prototxt", TZE.trainval_prototxt(
-        cfg, tspec, aug, DatasetSpec(batch_size=2, shuffle=False), source="w"))
-    got = TZI.model_from_prototxt(net, max_out=cfg.proposal.max_out)
-    zoo_equal(got[0], cfg)
-    assert got[1:] == (tspec, aug, DatasetSpec(batch_size=2, shuffle=False), "w")
+    aug = AugmentSpec(template_hw=base.input_hw, min_whaspect=0.5, max_whaspect=1.5)
+    dspec = DatasetSpec(batch_size=2, shuffle=False)
+    if cascade:   # stage 1's ProposalTarget carries the first stage's thresholds
+        st = cfg.stages[0]
+        tspec = dataclasses.replace(tspec, roi_fg_thr=st.fg_thr,
+                                    roi_bg_thr_hg=st.bg_thr_hg, roi_bg_thr_lw=st.bg_thr_lw)
+        net = write(tmp_path, "t.prototxt", TZE.cascade_trainval_prototxt(
+            cfg, tspec, aug, dspec, source="w"))
+        got = TZI.cascade_from_prototxt(net, max_out=base.proposal.max_out)
+        cascade_equal(got[0], cfg)
+    else:
+        net = write(tmp_path, "t.prototxt", TZE.trainval_prototxt(
+            cfg, tspec, aug, dspec, source="w"))
+        got = TZI.model_from_prototxt(net, max_out=base.proposal.max_out)
+        zoo_equal(got[0], cfg)
+    assert TZI.is_cascade_prototxt(net) == cascade
+    assert got[1:] == (tspec, aug, dspec, "w")
     for sspec in (SolverSpec(type="adam", lr_policy="multistep", stepvalue=(3, 9)),
                   SolverSpec(type="rmsprop", clip_gradients=10.0, iter_size=2)):
         lspec = TLP.LoopSpec(max_iter=sspec.max_iter, snapshot_format="binaryproto",
@@ -204,9 +229,32 @@ def test_zoo_export_round_trips(tmp_path, name):
 
 
 def test_cascade_training_is_not_ported(tmp_path):
+    """(Named when the cascade import raised.) The cascade trainval that
+    `zoo_export` writes from the KITTI cascade, with a sampling third stage
+    and a stage-1 ProposalTarget of its own thresholds, imports to the same
+    specs through the port's `cascade_from_prototxt` and JAX's, field for
+    field; the tiny trainval with a second ProposalTarget too."""
+    ccfg = TZ.cascade_kitti_car_7s_576_2x()
+    stages = ccfg.stages[:2] + (dataclasses.replace(ccfg.stages[2], keep_all=False,
+                                                    loss_weight=0.3),)
+    ccfg = dataclasses.replace(ccfg, stages=stages)
+    tspec = TrainSpec(stage=2, roi_batch=64, roi_fg_thr=0.5, roi_bg_thr_hg=0.5,
+                      roi_bg_thr_lw=0.1)
+    aug = AugmentSpec(template_hw=ccfg.base.input_hw, mirror=True)
     full = TINY_TRAINVAL.format(source="w")
     pt = full[full.index('layer { name: "proposal_info"'):]
-    net = write(tmp_path, "cascade.prototxt", full + pt.replace('"proposal_info"', '"pt2"'))
-    assert TZI.is_cascade_prototxt(net) and JZI.is_cascade_prototxt(net)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TZI.cascade_from_prototxt(net)
+    nets = [write(tmp_path, "kitti_cascade.prototxt", TZE.cascade_trainval_prototxt(
+                ccfg, tspec, aug, DatasetSpec(batch_size=4), source="w")),
+            write(tmp_path, "tiny_cascade.prototxt",
+                  full + pt.replace('"proposal_info"', '"pt2"'))]
+    for net in nets:
+        assert TZI.is_cascade_prototxt(net) and JZI.is_cascade_prototxt(net)
+        got, want = TZI.cascade_from_prototxt(net), JZI.cascade_from_prototxt(net)
+        assert dataclasses.asdict(got[0]) == dataclasses.asdict(want[0])
+        assert [dataclasses.asdict(g) for g in got[1:4]] == \
+            [dataclasses.asdict(w) for w in want[1:4]]
+        assert got[4] == want[4]
+    got = TZI.cascade_from_prototxt(nets[0])[0]
+    cascade_equal(got, ccfg)
+    assert [s.keep_all for s in got.stages] == [False, True, False]
+    assert [s.lr_mult for s in got.stages] == [1.0, 2.0, 4.0]
