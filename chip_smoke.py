@@ -154,8 +154,33 @@ Phases (any failure exits non-zero, before the result line):
                 images, on phase 13's harness (`train2_entry_point`): the
                 same launch counts and checks, with the resume required
                 bit-equal and every stage loss present and finite; 8 timed
-                iterations. No jax or mscnn_tpu module is loaded after any
-                phase.
+                iterations;
+ 16. deploy entry points -- `mscnn_torch.cli` in this process on the
+                flagship at 768x2560, max_out 256 (zoo entry FLAGSHIP_256),
+                seeded weights with nonzero biases in a port snapshot:
+                (a) 8 seeded 375x1242 PNGs whose rows use all five filters
+                (`png_bytes`), decoded by data/image_io.py bit for bit, and
+                their KITTI labels; (b) `detect --bf16 --conv1 auto`: 2 K1 +
+                1 K2 an image, each held to its plain version, the label
+                files equal to detect_batch's on the decoded images; (c)
+                `detect --int8 --int8-heads` on 2 images: 17 K4 an image (+ 15
+                a calibration image), each equal to plain; (d) `compile
+                --bf16 --batch 4` and `compile --bf16 --int8 --int8-heads
+                --batch 4`, `detect --compiled`; each loaded artifact against
+                the eager forward on the same batch (bit-equal, else within
+                1e-4 of max|ref| with the count printed), its K1 / K2 / K4
+                launches held to plain, one call under sync debug mode
+                "error"; (e) artifact against eager step (CUDA events, median
+                of 5), img/s, busy share, the op layer's host time a call,
+                detect's decode / resize / device split; (f) `serve` of the
+                batch-4 artifact: 8 client threads, 16 PNG POSTs, each answer
+                equal to compiled.detect, fewer device calls than requests,
+                p50 / p99 latency, img/s; (g) `eval` of (b)'s labels; (h)
+                `time --deploy --bf16 --max-out 256 --batch-size 4`; (i) the
+                KITTI cascade through `compile --batch 1` and `detect
+                --compiled`, equal to detect_cascade; (j) no jax, mscnn_tpu or
+                cv2 module loaded. No jax or mscnn_tpu module is loaded after
+                any phase.
 
 The lines before the last give the card's name and power limit
 (nvidia-smi) and one JSON object listing every kernel, each with its
@@ -279,6 +304,51 @@ def cuda_ms(fn, iters=5, warmup=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def program_enqueue_ms(c, batch, iters=20):
+    """Host enqueue ms (median of `iters` after one warm-up; no synchronise
+    inside a call) of a loaded artifact's program three ways: through
+    `program.module()` as `CompiledDeploy` calls it (its input checks on),
+    with those checks off, and its graph module on inputs flattened once
+    beforehand (the params' leaves, the batch, the lifted constants). The
+    three must give the same tensors."""
+    import torch
+    from torch.export.graph_signature import InputKind
+    from torch.utils import _pytree
+
+    fn, gm = c._fn, c.program.graph_module
+    leaves = iter(_pytree.tree_leaves((c.params,) + tuple(batch)))
+    flat = [next(leaves) if s.kind == InputKind.USER_INPUT
+            else c.program.constants[s.target]
+            for s in c.program.graph_signature.input_specs]
+
+    def unchecked():
+        fn.validate_inputs = False
+        try:
+            return fn(c.params, *batch)
+        finally:
+            fn.validate_inputs = True
+
+    ways = {"module": lambda: fn(c.params, *batch), "unchecked": unchecked,
+            "flat": lambda: gm(*flat)}
+    times = {k: [] for k in ways}
+    with torch.inference_mode():
+        ref = _pytree.tree_leaves(ways["module"]())
+        for k in ("unchecked", "flat"):
+            got = _pytree.tree_leaves(ways[k]())
+            if len(got) != len(ref) or not all(torch.equal(a, b)
+                                               for a, b in zip(got, ref)):
+                fail(f"program enqueue: the {k} call differs from the module's")
+        for i in range(iters + 1):
+            for k, f in ways.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f()
+                if i:
+                    times[k].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def graph_ms(fn, calls=10, iters=5):
@@ -1000,6 +1070,45 @@ def cascade_bf16(maker, **kw):
     return dataclasses.replace(ccfg, base=base)
 
 
+def hold_to_plain(sink, tag, out):
+    """Hold every launch recorded in `sink` to its kernel's plain version on
+    the same tensors: K1 equal (`nms_equal`), K2 by `conv1_compare`, K4
+    equal with its int8 copies. Folds the errors into out ("nms_err",
+    "conv1_err", "conv1_share", "int8_err"); returns a log line."""
+    import torch
+
+    from mscnn_torch.ops import nms as nms_ops
+    from mscnn_torch.ops.kernels import conv1_kernel as CK
+    from mscnn_torch.ops.kernels import int8_kernel as IK
+
+    for a, kw, got in sink["nms"]:
+        want = nms_ops.nms_xywh_plain(*a, **kw)
+        if not nms_equal(got, want):
+            fail(f"{tag}: K1 != plain at P={a[0].shape[0]} N={a[0].shape[1]}")
+        out["nms_err"] = max(out["nms_err"], nms_err(got, want))
+    for a, got in sink["conv1"]:
+        want = CK.conv1_pool_plain(*a).float()
+        err, tol, eq, ulps, ok = conv1_compare(got.float(), want)
+        if not ok:
+            fail(f"{tag}: K2 != plain at {tuple(a[0].shape)} (err {err}, bit-equal "
+                 f"share {eq})")
+        out["conv1_err"] = max(out["conv1_err"], err)
+        out["conv1_share"] = min(out["conv1_share"], eq)
+    for a, kw, got in sink["int8"]:
+        want = IK.int8_conv_plain(*a, **kw)
+        pairs = [(got, want)] if torch.is_tensor(want) else \
+            [(got[0], want[0])] + list(zip(got[1], want[1]))
+        if (not torch.is_tensor(want)) and len(got[1]) != len(want[1]):
+            fail(f"{tag}: K4 wrote {len(got[1])} int8 copies, plain {len(want[1])}")
+        for g, w in pairs:
+            if not torch.equal(g, w):
+                fail(f"{tag}: K4 != plain at x {tuple(a[0].shape)} w {tuple(a[1].shape)}")
+            out["int8_err"] = max(out["int8_err"], (g.double() - w.double()).abs()
+                                  .max().item() if g.numel() else 0.0)
+    return (f"K1 {len(sink['nms'])}, K2 {len(sink['conv1'])}, K4 {len(sink['int8'])} "
+            f"launches equal to their plain versions on the run's tensors")
+
+
 def cascade_deploy(dev, counts, zero_counts, PROF, rec):
     """Phase 14: the cascade deploy paths (module notes). rec(on, sink)
     switches the kernels' recording wrappers on or off. Returns the
@@ -1012,40 +1121,9 @@ def cascade_deploy(dev, counts, zero_counts, PROF, rec):
     from mscnn_torch.models import cascade as CC
     from mscnn_torch.models import mscnn as M
     from mscnn_torch.models import zoo
-    from mscnn_torch.ops import nms as nms_ops
     from mscnn_torch.ops import quant as Q
-    from mscnn_torch.ops.kernels import conv1_kernel as CK
-    from mscnn_torch.ops.kernels import int8_kernel as IK
 
     out = {"nms_err": 0.0, "conv1_err": 0.0, "conv1_share": 1.0, "int8_err": 0.0}
-
-    def hold_to_plain(sink, tag):
-        for a, kw, got in sink["nms"]:
-            want = nms_ops.nms_xywh_plain(*a, **kw)
-            if not nms_equal(got, want):
-                fail(f"{tag}: K1 != plain at P={a[0].shape[0]} N={a[0].shape[1]}")
-            out["nms_err"] = max(out["nms_err"], nms_err(got, want))
-        for a, got in sink["conv1"]:
-            want = CK.conv1_pool_plain(*a).float()
-            err, tol, eq, ulps, ok = conv1_compare(got.float(), want)
-            if not ok:
-                fail(f"{tag}: K2 != plain at {tuple(a[0].shape)} (err {err}, bit-equal "
-                     f"share {eq})")
-            out["conv1_err"] = max(out["conv1_err"], err)
-            out["conv1_share"] = min(out["conv1_share"], eq)
-        for a, kw, got in sink["int8"]:
-            want = IK.int8_conv_plain(*a, **kw)
-            pairs = [(got, want)] if torch.is_tensor(want) else \
-                [(got[0], want[0])] + list(zip(got[1], want[1]))
-            if (not torch.is_tensor(want)) and len(got[1]) != len(want[1]):
-                fail(f"{tag}: K4 wrote {len(got[1])} int8 copies, plain {len(want[1])}")
-            for g, w in pairs:
-                if not torch.equal(g, w):
-                    fail(f"{tag}: K4 != plain at x {tuple(a[0].shape)} w {tuple(a[1].shape)}")
-                out["int8_err"] = max(out["int8_err"], (g.double() - w.double()).abs()
-                                      .max().item() if g.numel() else 0.0)
-        return (f"K1 {len(sink['nms'])}, K2 {len(sink['conv1'])}, K4 {len(sink['int8'])} "
-                f"launches equal to their plain versions on the run's tensors")
 
     def run_path(tag, params, ccfg, imgs, expect):
         """detect_batch(cascade=) on the images: launches from this run
@@ -1068,7 +1146,7 @@ def cascade_deploy(dev, counts, zero_counts, PROF, rec):
                     d["proposals"].shape != (ccfg.base.proposal.max_out, 4):
                 fail(f"{tag}: detections {d['boxes'].shape}, proposals "
                      f"{d['proposals'].shape}, or not finite")
-        held = hold_to_plain(sink, tag)
+        held = hold_to_plain(sink, tag, out)
         names = I.KITTI_CLASS_NAMES["kitti_car"] if nc == 5 else ("bg", "face")
         lines, first_line = check_kitti(I, {k: [d[k] for d in dets] for k in
                                             ("boxes", "scores", "valid")}, len(imgs), names)
@@ -1290,6 +1368,578 @@ def cascade_training(dev, counts, zero_counts, PROF):
         loss_keys=("loss",) + tuple(f"loss_{k}{t}" for k in ("cls", "bbox")
                                     for t in ("_1st", "_2nd", "_3rd")),
         exact_resume=True, timed_iters=8)
+
+
+# -- phase 16: the deploy entry points ----------------------------------------
+
+FLAGSHIP_256 = "kitti_car/mscnn-8s-768-trainval@max_out256"   # registered by phase 16
+ENTRY_IMAGES = 8
+
+
+def png_bytes(bgr, filters=(0, 1, 2, 3, 4)):
+    """An 8-bit RGB PNG of an HxWx3 BGR uint8 image whose rows cycle through
+    `filters` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth), as the PNG
+    specification defines each predictor."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = bgr.shape
+    x = np.ascontiguousarray(bgr[:, :, ::-1]).reshape(h, w * 3).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 3:] = x[:, :-3]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 3:] = x[:-1, :-3]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = (np.zeros_like(x), a, b, (a + b) >> 1, paeth)
+    f = np.asarray([filters[y % len(filters)] for y in range(h)])
+    pred = np.choose(f[:, None], preds)
+    raw = np.concatenate([f[:, None], (x - pred) & 255], 1).astype(np.uint8)
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + \
+            struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0,
+                                                                  0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_kitti_pngs(root, n, seed):
+    """n seeded KITTI-size PNG images (image_2/) with 1-5 flat car boxes on a
+    noisy background, their KITTI label files (label_2/) and the images as
+    decoded; every PNG cycles through the five row filters."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    h, w = KITTI_HW
+    img_dir, gt_dir = os.path.join(root, "image_2"), os.path.join(root, "label_2")
+    os.makedirs(img_dir)
+    os.makedirs(gt_dir)
+    images = []
+    for i in range(n):
+        yy, xx = np.mgrid[:h, :w]
+        img = ((yy // 3 + xx // 5)[..., None] % 64 + 80
+               + rng.randint(0, 60, (h, w, 3))).astype(np.uint8)
+        rows = []
+        for _ in range(rng.randint(1, 6)):
+            bw, bh = rng.randint(w // 20, w // 4), rng.randint(h // 9, h * 2 // 5)
+            x1, y1 = rng.randint(0, w - bw), rng.randint(h // 4, h - bh)
+            img[y1:y1 + bh, x1:x1 + bw] = rng.randint(0, 256, 3)
+            rows.append(f"Car 0.00 0 -10 {x1:.2f} {y1:.2f} {x1 + bw - 1:.2f} "
+                        f"{y1 + bh - 1:.2f} -1 -1 -1 -1000 -1000 -1000 -10")
+        with open(os.path.join(img_dir, f"{i:06d}.png"), "wb") as f:
+            f.write(png_bytes(img, filters=(i % 5, 0, 1, 2, 3, 4)))
+        with open(os.path.join(gt_dir, f"{i:06d}.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+        images.append(img)
+    return img_dir, gt_dir, images
+
+
+def same_outputs(tag, got, want):
+    """Hold an artifact's output dict to the eager forward's: bit-equal, or
+    (printing the differing count) within 1e-4 of max|ref| with the same
+    valid flags. Returns the number of differing values."""
+    import torch
+    differ = 0
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{tag}: output {k} is {tuple(g.shape)} {g.dtype}, eager "
+                 f"{tuple(w.shape)} {w.dtype}")
+        if torch.equal(g, w):
+            continue
+        n = int((g != w).sum())
+        differ += n
+        if w.dtype == torch.bool:
+            fail(f"{tag}: {n} {k} flags differ from the eager forward")
+        ref = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        log(f"{tag}: {k}: {n} of {w.numel()} values differ from the eager forward, "
+            f"max err {err:.3g} (max|ref| {ref:.4g})")
+        if err > 1e-4 * max(ref, 1.0):
+            fail(f"{tag}: {k} differs from the eager forward by {err}")
+    return differ
+
+
+def deploy_entry_points(dev, counts, zero_counts, PROF, rec):
+    """Phase 16 (module notes): the port's deploy commands through
+    `mscnn_torch.cli.main`, in this process, at the flagship's full width.
+    rec(on, sink) switches the kernels' recording wrappers on or off; every
+    recorded launch is held to its plain version (`hold_to_plain`).
+    Returns the figures the kernels line and the log use."""
+    import contextlib
+    import io
+    import shutil
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mscnn_torch import cli
+    from mscnn_torch import inference as I
+    from mscnn_torch import serve as SV
+    from mscnn_torch.data import image_io
+    from mscnn_torch.data.resize import resize_bilinear_u8
+    from mscnn_torch.io import aot
+    from mscnn_torch.io import checkpoint as CKPT
+    from mscnn_torch.models import cascade as CC
+    from mscnn_torch.models import mscnn as M
+    from mscnn_torch.models import zoo
+    from mscnn_torch.ops.kernels import conv1_kernel as CK
+    from mscnn_torch.ops.kernels import int8_kernel as IK
+    from mscnn_torch.ops.kernels import nms_kernel as NK
+    from mscnn_torch.ops.kernels import ops as KO
+
+    t_phase = time.perf_counter()
+    zoo.REGISTRY[FLAGSHIP_256] = lambda deploy=False: zoo.kitti_car_8s_768(
+        deploy=deploy, max_out=256)
+    root = tempfile.mkdtemp(prefix="mscnn_entry_")
+    out = {"launches": {}, "nms_err": 0.0, "conv1_err": 0.0, "conv1_share": 1.0,
+           "int8_err": 0.0}
+    spec = I.DetectSpec()
+    names = I.KITTI_CLASS_NAMES["kitti_car"]
+
+    def run_cli(tag, *argv, expect=None):
+        """cli.main(argv) with launches counted from this run alone and every
+        launch recorded; returns (stdout, launches, sink, seconds)."""
+        sink = {"nms": [], "conv1": [], "int8": []}
+        buf = io.StringIO()
+        rec(True, sink)
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counts()
+        rec(False, sink)
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"  [{tag}] {line}")
+        if rc != 0:
+            fail(f"{tag}: `{' '.join(map(str, argv))}` returned {rc}")
+        if expect is not None and any(launches[k] != v for k, v in expect.items()):
+            fail(f"{tag}: launches {launches}, expected {expect}")
+        out["launches"][tag] = launches
+        return text, launches, sink, seconds
+
+    def steady(text):
+        m = re.search(r"\(([0-9.]+) s/img steady-state", text)
+        return float(m.group(1)) if m else None
+
+    # -- (a) 8 seeded KITTI-size PNGs (all five row filters), their labels,
+    # and a port snapshot of seeded weights with nonzero biases
+    t0 = time.perf_counter()
+    img_dir, gt_dir, made = write_kitti_pngs(root, ENTRY_IMAGES, SEED + 30)
+    decoded = [image_io.imread(os.path.join(img_dir, f"{i:06d}.png"))
+               for i in range(ENTRY_IMAGES)]
+    if any(not np.array_equal(a, b) for a, b in zip(decoded, made)):
+        fail("entry: image_io does not decode the phase's PNGs to the images written")
+    gen = torch.Generator().manual_seed(SEED + 31)
+    cfg32 = zoo.get(FLAGSHIP_256, deploy=True)
+    p32 = nonzero_biases(M.init_params(gen, cfg32, device=dev), SEED + 32)
+    snap = CKPT.snapshot(os.path.join(root, "flagship"), {"params": p32, "solver": {
+        "it": torch.tensor(0, dtype=torch.int32)}}, 0)
+    log(f"entry: {ENTRY_IMAGES} PNGs {KITTI_HW[0]}x{KITTI_HW[1]} (filters 0-4) decoded "
+        f"bit for bit by data/image_io.py, labels, snapshot {snap} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- (b) detect --bf16 --conv1 auto: the labels detect_batch writes on the
+    # same decoded images, each K1 / K2 launch held to its plain version
+    det_b = os.path.join(root, "det_bf16")
+    text, launches, sink, secs = run_cli(
+        "detect bf16", "detect", "--zoo", FLAGSHIP_256, "--weights", snap, "--bf16",
+        "--conv1", "auto", "--image-dir", img_dir, "--output-dir", det_b,
+        expect={"nms": 2 * ENTRY_IMAGES, "conv1_pool": ENTRY_IMAGES, "int8_gemm": 0})
+    held = hold_to_plain(sink, "entry detect bf16", out)
+    del sink
+    cfg = dataclasses.replace(cfg32, compute_dtype="bfloat16", pallas_conv1=True)
+    params = M.cast_params(p32, torch.bfloat16)
+    ref_dir = os.path.join(root, "ref_bf16")
+    for i, img in enumerate(decoded):
+        det = I.detect_batch(params, [img], cfg, spec)[0]
+        I.write_kitti_labels(I.detections_to_kitti(det, names), ref_dir, i)
+    for i in range(ENTRY_IMAGES):
+        with open(os.path.join(det_b, f"{i:06d}.txt")) as a, \
+                open(os.path.join(ref_dir, f"{i:06d}.txt")) as b:
+            if a.read() != b.read():
+                fail(f"entry detect bf16: {i:06d}.txt differs from detect_batch's labels")
+    out["detect_s_img"] = steady(text)
+    n_lines = sum(len(open(os.path.join(det_b, f)).read().splitlines())
+                  for f in os.listdir(det_b))
+    log(f"entry detect bf16: {secs:.2f} s for {ENTRY_IMAGES} images, launches {launches}; "
+        f"{held}; {n_lines} label lines equal to detect_batch's")
+
+    # -- (c) detect --int8 --int8-heads: 17 K4 launches an image (and the head
+    # calibration's 15 a calibration image), each held to its plain version.
+    # Two calibration images: the trunk's calibration takes each input blob's
+    # 99.9th percentile on the host, as JAX does (~2 s a full-size image)
+    n8 = 2
+    text, launches, sink, secs = run_cli(
+        "detect int8", "detect", "--zoo", FLAGSHIP_256, "--weights", snap, "--bf16",
+        "--int8", "--int8-heads", "--calib-images", n8, "--image-dir", img_dir,
+        "--iterations", n8, "--output-dir", os.path.join(root, "det_int8"),
+        expect={"int8_gemm": 17 * n8 + 15 * n8, "conv1_pool": 0})
+    held = hold_to_plain(sink, "entry detect int8", out)
+    del sink
+    torch.cuda.empty_cache()
+    out["detect8_s_img"] = steady(text)
+    log(f"entry detect int8: {secs:.2f} s for {n8} images ({n8} calibration images), "
+        f"launches {launches} = 17 x {n8} + 15 x {n8} (head calibration); {held}")
+
+    # -- (d) compile (bf16; int8 trunk + heads) at batch 4, detect --compiled;
+    # the artifacts against the eager forward on the same batch
+    arts = {}
+    for tag, extra in (("bf16", []), ("int8", ["--int8", "--int8-heads", "--calib-dir",
+                                               img_dir, "--calib-images", n8])):
+        arts[tag] = os.path.join(root, f"art_{tag}")
+        text, _, _, secs = run_cli(f"compile {tag}", "compile", "--zoo", FLAGSHIP_256,
+                                   "--weights", snap, "--bf16", "--batch", BATCH,
+                                   "-o", arts[tag], *extra)
+        out[f"compile_{tag}_s"] = secs
+    det_c = os.path.join(root, "det_compiled")
+    text, launches, sink, secs = run_cli(
+        "detect compiled", "detect", "--compiled", arts["bf16"], "--image-dir", img_dir,
+        "--output-dir", det_c, expect={"nms": 2 * ENTRY_IMAGES // BATCH,
+                                       "conv1_pool": ENTRY_IMAGES // BATCH})
+    held = hold_to_plain(sink, "entry detect compiled", out)
+    del sink
+    out["detect_compiled_s_img"] = steady(text)
+    log(f"entry detect --compiled: {secs:.2f} s for {ENTRY_IMAGES} images (load "
+        f"included), launches {launches}; {held}")
+
+    cfgs = {"bf16": cfg, "int8": dataclasses.replace(
+        cfg32, compute_dtype="bfloat16", int8_trunk=True, int8_roi_head=True)}
+    expect = {"bf16": {"nms": 2, "conv1_pool": 1, "int8_gemm": 0},
+              "int8": {"nms": 2, "conv1_pool": 0, "int8_gemm": 17}}
+    out["artifact"] = {}
+    for tag in ("bf16", "int8"):
+        t0 = time.perf_counter()
+        c = aot.load_deploy(arts[tag])
+        load_s = time.perf_counter() - t0
+        batch = c.inputs([c._prep(im) for im in decoded[:BATCH]])
+        eager = I.make_e2e_forward(c.params, cfgs[tag], spec)
+        want = eager(c.params, *batch)
+        sink = {"nms": [], "conv1": [], "int8": []}
+        rec(True, sink)
+        zero_counts()
+        got = c(*batch)
+        torch.cuda.synchronize()
+        launches = counts()
+        rec(False, sink)
+        if launches != {**expect[tag], "conv1_v5": 0}:
+            fail(f"entry artifact {tag}: launches {launches}, expected {expect[tag]}")
+        held = hold_to_plain(sink, f"entry artifact {tag}", out)
+        del sink
+        differ = same_outputs(f"entry artifact {tag}", got, want)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            c(*batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        # (e) the step: artifact against the eager forward, CUDA events
+        art_ms = cuda_ms(lambda: c(*batch))
+        eager_ms = cuda_ms(lambda: eager(c.params, *batch))
+        # the host's enqueue time of a call (no synchronise inside it), the
+        # median of 5, the two forwards in turns
+        enq = ([], [])
+        for _ in range(5):
+            for j, fn in enumerate((lambda: c(*batch), lambda: eager(c.params, *batch))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                enq[j].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        host = [statistics.median(e) for e in enq]
+        enq_ways = program_enqueue_ms(c, batch)
+        busy = trace_window(PROF, lambda: c(*batch), f"artifact_{tag}",
+                            f"two {tag} artifact calls", "the step ms is CUDA events")
+        out["artifact"][tag] = {
+            "launches": launches, "ms": art_ms, "eager_ms": eager_ms,
+            "img_s": BATCH * 1e3 / art_ms, "eager_img_s": BATCH * 1e3 / eager_ms,
+            "host_ms": host[0], "eager_host_ms": host[1], "enqueue_ms": enq_ways,
+            "busy": busy,
+            "differ": differ, "load_s": load_s, "kernel_ops": c.meta["kernel_ops"]}
+        log(f"entry artifact {tag}: loaded in {load_s:.2f} s, graph ops "
+            f"{c.meta['kernel_ops']}, launches {launches}; {held}; "
+            + ("bit-equal to the eager forward" if not differ else
+               f"{differ} values differ from the eager forward (within 1e-4)")
+            + f"; one call under sync debug mode 'error': no host sync; step "
+              f"{art_ms:.3f} ms (eager {eager_ms:.3f} ms, CUDA events, median of 5) = "
+              f"{BATCH * 1e3 / art_ms:.2f} img/s; host enqueue {host[0]:.2f} ms (eager "
+              f"{host[1]:.2f} ms, median of 5; the program alone, median of 20: module "
+              f"{enq_ways['module']:.2f} ms, input checks off "
+              f"{enq_ways['unchecked']:.2f} ms, graph on pre-flattened inputs "
+              f"{enq_ways['flat']:.2f} ms); busy share "
+            + (f"{busy:.4f}" if busy is not None else "not measured"))
+        if tag == "bf16":
+            compiled = c
+            bf16_batch = batch
+        else:
+            del c
+        del eager, want, got
+        torch.cuda.empty_cache()
+
+    # the op layer's host cost a call: the operator against its launch
+    # function called directly, on small inputs (host clock, 200 calls)
+    g = torch.Generator(device=dev).manual_seed(SEED + 33)
+    bx = torch.rand((4, 2000, 4), generator=g, device=dev) * 500
+    sc = torch.rand((4, 2000), generator=g, device=dev)
+    va = sc > 0.1
+    x1 = torch.randn((1, 16, 16, 3), generator=g, device=dev).bfloat16()
+    w1, b1 = params["conv1_1"]["w"], params["conv1_1"]["b"]
+    w2, b2 = params["conv1_2"]["w"], params["conv1_2"]["b"]
+    xq = torch.randint(-127, 128, (1, 8, 8, 64), generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (64, 3, 3, 64), generator=g, device=dev,
+                       dtype=torch.int8)
+    xs, ws = torch.tensor(0.01, device=dev), torch.full((64,), 0.01, device=dev)
+    pairs = {
+        "nms_xywh": (lambda: KO.nms_xywh(bx, sc, va, 0.65, "iou", 256),
+                     lambda: NK.nms_xywh_cuda(bx, sc, va, iou_thr=0.65, mode="iou",
+                                              max_out=256)),
+        "conv1_pool": (lambda: KO.conv1_pool(x1, w1, b1, w2, b2),
+                       lambda: CK.conv1_pool_cuda(x1, w1, b1, w2, b2)),
+        "int8_conv": (lambda: KO.int8_conv(xq, wq, xs, ws, None, [1, 1], torch.bfloat16,
+                                           True, [], []),
+                      lambda: IK.int8_conv_cuda(xq, wq, xs, ws, None, padding=(1, 1),
+                                                out_dtype=torch.bfloat16, relu=True)),
+    }
+    out["op_overhead_us"] = {}
+    for name, (op, direct) in pairs.items():
+        per = []
+        for fn in (op, direct, op, direct):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            per.append((t1 - t0) / 200 * 1e6)
+        op_us, direct_us = min(per[0], per[2]), min(per[1], per[3])
+        out["op_overhead_us"][name] = {"op_us": op_us, "direct_us": direct_us,
+                                       "overhead_us": op_us - direct_us}
+    log("entry op layer, host time a call (200 calls, best of 2): " + ", ".join(
+        f"{k} {v['op_us']:.1f} us through the operator, {v['direct_us']:.1f} us "
+        f"direct ({v['overhead_us']:+.1f} us)" for k, v in out["op_overhead_us"].items()))
+
+    # detect's steady s/img split: decode, resize (host), the batch-1 step
+    dec, rsz = [], []
+    for i in range(ENTRY_IMAGES):
+        t0 = time.perf_counter()
+        im = image_io.imread(os.path.join(img_dir, f"{i:06d}.png"))
+        t1 = time.perf_counter()
+        resize_bilinear_u8(im, (cfg.input_hw[1], cfg.input_hw[0]))
+        t2 = time.perf_counter()
+        dec.append((t1 - t0) * 1e3)
+        rsz.append((t2 - t1) * 1e3)
+    one = [t[:1] for t in bf16_batch]
+    e2e1 = I.make_e2e_forward(params, cfg, spec)
+    dev_ms = cuda_ms(lambda: e2e1(params, *one))
+    out["detect_split_ms"] = {"decode": statistics.median(dec),
+                              "resize": statistics.median(rsz), "device": dev_ms}
+    log(f"entry detect split (median, ms an image): decode {statistics.median(dec):.2f}"
+        f" (data/image_io.py PNG), resize {statistics.median(rsz):.2f} (data/resize.py "
+        f"to 768x2560), the batch-1 bf16 step {dev_ms:.3f} (CUDA events); the CLI's "
+        f"steady state {out['detect_s_img']} s/img bf16, {out['detect8_s_img']} s/img "
+        f"int8, {out['detect_compiled_s_img']} s/img from the batch-4 artifact")
+    del e2e1, one
+
+    # -- (f) serve the batch-4 artifact: 8 client threads, 16 PNG POSTs
+    boot, ready = {}, threading.Event()
+
+    def started(httpd):
+        boot["httpd"] = httpd
+        ready.set()
+
+    threading.Thread(target=SV.serve, args=(arts["bf16"], 0), kwargs={
+        "started": started, "linger_ms": 20.0}, daemon=True).start()
+    if not ready.wait(300):
+        fail("entry serve: the server did not start")
+    httpd = boot["httpd"]
+    port = httpd.server_address[1]
+    bodies = [open(os.path.join(img_dir, f"{i:06d}.png"), "rb").read()
+              for i in range(ENTRY_IMAGES)]
+
+    def post(body):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/detect", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    # the serving split: wall and thread-CPU ms of each part, on its thread
+    # (the handlers' PNG decode and response rows, the batcher's resize,
+    # input copy and whole dispatch); the program call and the copy back
+    # are the dispatch less the resize and the inputs
+    split = {k: [] for k in ("decode", "respond", "resize", "inputs", "dispatch")}
+
+    def timed(fn, key):
+        def wrapped(*a, **kw):
+            w0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return fn(*a, **kw)
+            finally:
+                split[key].append(((time.perf_counter() - w0) * 1e3,
+                                   (time.thread_time() - c0) * 1e3))
+        return wrapped
+
+    served_c = httpd.batcher.compiled
+    plain_fns = (image_io.imdecode, SV.detections_json)
+    image_io.imdecode = timed(image_io.imdecode, "decode")
+    SV.detections_json = timed(SV.detections_json, "respond")
+    for name, key in (("_prep", "resize"), ("inputs", "inputs"),
+                      ("detect_many", "dispatch")):
+        setattr(served_c, name, timed(getattr(served_c, name), key))
+    try:
+        post(bodies[0])   # warm-up
+        for v in split.values():
+            v.clear()
+        cpu0 = time.process_time()
+        before = (httpd.batcher.dispatches, httpd.batcher.served)
+        results, lat, errs = {}, [], []
+        barrier = threading.Barrier(8)
+
+        def client(k):
+            try:
+                barrier.wait()
+                for j in (k, (k + 4) % ENTRY_IMAGES):
+                    t0 = time.perf_counter()
+                    results[(k, j)] = post(bodies[j])
+                    lat.append((time.perf_counter() - t0) * 1e3)
+            except Exception as e:  # noqa: BLE001
+                errs.append((k, e))
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        wall = time.perf_counter() - t0
+        cpu = time.process_time() - cpu0
+        dispatches = httpd.batcher.dispatches - before[0]
+        served = httpd.batcher.served - before[1]
+    finally:
+        httpd.shutdown()
+        image_io.imdecode, SV.detections_json = plain_fns
+    if errs or len(results) != 16 or served != 16:
+        fail(f"entry serve: {len(results)} answers, {served} served, errors {errs[:2]}")
+    if dispatches >= 16:
+        fail(f"entry serve: {dispatches} device calls for 16 requests")
+    max_err = 0.0
+    for (k, j), res in results.items():
+        want = SV.detections_json(compiled.detect(decoded[j]))
+        if res["num"] != len(want) or [d["class_id"] for d in res["detections"]] != \
+                [d["class_id"] for d in want]:
+            fail(f"entry serve: request ({k}, {j}): {res['num']} detections, "
+                 f"compiled.detect {len(want)}")
+        for a, b in zip(res["detections"], want):
+            err = max([abs(a["score"] - b["score"])] +
+                      [abs(u - v) for u, v in zip(a["bbox"], b["bbox"])])
+            max_err = max(max_err, err)
+    if max_err > 1e-3:
+        fail(f"entry serve: answers differ from compiled.detect by {max_err}")
+    lat.sort()
+    sums = {k: (sum(w for w, _ in v), sum(c for _, c in v), len(v))
+            for k, v in split.items()}
+    program_s = (sums["dispatch"][0] - sums["resize"][0] - sums["inputs"][0]) / 1e3
+    out["serve"] = {"requests": 16, "dispatches": dispatches, "wall_s": wall,
+                    "img_s": 16 / wall, "p50_ms": statistics.median(lat),
+                    "p99_ms": lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)],
+                    "max_err": max_err, "process_cpu_s": cpu,
+                    "split_s": {k: {"wall": w / 1e3, "cpu": c / 1e3, "n": n}
+                                for k, (w, c, n) in sums.items()},
+                    "program_and_copy_s": program_s,
+                    "batcher_busy": sums["dispatch"][0] / 1e3 / wall}
+    log(f"entry serve split over the {wall:.2f} s window (wall / thread CPU, s; "
+        f"summed over calls): " + ", ".join(
+            f"{k} {w / 1e3:.3f} / {c / 1e3:.3f} ({n} calls)"
+            for k, (w, c, n) in sums.items())
+        + f"; the program and the copy back {program_s:.3f} (wall); the batcher "
+          f"busy {out['serve']['batcher_busy']:.3f} of the window; the process used "
+          f"{cpu:.2f} s of CPU ({cpu / wall:.2f} cores)")
+    log(f"entry serve: 16 POSTs from 8 threads in {dispatches} device calls, "
+        f"{16 / wall:.2f} img/s, latency p50 {out['serve']['p50_ms']:.1f} ms, p99 "
+        f"{out['serve']['p99_ms']:.1f} ms; every answer equals compiled.detect "
+        f"(max diff {max_err:.3g})")
+    del compiled
+    torch.cuda.empty_cache()
+
+    # -- (g) eval on (b)'s labels against the seeded ground truth
+    text, _, _, _ = run_cli("eval", "eval", "--gt-dir", gt_dir, "--result-dir", det_b,
+                            "--class-names", "car")
+    out["eval"] = json.loads(text.strip().splitlines()[-1])
+
+    # -- (h) time: the flagship in deploy geometry, bf16, batch 4
+    text, _, _, secs = run_cli("time", "time", "--zoo", "kitti_car/mscnn-8s-768-trainval",
+                               "--deploy", "--bf16", "--max-out", 256, "--batch-size",
+                               BATCH, "--iterations", 3)
+    out["time"] = {k: float(m.group(1)) for k, m in (
+        (k, re.search(rf"{re.escape(p)}: ([0-9.]+) ms", text)) for k, p in (
+            ("forward_ms", "Average Forward pass"),
+            ("fwd_bwd_update_ms", "Average Forward-Backward-Update"))) if m}
+    torch.cuda.empty_cache()
+
+    # -- (i) the KITTI cascade through compile --batch 1 and detect --compiled
+    gen = torch.Generator().manual_seed(SEED + 34)
+    ccfg32 = zoo.cascade_kitti_car_7s_576_2x(deploy=True)
+    pc = nonzero_biases(CC.init_params(gen, ccfg32, device=dev), SEED + 35)
+    csnap = CKPT.snapshot(os.path.join(root, "cascade"), {"params": pc, "solver": {
+        "it": torch.tensor(0, dtype=torch.int32)}}, 0)
+    art_c = os.path.join(root, "art_cascade")
+    run_cli("compile cascade", "compile", "--zoo", "kitti_car/cascade-mscnn-7s-576-2x",
+            "--weights", csnap, "--bf16", "--batch", 1, "-o", art_c)
+    det_cc = os.path.join(root, "det_cascade")
+    text, launches, sink, secs = run_cli(
+        "detect compiled cascade", "detect", "--compiled", art_c, "--image-dir", img_dir,
+        "--iterations", 2, "--output-dir", det_cc,
+        expect={"nms": 4, "conv1_pool": 2, "int8_gemm": 0})
+    held = hold_to_plain(sink, "entry cascade", out)
+    del sink
+    ccfg = dataclasses.replace(ccfg32, base=dataclasses.replace(
+        ccfg32.base, compute_dtype="bfloat16", pallas_conv1=True))
+    pcb = M.cast_params(pc, torch.bfloat16)
+    cc = aot.load_deploy(art_c)
+    differ = 0
+    for i in range(2):
+        want = I.detect_cascade(pcb, decoded[i], ccfg, spec)
+        got = cc.detect(decoded[i])
+        differ += same_outputs(f"entry cascade image {i}",
+                               {k: torch.from_numpy(got[k]) for k in want},
+                               {k: torch.from_numpy(v) for k, v in want.items()})
+        ref_dir = os.path.join(root, "ref_cascade")
+        I.write_kitti_labels(I.detections_to_kitti(want, names), ref_dir, i)
+        if not differ and open(os.path.join(det_cc, f"{i:06d}.txt")).read() != \
+                open(os.path.join(ref_dir, f"{i:06d}.txt")).read():
+            fail(f"entry cascade: {i:06d}.txt differs from detect_cascade's labels")
+    out["cascade"] = {"launches": launches, "differ": differ,
+                      "kernel_ops": cc.meta["kernel_ops"]}
+    log(f"entry cascade: compile --batch 1 + detect --compiled on 2 images, launches "
+        f"{launches}; {held}; " + ("bit-equal to detect_cascade, labels equal"
+                                   if not differ else f"{differ} values differ from "
+                                   "detect_cascade (within 1e-4)"))
+    del cc, pc, pcb, p32, params
+    torch.cuda.empty_cache()
+
+    # -- (j) nothing of jax, mscnn_tpu or cv2 was imported
+    if jax_loaded() or any(m == "cv2" or m.startswith("cv2.") for m in sys.modules):
+        fail("the deploy entry points imported jax, mscnn_tpu or cv2")
+    shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"entry: no jax, mscnn_tpu or cv2 module loaded; phase 16 took "
+        f"{out['seconds']:.1f} s")
+    return out
 
 
 def main():
@@ -2397,6 +3047,13 @@ def main():
     conv1_max_err = max(conv1_max_err, ct["k2_err"])
     conv1_min_share = min(conv1_min_share, ct["k2_share"])
 
+    # -- 16. the deploy entry points: detect, compile, the artifact, serve ------
+    ep = deploy_entry_points(dev, counts, zero_counts, PROF, rec_into)
+    nms_max_err = max(nms_max_err, ep["nms_err"])
+    conv1_max_err = max(conv1_max_err, ep["conv1_err"])
+    conv1_min_share = min(conv1_min_share, ep["conv1_share"])
+    int8_max_err = max(int8_max_err, ep["int8_err"])
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -2418,10 +3075,27 @@ def main():
             f" ms of the split's {sum(f['split'].values()):.3f}, peak {f['peak_gib']:.2f} "
             f"GiB, busy share " + (f"{f['busy']:.4f}" if f["busy"] is not None
                                    else "not measured"))
+    for tag, f in ep["artifact"].items():
+        log(f"entry artifact {tag} on {card}: step {f['ms']:.3f} ms (eager "
+            f"{f['eager_ms']:.3f} ms) = {f['img_s']:.2f} img/s (eager "
+            f"{f['eager_img_s']:.2f}), host enqueue {f['host_ms']:.2f} ms (eager "
+            f"{f['eager_host_ms']:.2f}), busy share "
+            + (f"{f['busy']:.4f}" if f["busy"] is not None else "not measured"))
+    sv = ep["serve"]
+    log(f"entry serve on {card}: {sv['img_s']:.2f} img/s, p50 {sv['p50_ms']:.1f} ms, "
+        f"p99 {sv['p99_ms']:.1f} ms, {sv['dispatches']} device calls for 16 requests; "
+        f"detect split {ep['detect_split_ms']}; time {ep['time']}; eval {ep['eval']}")
     log(f"cascade train on {card}: iteration {ct['iter_ms']:.2f} ms (median), input "
         f"wait {ct['wait_ms']:.2f} ms a step = {ct['wait_share']:.4f} of the "
         f"iteration, peak {ct['peak_gib']:.2f} GiB, busy share "
         + (f"{ct['busy']:.4f}" if ct["busy"] is not None else "not measured"))
+
+    def entry_launches(k):
+        """The kernel's launches in each run of phase 16 (the CLI runs, the
+        loaded artifacts' checked calls)."""
+        return {**{tag: v[k] for tag, v in ep["launches"].items()},
+                **{f"artifact {tag}": v["launches"][k]
+                   for tag, v in ep["artifact"].items()}}
 
     kernels = [
         {"name": "nms_xywh", "route": "cuda",
@@ -2442,6 +3116,8 @@ def main():
                               "int8": cd["launches8"]["nms"],
                               "widerface_align": cd["launches_wf"]["nms"],
                               "train2": ct["launches"]["nms"]},
+         "launches_entry_points": entry_launches("nms"),
+         "op": "mscnn::nms_xywh", "op_overhead_us": ep["op_overhead_us"]["nms_xywh"],
          "train": {tag: {"shape": [BATCH, fcfg.proposal.max_nms_num,
                                    fcfg.proposal.max_out], "kept": v[4],
                          "ms": v[0], "plain_ms": v[1], "device_ms": v[2],
@@ -2462,6 +3138,8 @@ def main():
                               "int8": cd["launches8"]["conv1_pool"],
                               "widerface_align": cd["launches_wf"]["conv1_pool"],
                               "train2": ct["launches"]["conv1_pool"]},
+         "launches_entry_points": entry_launches("conv1_pool"),
+         "op": "mscnn::conv1_pool", "op_overhead_us": ep["op_overhead_us"]["conv1_pool"],
          "train_entry_min_bit_equal_share": tr["k2_share"],
          "launches_train_pallas_tiny": k2_train_launches,
          "backward": "autograd, plain ops",
@@ -2482,6 +3160,8 @@ def main():
                               "int8": cd["launches8"]["int8_gemm"],
                               "widerface_align": cd["launches_wf"]["int8_gemm"],
                               "train2": ct["launches"]["int8_gemm"]},
+         "launches_entry_points": entry_launches("int8_gemm"),
+         "op": "mscnn::int8_conv", "op_overhead_us": ep["op_overhead_us"]["int8_conv"],
          "per_step": "sum of the 17 launches of one int8 deploy step; no one "
                      "PyTorch call computes an int8 conv with its epilogue, "
                      "torch._int_mm computes the raw int32 product at the "

@@ -1,23 +1,39 @@
-"""Command-line interface: `caffe train` and the two-step `train2`.
+"""Command-line interface: the `caffe <command>` equivalent.
 
-Ports the training half of `mscnn_tpu/cli.py` (`_apply_conv1`,
-`_build_training`, `cmd_train`, `cmd_train2`, `_add_common`, `main`,
-cli.py:24-230, :1276-1301), for the MS-CNN nets (VGG16 trunk, LFCN
-heads, BoxOutput, ROI head) that the reference's model zoo trains:
+Ports `mscnn_tpu/cli.py`: `train` and the two-step `train2`
+(`_apply_conv1`, `_build_training`, cli.py:24-230), the deploy commands
+`test`, `time`, `detect`, `parity`, `eval`, `export`, `compile`, `serve`
+and `device_query` (`cmd_test` :233, `cmd_time` :337, `_int8_quantize`
+:489, `_int8_quantize_heads` :530, `cmd_detect` :546, `cmd_parity` :792,
+`cmd_eval` :879, `cmd_export` :939, `cmd_compile` :973, `cmd_serve` :1044,
+`cmd_device_query` :1269), `_add_common` and `main` (:1276-1589), for the
+MS-CNN nets (VGG16 trunk, LFCN heads, BoxOutput, ROI head) and the
+cascades the reference's model zoo ships:
 
-    python -m mscnn_torch.cli train --solver solver_2nd.prototxt
     python -m mscnn_torch.cli train2 --solver1 solver_1st.prototxt \\
         --solver2 solver_2nd.prototxt --bf16 --uint8-input
+    python -m mscnn_torch.cli detect --zoo kitti_car/mscnn-8s-768-trainval \\
+        --weights w.caffemodel --bf16 --image-dir image_2 --output-dir out
+    python -m mscnn_torch.cli compile --bf16 --batch 4 -o artifact
+    python -m mscnn_torch.cli serve --compiled artifact --port 8437
 
-It runs on the card unless `--device cpu` asks for the CPU; with no card
-and no such request it raises. `--conv1 auto` picks the fused conv1
-kernel (`pallas_conv1`, K2) on a card at bf16 unless `--int8` is set, as
-the JAX CLI picks its Pallas kernel on a TPU. A cascade trainval (more
-than one TRAIN ProposalTarget) trains the cascade (`models/cascade.py`),
-with `--bf16` and `--conv1` applied to it too. Not ported, each raising
-where the JAX CLI would take it: the generic-prototxt branch (ROADMAP
-Queue 1 item 17), `--devices > 1` (item 20), the C++ data loader and
-record shards (item 14c); the other subcommands are item 18.
+Every command runs on the card unless `--device cpu` asks for the CPU;
+with no card and no such request it raises. `--conv1 auto` picks the
+fused conv1 kernel (`pallas_conv1`, K2) on a card at bf16 unless `--int8`
+is set, as the JAX CLI picks its Pallas kernel on a TPU. A cascade
+prototxt or zoo entry routes to the cascade (`models/cascade.py`), with
+`--bf16` and `--conv1` applied to it too. Images are decoded by
+`data/image_io.py` (PNG, PPM and PGM without cv2) and resized by
+`data/resize.py` (cv2's INTER_LINEAR, bit for bit). An artifact from
+`compile` is a `torch.export` program (`io/aot.py`) and runs on the device
+type it was exported on.
+
+Not ported, each exiting or raising where the JAX CLI would take it: the
+generic-prototxt branch and `time --layers` (ROADMAP Queue 1 item 17),
+`--devices > 1` (item 20), the C++ data loader and record shards (item
+14c), and the tools commands (`resize_images`, `summary`, `plot_log`,
+`upgrade_*_proto`, `draw`, `convert_imageset`, `vbb2bbgt`, `compute_mean`,
+`extract_features`; item 18).
 """
 
 from __future__ import annotations
@@ -25,9 +41,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import json
 import os
 import sys
+import time as _time
 
+import numpy as np
 import torch
 
 
@@ -186,6 +205,681 @@ def cmd_train2(args):
     return cmd_train(a2)
 
 
+def _no_devices(args):
+    if int(getattr(args, "devices", 1) or 1) > 1:
+        raise SystemExit("--devices > 1 is data-parallel serving, not ported yet "
+                         "(ROADMAP Queue 1 item 20)")
+
+
+def _seed_params(cfg, ccfg, dev):
+    """Seed-0 params of the model (the cascade's with ccfg), on dev."""
+    from mscnn_torch.models import cascade as CC
+    from mscnn_torch.models import mscnn as M
+
+    gen = torch.Generator().manual_seed(0)
+    if ccfg is not None:
+        return CC.init_params(gen, ccfg, device=dev)
+    return M.init_params(gen, cfg, device=dev)
+
+
+def _deploy_model(args, dev, default_zoo):
+    """(cfg, ccfg or None, params) of --model / --zoo in deploy geometry,
+    with --bf16 and --conv1 applied and --weights restored."""
+    from mscnn_torch.config import zoo_import as Z
+    from mscnn_torch.io import checkpoint as CKPT
+    from mscnn_torch.models import zoo
+    from mscnn_torch.models.cascade import CascadeConfig
+
+    if args.model:
+        cfg = Z.deploy_model_from_prototxt(args.model)
+    else:
+        cfg = zoo.get(args.zoo or default_zoo, deploy=True)
+    ccfg = cfg if isinstance(cfg, CascadeConfig) else None
+    if ccfg is not None:
+        cfg = ccfg.base
+    if args.bf16:
+        cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    cfg = _apply_conv1(cfg, args, dev)
+    if ccfg is not None:
+        ccfg = dataclasses.replace(ccfg, base=cfg)
+    params = _seed_params(cfg, ccfg, dev)
+    if args.weights:
+        params = CKPT.restore_params(args.weights, params)
+    return cfg, ccfg, params
+
+
+def _cast_once(params, cfg):
+    """At bf16 the float weights cast once, after any int8 calibration
+    (which quantizes the float32 weights, as JAX does): the same values
+    the forward would cast to on every call."""
+    from mscnn_torch.models import mscnn as M
+
+    if cfg.compute_dtype != "bfloat16":
+        return params
+    return M.cast_params(params, torch.bfloat16)
+
+
+def cmd_test(args):
+    """Forward-only metric evaluation over --iterations batches (the
+    prototxt's TEST-phase data / sampling parameters by default)."""
+    from mscnn_torch.train import loop as LP
+    from mscnn_torch.train import train_step as T
+
+    state, _, make_batch_source, lspec, cfg, tspec = \
+        _build_training(args, args.solver)
+    dev = _device(args)
+    eval_step = T.make_eval_step(cfg, tspec)
+    n = args.iterations or lspec.test_iter or 50
+    with make_batch_source() as src:
+        out = LP.test_eval(
+            eval_step, state["params"], (src.get() for _ in range(n)),
+            lambda i: LP.iteration_generator(args.seed, i, dev))
+    print(json.dumps({k: round(v, 6) for k, v in out.items()}))
+    return 0
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def cmd_time(args):
+    """Per-stage wall times (the `caffe time` analog): forward, and
+    forward + backward + update; --stages adds a per-stage table with
+    FLOPs (utils/profiling.py::cost_flops) and MFU."""
+    from mscnn_torch import inference as I
+    from mscnn_torch.config import zoo_import as Z
+    from mscnn_torch.data.synthetic import make_batch
+    from mscnn_torch.models import cascade as CC
+    from mscnn_torch.models import mscnn as M
+    from mscnn_torch.models import zoo
+    from mscnn_torch.train import solver as S
+    from mscnn_torch.train import train_step as T
+    from mscnn_torch.utils import profiling as PROF
+
+    if getattr(args, "layers", False):
+        print("time --layers runs each layer of a prototxt net through the "
+              "generic net builder, which is not ported yet (ROADMAP Queue 1 "
+              "item 17)")
+        return 1
+    if args.int8_heads and not args.int8:
+        print("--int8-heads extends the int8 trunk; pass --int8 too")
+        return 1
+    _no_devices(args)
+    dev = _device(args)
+    ccfg = None
+    if args.model:
+        cfg, tspec, _, _, _ = Z.model_from_prototxt(args.model)
+    else:
+        kwargs = {"deploy": True} if args.deploy else {}
+        cfg = zoo.get(args.zoo or "kitti_car/mscnn-7s-576-2x", **kwargs)
+        tspec = T.TrainSpec()
+    if isinstance(cfg, CC.CascadeConfig):
+        ccfg, cfg = cfg, cfg.base
+    if args.input_hw:
+        cfg = dataclasses.replace(cfg, input_hw=tuple(args.input_hw))
+    if args.max_out:
+        # post-NMS roi capacity: every ROI-stage cost is linear in it
+        cfg = dataclasses.replace(cfg, proposal=dataclasses.replace(
+            cfg.proposal, max_out=int(args.max_out)))
+    if args.bf16:
+        cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    cfg = _apply_conv1(cfg, args, dev)
+    if ccfg is not None:
+        ccfg = dataclasses.replace(ccfg, base=cfg)
+    b = args.batch_size or 4
+    h, w = cfg.input_hw
+
+    sspec = S.SolverSpec()
+    params = _seed_params(cfg, ccfg, dev)
+    if args.int8:
+        # timing-only PTQ: scales calibrated from synthetic images (the
+        # numerics are covered by the synthetic e2e examples; the timing
+        # is the same for any scale values); the train step keeps the
+        # compute dtype (PTQ is deploy-only)
+        from mscnn_torch.ops import quant as Q
+        cal = np.random.RandomState(0).rand(2, h, w, 3).astype(np.float32) \
+            * 150.0 - 75.0
+        scales = Q.calibrate_trunk_scales(
+            params, cfg, cal, include_conv1=not (cfg.pallas_conv1 or cfg.s2d_conv1))
+        params = Q.quantize_trunk(params, scales)
+        cfg = dataclasses.replace(cfg, int8_trunk=True)
+        if args.int8_heads:
+            params, cfg = _int8_quantize_heads(params, cfg, cal, ccfg=ccfg)
+        if ccfg is not None:
+            ccfg = dataclasses.replace(ccfg, base=cfg)
+    if ccfg is not None:
+        fwd = I.make_cascade_forward(params, ccfg)
+        step = T.make_train_step(
+            cfg, tspec, sspec, loss_function=functools.partial(
+                _cascade_objective, ccfg=ccfg, roi_batch=tspec.roi_batch))
+    else:
+        fwd = I.make_forward(params, cfg)
+        step = T.make_train_step(cfg, tspec, sspec)
+
+    batch = make_batch(cfg, batch=b, device=dev)
+    images = batch["image"]
+    state = {"params": params, "solver": S.init_state(params, sspec)}
+
+    def bench(fn, *fargs, iters=args.iterations or 10):
+        fn(*fargs)          # warm-up (kernel builds, caches)
+        _sync(dev)
+        t0 = _time.perf_counter()
+        for _ in range(iters):
+            fn(*fargs)
+        _sync(dev)
+        return (_time.perf_counter() - t0) / iters * 1e3
+
+    fwd_ms = bench(fwd, params, images)
+    print(f"Average Forward pass: {fwd_ms:.2f} ms ({b} images)")
+    if args.int8:
+        print(f"Throughput: {b / (fwd_ms / 1e3):.2f} infer img/s "
+              "(int8: train timing skipped)")
+    else:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        step_ms = bench(lambda st: step(st, batch, generator=gen), state)
+        print(f"Average Forward-Backward-Update: {step_ms:.2f} ms")
+        print(f"Throughput: {b / (step_ms / 1e3):.2f} train img/s, "
+              f"{b / (fwd_ms / 1e3):.2f} infer img/s")
+
+    if args.stages:
+        def trunk(p, x):
+            with torch.inference_mode():
+                return M.trunk(p, x, cfg)
+
+        stages = {"full_deploy": fwd} if ccfg is not None else \
+            {"trunk": trunk, "full_deploy": fwd}
+        peak = PROF.peak_flops(dev)
+        print(f"{'stage':<14}{'ms/img':>10}{'GFLOP':>10}{'MFU':>8}")
+        rows = {}
+        for name, fn in stages.items():
+            fl = PROF.cost_flops(fn, params, images)
+            fl = fl / b if fl else None
+            ms = bench(fn, params, images, iters=30) / b
+            rows[name] = (ms, fl)
+            util = (fl / (ms / 1e3) / peak) if (fl and peak) else None
+            print(f"{name:<14}{ms:>10.2f}{(fl or 0) / 1e9:>10.1f}"
+                  f"{('%.1f%%' % (100 * util)) if util else '   n/a':>8}")
+        (t_ms, t_fl), (f_ms, f_fl) = rows.get("trunk", (None, None)), \
+            rows["full_deploy"]
+        if f_fl and t_fl:
+            ms, fl = f_ms - t_ms, f_fl - t_fl
+            util = fl / (ms / 1e3) / peak if (ms > 0 and peak) else None
+            print(f"{'heads+nms+roi':<14}{ms:>10.2f}{fl / 1e9:>10.1f}"
+                  f"{('%.1f%%' % (100 * util)) if util else '   n/a':>8}")
+    return 0
+
+
+def _read_image(path):
+    """The decoded image, or None where the file does not decode (as
+    cv2.imread returns None); a format that needs cv2 without it raises."""
+    from mscnn_torch.data import image_io
+
+    try:
+        return image_io.imread(path)
+    except (FileNotFoundError, ValueError):
+        return None
+
+
+def _image_paths(image_dir, recursive=False):
+    import glob
+
+    if recursive:
+        return sorted(glob.glob(os.path.join(image_dir, "**", "*.png"), recursive=True)
+                      + glob.glob(os.path.join(image_dir, "**", "*.jpg"), recursive=True))
+    return sorted(glob.glob(os.path.join(image_dir, "*.png"))
+                  + glob.glob(os.path.join(image_dir, "*.jpg")))
+
+
+def _int8_quantize(params, cfg, image_dir, ncal, *, ccfg=None, heads=False):
+    """PTQ int8 trunk calibration from the first images of a directory.
+    Returns (params, cfg) or None when no image is readable. With
+    heads=True, also calibrates and quantizes the ROI-head matmuls
+    (roi_c1 / fc6 with the cascade suffixes) on the int8 trunk."""
+    from mscnn_torch.data.resize import resize_bilinear_u8
+    from mscnn_torch.ops import quant as Q
+
+    net_h, net_w = cfg.input_hw
+    mean = np.asarray([104.0, 117.0, 123.0], np.float32)
+    cals = []
+    for p in _image_paths(image_dir)[:ncal]:
+        im = _read_image(p)
+        if im is None:
+            continue
+        cals.append(resize_bilinear_u8(im, (net_w, net_h)).astype(np.float32) - mean)
+    if not cals:
+        return None
+    scales = Q.calibrate_trunk_scales(
+        params, cfg, np.stack(cals),
+        include_conv1=not (cfg.pallas_conv1 or cfg.s2d_conv1))
+    params = Q.quantize_trunk(params, scales)
+    cfg = dataclasses.replace(cfg, int8_trunk=True)
+    print(f"int8 trunk: calibrated {len(scales)} layers from {len(cals)} images")
+    if heads:
+        params, cfg = _int8_quantize_heads(params, cfg, np.stack(cals), ccfg=ccfg)
+    return params, cfg
+
+
+def _int8_quantize_heads(params, cfg, cal_images, *, ccfg=None):
+    """ROI-head PTQ on top of an (already quantized) trunk: run the deploy
+    graph capturing the roi_c1 / fc6 input maxima, quantize those matmuls,
+    and set int8_roi_head."""
+    from mscnn_torch.ops import quant as Q
+
+    hccfg = dataclasses.replace(ccfg, base=cfg) if ccfg is not None else None
+    hscales = Q.calibrate_roi_head_scales(params, cfg, cal_images, ccfg=hccfg)
+    params = Q.quantize_roi_heads(params, hscales)
+    cfg = dataclasses.replace(cfg, int8_roi_head=True)
+    print(f"int8 ROI heads: calibrated {len(hscales)} matmuls")
+    return params, cfg
+
+
+def cmd_detect(args):
+    """Batch detection over an image directory -> KITTI label files (the
+    run_mscnn_detection.m + writeDetForEval.m pipeline), or the caltech /
+    widerface layouts."""
+    import collections
+    import concurrent.futures as _cf
+    import itertools
+
+    from mscnn_torch import inference as I
+
+    if args.int8_heads and not args.int8 and not args.compiled:
+        print("--int8-heads extends the int8 trunk; pass --int8 too")
+        return 1
+    _no_devices(args)
+    dev = _device(args)
+    compiled = None
+    if args.compiled:
+        # the artifact holds program + weights + DetectSpec; the model,
+        # weights and precision flags were fixed when it was compiled
+        from mscnn_torch.io import aot
+        compiled = aot.load_deploy(args.compiled, device=dev)
+        num_classes = int(compiled.meta["num_classes"])
+        ignored = [f for f, on in (
+            ("--model", args.model), ("--zoo", args.zoo),
+            ("--weights", args.weights), ("--bf16", args.bf16),
+            ("--int8", args.int8), ("--int8-heads", args.int8_heads),
+            ("--conv1", args.conv1 != "auto"),
+            ("--score-thr", bool(args.score_thr))) if on]
+        if ignored:
+            print(f"note: {', '.join(ignored)} ignored -- the artifact fixes "
+                  "model/weights/precision/DetectSpec at compile time; "
+                  "recompile with `compile` to change them")
+    else:
+        cfg, ccfg, params = _deploy_model(args, dev, "kitti_car/mscnn-7s-576-2x")
+        num_classes = cfg.num_classes
+        if args.int8:
+            quantized = _int8_quantize(
+                params, cfg, args.image_dir, max(int(args.calib_images or 4), 1),
+                ccfg=ccfg, heads=args.int8_heads)
+            if quantized is None:
+                print("no readable calibration images")
+                return 1
+            params, cfg = quantized
+            if ccfg is not None:
+                ccfg = dataclasses.replace(ccfg, base=cfg)
+        params = _cast_once(params, cfg)
+
+    names = args.class_names.split(",") if args.class_names else \
+        I.KITTI_CLASS_NAMES["kitti_car"][:num_classes]
+    spec = I.DetectSpec(score_thr=args.score_thr)
+    group_size = 1
+    if compiled is not None:
+        if compiled.batch > 1:
+            # throughput artifact: grouped, padded batch calls
+            group_size = compiled.batch
+            run_detect_batch = compiled.detect_many
+        else:
+            run_detect = compiled.detect
+    elif ccfg is not None:
+        def run_detect(img):
+            return I.detect_cascade(params, img, ccfg, spec)
+    else:
+        # the single-call serving graph: uint8 transfer, decode on device
+        fwd = I.make_e2e_forward(params, cfg, spec)
+
+        def run_detect(img):
+            return I.detect(params, img, cfg, spec, e2e_fwd=fwd)
+
+    fmt = args.format
+    # the widerface layout nests images under event dirs
+    paths = _image_paths(args.image_dir, recursive=fmt == "widerface")
+    if args.iterations:
+        paths = paths[:args.iterations]
+    buffered = {}   # i -> (path, det) for the whole-set writers below
+
+    # decode on worker threads so host IO overlaps device compute
+    depth = max(int(args.loader_threads or 2), 1)
+    pool = _cf.ThreadPoolExecutor(max_workers=depth)
+    path_iter = iter(paths)
+    pending = collections.deque((p, pool.submit(_read_image, p))
+                                for p in itertools.islice(path_iter, depth + 2))
+    done = {"n": 0, "t_first": None}
+
+    def write_one(i, path, det):
+        done["n"] += 1
+        if done["n"] == 1:
+            done["t_first"] = _time.perf_counter()   # the first call builds
+        if fmt != "kitti":
+            buffered[i] = (path, det)
+        else:
+            stem = os.path.splitext(os.path.basename(path))[0]
+            try:
+                img_idx = int(stem)
+            except ValueError:
+                img_idx = i
+            I.write_kitti_labels(I.detections_to_kitti(det, names),
+                                 args.output_dir, img_idx)
+        if (i + 1) % 100 == 0:
+            avg = (_time.perf_counter() - t0) / (i + 1)
+            print(f"idx {i + 1}/{len(paths)}, avgtime={avg:.4f}s")
+
+    t0 = _time.perf_counter()
+    i = -1
+    group = []   # (i, path, img) for the batched artifact
+
+    def flush_group():
+        dets = run_detect_batch([g[2] for g in group])
+        for (gi, gpath, _), det in zip(group, dets):
+            write_one(gi, gpath, det)
+        group.clear()
+
+    try:
+        while pending:
+            i += 1
+            path, fut = pending.popleft()
+            img = fut.result()
+            nxt = next(path_iter, None)
+            if nxt is not None:
+                pending.append((nxt, pool.submit(_read_image, nxt)))
+            if img is None:
+                print(f"skipping unreadable image {path}")
+                continue
+            if group_size > 1:
+                group.append((i, path, img))
+                if len(group) == group_size:
+                    flush_group()
+            else:
+                write_one(i, path, run_detect(img))
+        if group:   # the tail (detect_many pads it)
+            flush_group()
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
+
+    comp_id = args.comp_id or "mscnn"
+    if fmt == "caltech":
+        # one flat imgIdx,x,y,w,h,score file a class
+        # (run_mscnn_detection.m:159-167; images keep the paths' order)
+        from mscnn_torch.evaluation import caltech_eval as CE
+        os.makedirs(args.output_dir, exist_ok=True)
+        for k, name in enumerate(names):
+            if k == 0:
+                continue  # background
+            per_img = [I.detections_to_xywh(buffered[j][1], cls_id=k)
+                       if j in buffered else np.zeros((0, 5))
+                       for j in range(len(paths))]
+            CE.write_detections(os.path.join(args.output_dir,
+                                             f"{comp_id}_{name}.txt"), per_img)
+    elif fmt == "widerface":
+        # per-event dirs of per-image txts (run_mscnn_detection.m:173-199);
+        # the event is the image's directory relative to --image-dir
+        from mscnn_torch.evaluation import widerface_eval as WE
+        events = {}
+        for j in range(len(paths)):
+            if j not in buffered:
+                continue
+            path, det = buffered[j]
+            rel = os.path.relpath(os.path.dirname(path), args.image_dir)
+            event = "event0" if rel == "." else rel
+            stem = os.path.splitext(os.path.basename(path))[0]
+            events.setdefault(event, {})[stem] = I.detections_to_xywh(det, cls_id=1)
+        WE.write_detections(args.output_dir, comp_id, events)
+
+    n = max(len(paths), 1)
+    end = _time.perf_counter()
+    msg = f"Done: {len(paths)} images, {(end - t0) / n:.4f} s/img"
+    if done["n"] > 1 and done["t_first"] is not None:
+        steady = (end - done["t_first"]) / (done["n"] - 1)
+        msg += f" ({steady:.4f} s/img steady-state; the first call builds)"
+    print(msg + f", labels in {args.output_dir}")
+    return 0
+
+
+def cmd_parity(args):
+    """One-shot AP-parity harness against the pretrained reference model:
+    .caffemodel import -> detect over the KITTI val split -> official
+    KITTI AP -> a +-tolerance verdict against the expected AP (the
+    run_mscnn_detection.m:24-162 flow, then evaluate_object.cpp)."""
+    import glob
+    import tempfile
+
+    from mscnn_torch.evaluation import kitti_eval as KE
+
+    root = args.kitti_root
+    img_dir = next((d for d in (os.path.join(root, "training", "image_2"),
+                                os.path.join(root, "image_2"),
+                                os.path.join(root, "images"), root)
+                    if glob.glob(os.path.join(d, "*.png"))
+                    or glob.glob(os.path.join(d, "*.jpg"))), None)
+    gt_dir = next((d for d in (os.path.join(root, "training", "label_2"),
+                               os.path.join(root, "label_2"),
+                               os.path.join(root, "labels"), root)
+                   if glob.glob(os.path.join(d, "*.txt"))), None)
+    if img_dir is None or gt_dir is None:
+        print(f"no images/labels under {root!r} (expected KITTI devkit "
+              f"layout: training/image_2 + training/label_2)")
+        return 1
+    if args.image_set:
+        ids = [int(l) for l in open(args.image_set).read().split()]
+        subset = tempfile.mkdtemp(prefix="mscnn_parity_")
+        for i in ids:
+            for ext in (".png", ".jpg"):
+                src = os.path.join(img_dir, f"{i:06d}{ext}")
+                if os.path.exists(src):
+                    os.symlink(src, os.path.join(subset, f"{i:06d}{ext}"))
+        img_dir = subset
+
+    out_dir = args.output_dir or tempfile.mkdtemp(prefix="mscnn_parity_out_")
+    det = argparse.Namespace(
+        model=args.model, zoo=args.zoo, weights=args.weights, bf16=args.bf16,
+        conv1=args.conv1, image_dir=img_dir, output_dir=out_dir,
+        class_names=args.class_names, score_thr=0.0, loader_threads=2,
+        iterations=args.iterations, devices=args.devices, device=args.device,
+        int8=False, int8_heads=False, calib_images=4, compiled=None,
+        format="kitti", comp_id="mscnn")
+    rc = cmd_detect(det)
+    if rc:
+        return rc
+
+    ids = sorted(int(os.path.splitext(os.path.basename(p))[0])
+                 for p in glob.glob(os.path.join(out_dir, "*.txt"))
+                 if os.path.exists(os.path.join(gt_dir, os.path.basename(p))))
+    if not ids:
+        print("no detection/gt id overlap to score")
+        return 1
+    classes = (args.class_names or "bg,car").lower().split(",")
+    classes = [c for c in classes if c != "bg"][:1] if args.cls is None \
+        else [args.cls.lower()]
+    table = KE.evaluate(gt_dir, out_dir, ids, classes=classes)
+    cls = classes[0]
+    ap = table[cls]["moderate"]
+    delta = ap - args.expected_ap
+    verdict = "PASS" if delta >= -args.tolerance else "FAIL"
+    print(json.dumps({
+        "class": cls,
+        "ap": {k: round(v, 2) for k, v in table[cls].items()},
+        "moderate_ap": round(ap, 2),
+        "expected_ap": args.expected_ap,
+        "delta": round(delta, 2),
+        "tolerance": args.tolerance,
+        "images": len(ids),
+        "verdict": verdict,
+    }))
+    print(f"KITTI {cls} moderate AP {ap:.2f} vs reference "
+          f"{args.expected_ap:.2f} ({delta:+.2f} pt, tol "
+          f"+-{args.tolerance}) -> {verdict}")
+    return 0 if verdict == "PASS" else 2
+
+
+def cmd_eval(args):
+    """Detection scoring: KITTI AP (default), caltech MR-2 or widerface AP,
+    the three protocols of the reference's zoo (KITTI's
+    evaluate_object.cpp; the caltech and widerface toolboxes,
+    reimplemented)."""
+    dataset = args.dataset
+    required = {"kitti": ("gt_dir", "result_dir"),
+                "caltech": ("gt_dir", "result_file"),
+                "widerface": ("result_dir",)}[dataset]
+    missing = [f"--{r.replace('_', '-')}" for r in required
+               if not getattr(args, r, None)]
+    if dataset == "widerface" and not (args.gt_file or args.gt_mat):
+        missing.append("--gt-file or --gt-mat")
+    if missing:
+        raise SystemExit(f"eval --dataset {dataset} requires {' '.join(missing)}")
+    if dataset == "caltech":
+        from mscnn_torch.evaluation import caltech_eval as CE
+
+        setting = CE.REASONABLE if args.setting == "reasonable" else CE.ALL
+        out = CE.evaluate_dirs(args.gt_dir, args.result_file, setting=setting)
+        print(json.dumps({"mr2": round(out["mr2"], 4),
+                          "n_images": out["n_images"],
+                          "n_pos": out["n_pos"]}))
+        return 0
+    if dataset == "widerface":
+        from mscnn_torch.evaluation import widerface_eval as WE
+
+        keep = None
+        if args.gt_mat:
+            # the official devkit split (+ the curated difficulty keep lists)
+            gts, keep = WE.load_split_mat(args.gt_mat, args.difficulty_mat)
+        else:
+            gts = WE.parse_gt(args.gt_file)
+        out = WE.evaluate(WE.read_detections(args.result_dir), gts, keep=keep)
+        print(json.dumps({"ap": round(out["ap"], 4), "n_gt": out["n_gt"]}))
+        return 0
+
+    import glob
+
+    from mscnn_torch.evaluation import kitti_eval as KE
+
+    if args.image_set:
+        ids = [int(l) for l in open(args.image_set).read().split()]
+    else:
+        ids = sorted(int(os.path.splitext(os.path.basename(p))[0])
+                     for p in glob.glob(os.path.join(args.gt_dir, "*.txt")))
+    classes = (args.class_names or "car").split(",")
+    out = KE.evaluate(args.gt_dir, args.result_dir, ids, classes=classes,
+                      stats_dir=args.stats_dir)
+    print(json.dumps({c: {k: round(v, 2) for k, v in d.items()}
+                      for c, d in out.items()}))
+    return 0
+
+
+def cmd_export(args):
+    """Export params to the reference's .caffemodel wire format
+    (NetParameter binaryproto, net.cpp:856-866)."""
+    from mscnn_torch.config import zoo_import as Z
+    from mscnn_torch.io import caffemodel as CM
+    from mscnn_torch.io import checkpoint as CKPT
+    from mscnn_torch.models import zoo
+    from mscnn_torch.models.cascade import CascadeConfig
+
+    dev = _device(args)
+    if args.model:
+        # a deploy prototxt if it has Input dims, else a trainval net
+        try:
+            cfg = Z.deploy_model_from_prototxt(args.model)
+        except ValueError:
+            if Z.is_cascade_prototxt(args.model):
+                cfg = Z.cascade_from_prototxt(args.model)[0]
+            else:
+                cfg = Z.model_from_prototxt(args.model)[0]
+    else:
+        cfg = zoo.get(args.zoo or "kitti_car/mscnn-8s-768-trainval", deploy=True)
+    ccfg = cfg if isinstance(cfg, CascadeConfig) else None
+    params = _seed_params(cfg if ccfg is None else ccfg.base, ccfg, dev)
+    if args.weights:
+        params = CKPT.restore_params(args.weights, params)
+    # the layers in name order, as the JAX CLI writes them (its
+    # `jax.device_get` rebuilds the params dict with sorted keys)
+    n = CM.save_caffemodel(dict(sorted(params.items())), args.output)
+    print(f"Wrote {n} layers to {args.output}")
+    return 0
+
+
+def cmd_compile(args):
+    """Compile the deploy serving graph to an artifact directory
+    (`io/aot.py`): a `torch.export` program + weights + metadata, the
+    analog of shipping mscnn_deploy.prototxt + .caffemodel to a serving
+    host (run_mscnn_detection.m:24-27), except that the host needs no model
+    code."""
+    from mscnn_torch import inference as I
+    from mscnn_torch.io import aot
+
+    if args.int8_heads and not args.int8:
+        print("--int8-heads extends the int8 trunk; pass --int8 too")
+        return 1
+    _no_devices(args)
+    platforms = args.platforms.split(",") if args.platforms else None
+    if platforms and args.device is None:
+        # the program is traced on the device type it names
+        args.device = platforms[0]
+    elif platforms and torch.device(args.device).type != platforms[0]:
+        raise SystemExit(f"--platforms {args.platforms} and --device "
+                         f"{args.device} disagree")
+    dev = _device(args)
+    cfg, ccfg, params = _deploy_model(args, dev, "kitti_car/mscnn-8s-768-trainval")
+    if args.int8:
+        if not args.calib_dir:
+            print("--int8 needs --calib-dir (images for PTQ calibration)")
+            return 1
+        quantized = _int8_quantize(params, cfg, args.calib_dir,
+                                   max(int(args.calib_images or 4), 1),
+                                   ccfg=ccfg, heads=args.int8_heads)
+        if quantized is None:
+            print("no readable calibration images in --calib-dir")
+            return 1
+        params, cfg = quantized
+        if ccfg is not None:
+            ccfg = dataclasses.replace(ccfg, base=cfg)
+    spec = I.DetectSpec(score_thr=args.score_thr)
+    aot.export_deploy(_cast_once(params, cfg), cfg, args.output, spec=spec,
+                      platforms=platforms,
+                      batch=max(int(args.batch or 1), 1), cascade=ccfg)
+    with open(os.path.join(args.output, "meta.json")) as f:
+        meta = json.load(f)
+    print(f"Wrote AOT artifact to {args.output} (platforms={meta['platforms']}, "
+          f"{meta['param_leaves']} param leaves, kernel ops {meta['kernel_ops']}); "
+          f"serve with `python -m mscnn_torch.cli detect --compiled "
+          f"{args.output} ...`")
+    return 0
+
+
+def cmd_serve(args):
+    """HTTP serving endpoint over an artifact (`serve.py`): GET /healthz,
+    POST /detect with image bytes -> JSON detections."""
+    from mscnn_torch import serve as SV
+
+    names = args.class_names.split(",") if args.class_names else None
+    return SV.serve(args.compiled, args.port, class_names=names,
+                    device=_device(args))
+
+
+def cmd_device_query(args):
+    """The CUDA devices, one line each, as the JAX CLI lists its devices;
+    with none, the CPU the port would then need `--device cpu` for."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    for i in range(n):
+        p = torch.cuda.get_device_properties(i)
+        print(f"Device {i}: {p.name} (cuda), process 0, capability "
+              f"{p.major}.{p.minor}, {p.total_memory / 2 ** 30:.1f} GiB")
+    if not n:
+        print("Device 0: cpu (cpu), process 0 (no CUDA device: the commands "
+              "need --device cpu here)")
+    return 0
+
+
 def _add_common(p):
     p.add_argument("--model", help="trainval prototxt (overrides solver's net:)")
     p.add_argument("--weights", help="snapshot to warm-start params from")
@@ -207,14 +901,27 @@ def _add_common(p):
                         "the device (bit-identical; 4x less host->device "
                         "traffic)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--zoo", help="built-in zoo config name")
+    _add_device(p)
+
+
+def _add_device(p):
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' runs on "
                         "the CPU)")
 
 
+def _int8_flags(p, what):
+    p.add_argument("--int8", action="store_true",
+                   help=f"post-training int8 trunk (ops/quant.py){what}")
+    p.add_argument("--int8-heads", action="store_true",
+                   help="also quantize the ROI-head matmuls (roi_c1 / fc6, "
+                        "with the cascade stages'); requires --int8")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        prog="mscnn_torch", description="MS-CNN training on the card")
+        prog="mscnn_torch", description="MS-CNN on the card (PyTorch / CUDA)")
     sub = parser.add_subparsers(dest="command", required=True)
 
     p_train = sub.add_parser("train", help="train a model from a solver prototxt")
@@ -227,6 +934,143 @@ def main(argv=None):
     p_train2.add_argument("--solver2", required=True)
     _add_common(p_train2)
     p_train2.set_defaults(fn=cmd_train2)
+
+    p_test = sub.add_parser("test", help="evaluate metrics on the TEST config")
+    p_test.add_argument("--solver", required=True)
+    p_test.add_argument("--phase", default="TEST",
+                        help="NetState phase for data/sampling params")
+    _add_common(p_test)
+    p_test.set_defaults(fn=cmd_test)
+
+    p_time = sub.add_parser("time", help="benchmark fwd / fwd-bwd times")
+    _add_common(p_time)
+    p_time.add_argument("--deploy", action="store_true",
+                        help="build the zoo config in deploy geometry")
+    p_time.add_argument("--input-hw", type=int, nargs=2, metavar=("H", "W"),
+                        help="override the input size, e.g. 1024 1024")
+    p_time.add_argument("--max-out", type=int,
+                        help="post-NMS roi capacity (zoo default 512; "
+                             "bench.py's flagship protocol uses 256)")
+    _int8_flags(p_time, ", calibrated from synthetic images (deploy "
+                        "forward only)")
+    p_time.add_argument("--stages", action="store_true",
+                        help="per-stage time, FLOPs and MFU table")
+    p_time.add_argument("--layers", action="store_true",
+                        help="per-layer table of a --model prototxt (needs "
+                             "the generic net builder: ROADMAP item 17)")
+    p_time.set_defaults(fn=cmd_time)
+
+    p_det = sub.add_parser("detect", help="run detection over an image dir")
+    p_det.add_argument("--image-dir", required=True)
+    p_det.add_argument("--output-dir", required=True)
+    p_det.add_argument("--class-names",
+                       help="comma list incl. bg, e.g. bg,Car,Van,Truck,Tram")
+    p_det.add_argument("--score-thr", type=float, default=0.0)
+    p_det.add_argument("--loader-threads", type=int, default=2,
+                       help="image-decode prefetch threads (IO overlaps "
+                            "device compute)")
+    _int8_flags(p_det, ", calibrated from the first --calib-images")
+    p_det.add_argument("--calib-images", type=int, default=4)
+    p_det.add_argument("--compiled",
+                       help="serve from an artifact directory (`compile`); "
+                            "the model / weights flags are fixed in it")
+    p_det.add_argument("--format", default="kitti",
+                       choices=["kitti", "caltech", "widerface"],
+                       help="output layout: per-image KITTI labels, the flat "
+                            "caltech file, or per-event widerface txts")
+    p_det.add_argument("--comp-id", default="mscnn",
+                       help="caltech/widerface result file prefix")
+    _add_common(p_det)
+    p_det.set_defaults(fn=cmd_detect)
+
+    p_eval = sub.add_parser(
+        "eval", help="detection scoring: KITTI AP / caltech MR-2 / widerface AP")
+    p_eval.add_argument("--dataset", default="kitti",
+                        choices=["kitti", "caltech", "widerface"])
+    p_eval.add_argument("--gt-dir", help="kitti: label dir; caltech: bbGt v3 dir")
+    p_eval.add_argument("--result-dir", help="kitti: per-image txt dir; "
+                                             "widerface: per-event detection tree")
+    p_eval.add_argument("--image-set", help="file of image ids, one per line")
+    p_eval.add_argument("--class-names", default="car")
+    p_eval.add_argument("--stats-dir", default=None,
+                        help="write devkit-layout stats_/plot files here")
+    p_eval.add_argument("--result-file",
+                        help="caltech: flat imgIdx,x,y,w,h,score file")
+    p_eval.add_argument("--gt-file", help="widerface: wider_face_*_bbx_gt.txt")
+    p_eval.add_argument("--gt-mat", help="widerface: official wider_face_val.mat "
+                                         "(alternative to --gt-file)")
+    p_eval.add_argument("--difficulty-mat",
+                        help="widerface: wider_{easy,medium,hard}_val.mat "
+                             "curated keep list (requires --gt-mat)")
+    p_eval.add_argument("--setting", default="reasonable",
+                        choices=["reasonable", "all"], help="caltech gt filter")
+    p_eval.set_defaults(fn=cmd_eval)
+
+    p_par = sub.add_parser(
+        "parity", help="one-shot AP parity against the pretrained reference "
+                       "(.caffemodel import -> detect -> KITTI AP -> verdict)")
+    p_par.add_argument("--weights", required=True,
+                       help=".caffemodel (reference) or snapshot dir")
+    p_par.add_argument("--kitti-root", required=True,
+                       help="KITTI devkit root (training/image_2 + "
+                            "training/label_2)")
+    p_par.add_argument("--model", help="deploy prototxt")
+    p_par.add_argument("--zoo", default="kitti_car/mscnn-8s-768-trainval")
+    p_par.add_argument("--image-set", help="file of val-split image ids")
+    p_par.add_argument("--output-dir", help="keep detection txts here")
+    p_par.add_argument("--class-names", help="comma list incl. bg (default bg,car)")
+    p_par.add_argument("--cls", help="class to score (default: first non-bg class)")
+    p_par.add_argument("--expected-ap", type=float, default=89.0,
+                       help="reference moderate AP (BASELINE.md: ~89-90 for "
+                            "the 576/768 KITTI car models)")
+    p_par.add_argument("--tolerance", type=float, default=0.5)
+    p_par.add_argument("--iterations", type=int, default=0,
+                       help="cap the number of images (smoke runs)")
+    p_par.add_argument("--bf16", action="store_true")
+    p_par.add_argument("--devices", type=int, default=1)
+    p_par.add_argument("--conv1", default="auto",
+                       choices=["auto", "plain", "s2d", "pallas"])
+    _add_device(p_par)
+    p_par.set_defaults(fn=cmd_parity)
+
+    p_exp = sub.add_parser("export", help="export weights to .caffemodel")
+    _add_common(p_exp)
+    p_exp.add_argument("-o", "--output", required=True,
+                       help="output .caffemodel path")
+    p_exp.set_defaults(fn=cmd_export)
+
+    p_cmp = sub.add_parser(
+        "compile", help="compile the deploy graph to a serving artifact "
+                        "(torch.export program + weights)")
+    _add_common(p_cmp)
+    p_cmp.add_argument("-o", "--output", required=True,
+                       help="artifact output directory")
+    p_cmp.add_argument("--platforms",
+                       help="the device type the program runs on, cuda or "
+                            "cpu (default: --device's); a torch program is "
+                            "traced there, so cuda needs a card")
+    p_cmp.add_argument("--score-thr", type=float, default=0.0)
+    p_cmp.add_argument("--batch", type=int, default=1,
+                       help="images a serving call, fixed in the program "
+                            "(1 = latency shape; bench.py's throughput "
+                            "protocol uses 4)")
+    _int8_flags(p_cmp, "; needs --calib-dir")
+    p_cmp.add_argument("--calib-dir",
+                       help="image directory for int8 PTQ calibration")
+    p_cmp.add_argument("--calib-images", type=int, default=4)
+    p_cmp.set_defaults(fn=cmd_compile)
+
+    p_srv = sub.add_parser("serve", help="HTTP detection endpoint over an artifact")
+    p_srv.add_argument("--compiled", required=True,
+                       help="artifact directory from `compile`")
+    p_srv.add_argument("--port", type=int, default=8437)
+    p_srv.add_argument("--class-names",
+                       help="comma list incl. bg for named detections")
+    _add_device(p_srv)
+    p_srv.set_defaults(fn=cmd_serve)
+
+    p_dq = sub.add_parser("device_query", help="list the CUDA devices")
+    p_dq.set_defaults(fn=cmd_device_query)
 
     args = parser.parse_args(argv)
     return args.fn(args)

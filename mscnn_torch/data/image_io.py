@@ -1,0 +1,264 @@
+"""Image decoding without cv2: what `cv2.imread(path, cv2.IMREAD_COLOR)` and
+`cv2.imdecode(buf, cv2.IMREAD_COLOR)` return, for PNG, PPM and PGM.
+
+New in the port. The JAX package decodes with cv2 (mscnn_tpu/cli.py:510,
+:690, :734; mscnn_tpu/serve.py:141); the card's machine has no cv2, so the
+port decodes the formats its users feed it itself, in numpy and the
+standard library's zlib:
+
+  * PNG (libpng's decode, as OpenCV configures it: 16-bit samples keep
+    their high byte (`png_set_strip_16`), alpha is dropped
+    (`png_set_strip_alpha`), a palette is expanded, gray of 1, 2 or 4 bits
+    is scaled to 8 and repeated over three channels), non-interlaced, bit
+    depths 1-16, every colour type, the five row filters. The filters
+    that read the pixel to the left (Sub, Average, Paeth) chain along a
+    row and down the rows; they are undone over the image's anti-diagonals
+    at once (each diagonal needs only the two before it; the pixels are
+    stored skewed, so that a diagonal is one contiguous slice), so a
+    375 x 1242 image takes ~1,600 numpy steps, not a Python step a byte.
+  * Binary PPM (P6) and PGM (P5) with maxval 255 (moved here from
+    `data/pipeline.py`).
+
+The result is BGR uint8 [H, W, 3], equal to cv2's bit for bit
+(`tests/test_torch_image_io.py`). Any other format (JPEG, an interlaced
+PNG, ...) goes to cv2 where it can be imported; without it the call
+raises, naming the file and its format.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # PNG colour type -> samples a pixel
+
+
+def sniff(data: bytes) -> str:
+    """The format of an encoded image, by its first bytes."""
+    if data[:8] == PNG_MAGIC:
+        return "PNG"
+    if data[:3] == b"\xff\xd8\xff":
+        return "JPEG"
+    if data[:2] in (b"P5", b"P6"):
+        return "PPM/PGM"
+    if data[:2] == b"BM":
+        return "BMP"
+    if data[:4] in (b"II*\x00", b"MM\x00*"):
+        return "TIFF"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WEBP"
+    return "unknown"
+
+
+def pnm_header(data: bytes):
+    """(channels, width, height, maxval, offset of the pixels) of a binary
+    PPM (P6) or PGM (P5) file, or None for another format. The header is
+    the magic and three decimal fields separated by whitespace, with '#'
+    comments to the end of a line, then one whitespace byte."""
+    if data[:2] not in (b"P5", b"P6") or len(data) < 3 \
+            or not data[2:3].isspace():
+        return None
+    pos, fields = 2, []
+    while len(fields) < 3:
+        while pos < len(data) and (data[pos:pos + 1].isspace()
+                                   or data[pos:pos + 1] == b"#"):
+            if data[pos:pos + 1] == b"#":
+                pos = data.find(b"\n", pos)
+                if pos < 0:
+                    return None
+            pos += 1
+        end = pos
+        while end < len(data) and data[end:end + 1].isdigit():
+            end += 1
+        if end == pos or end >= len(data):
+            return None
+        fields.append(int(data[pos:end]))
+        pos = end
+    if not data[pos:pos + 1].isspace():
+        return None
+    width, height, maxval = fields
+    return (3 if data[:2] == b"P6" else 1), width, height, maxval, pos + 1
+
+
+def _decode_pnm(data: bytes, head, name: str) -> np.ndarray:
+    c, w, h, maxval, off = head
+    if maxval != 255 or len(data) < off + h * w * c:
+        raise ValueError(f"could not read image {name}: {w}x{h}x{c} "
+                         f"maxval {maxval}, {len(data) - off} pixel bytes "
+                         f"(8-bit PPM / PGM with maxval 255 only)")
+    img = np.frombuffer(data, np.uint8, h * w * c, off).reshape(h, w, c)
+    if c == 1:
+        return np.repeat(img, 3, axis=2)
+    return np.ascontiguousarray(img[:, :, ::-1])    # RGB -> BGR
+
+
+class _Unsupported(Exception):
+    """A valid PNG this decoder does not handle (interlaced)."""
+
+
+def _png_chunks(data: bytes, name: str):
+    """IHDR fields, the palette and the concatenated IDAT bytes."""
+    pos, ihdr, plte, idat = 8, None, None, []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if len(body) != length:
+            break
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    if ihdr is None or not idat:
+        raise ValueError(f"could not read image {name}: truncated PNG")
+    return ihdr, plte, b"".join(idat)
+
+
+def unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters. raw [H, R] uint8: each row's filtered bytes
+    (R = bytes a row, a multiple of bpp); filters [H]: each row's filter
+    type (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth); bpp: bytes a pixel
+    (at least 1). Returns the [H, R] uint8 scanlines."""
+    h, r = raw.shape
+    if np.any(filters > 4):
+        raise ValueError(f"PNG row filter type {int(filters.max())} is not 0-4")
+    if not np.any(filters >= 3):
+        # no filter reads the pixel to the left through a nonlinear step:
+        # Sub is a running sum of its byte lane, Up adds the row above
+        out = np.empty_like(raw)
+        prev = np.zeros(r, np.uint8)
+        lanes = raw.reshape(h, r // bpp, bpp)
+        for y in range(h):
+            f = filters[y]
+            if f == 1:
+                row = np.cumsum(lanes[y], axis=0, dtype=np.uint8).reshape(r)
+            elif f == 2:
+                row = raw[y] + prev
+            else:
+                row = raw[y]
+            out[y] = prev = row
+        return out
+    # the anti-diagonal wavefront: pixel (y, p) needs (y, p - 1), (y - 1, p)
+    # and (y - 1, p - 1), all on the two diagonals before its own. The
+    # pixels are stored skewed, pixel (y, p) at X[p + y + 2, y + 1], so a
+    # diagonal is one contiguous column of X and its three neighbours are
+    # slices of the two columns before it (zeros where p or y is -1).
+    n = r // bpp
+    src = raw.reshape(h, n, bpp).astype(np.int16)
+    X = np.zeros((h + n + 2, h + 1, bpp), np.int16)
+    S = np.zeros_like(X)
+    for y in range(h):
+        S[y + 2:y + 2 + n, y + 1] = src[y]
+    f = np.concatenate([[0], filters]).astype(np.int16)[:, None]
+    sel = [(f == k).astype(np.int16) for k in range(5)]
+    for d in range(h + n - 1):
+        y0, y1 = max(0, d - n + 1), min(h - 1, d)
+        rows, up = slice(y0 + 1, y1 + 2), slice(y0, y1 + 1)
+        a, b, c = X[d + 1, rows], X[d + 1, up], X[d, up]
+        pred = sel[1][rows] * a + sel[2][rows] * b + sel[3][rows] * ((a + b) >> 1)
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        pred += sel[4][rows] * np.where((pa <= pb) & (pa <= pc), a,
+                                        np.where(pb <= pc, b, c))
+        X[d + 2, rows] = (S[d + 2, rows] + pred) & 255
+    out = np.empty((h, n, bpp), np.uint8)
+    for y in range(h):
+        out[y] = X[y + 2:y + 2 + n, y + 1]
+    return out.reshape(h, r)
+
+
+def _decode_png(data: bytes, name: str) -> np.ndarray:
+    (w, h, depth, ctype, _comp, _filt, interlace), plte, idat = \
+        _png_chunks(data, name)
+    if ctype not in _CHANNELS or depth not in (1, 2, 4, 8, 16) or \
+            (ctype in (2, 4, 6) and depth < 8) or (ctype == 3 and depth > 8):
+        raise ValueError(f"could not read image {name}: PNG colour type "
+                         f"{ctype} at bit depth {depth}")
+    if interlace:
+        raise _Unsupported("interlaced PNG")
+    ch = _CHANNELS[ctype]
+    row_bytes = (w * ch * depth + 7) // 8
+    try:
+        flat = np.frombuffer(zlib.decompress(idat), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"could not read image {name}: corrupt PNG data "
+                         f"({e})") from e
+    if flat.size < h * (row_bytes + 1):
+        raise ValueError(f"could not read image {name}: PNG data holds "
+                         f"{flat.size} bytes, {h * (row_bytes + 1)} needed")
+    rows = flat[:h * (row_bytes + 1)].reshape(h, row_bytes + 1)
+    lines = unfilter(rows[:, 1:], rows[:, 0], max(1, ch * depth // 8))
+    if depth == 16:      # png_set_strip_16: the high (first) byte
+        samples = lines[:, 0::2][:, :w * ch].reshape(h, w, ch)
+    elif depth == 8:
+        samples = lines[:, :w * ch].reshape(h, w, ch)
+    else:                # 1, 2, 4 bits, one sample a pixel, first in the high bits
+        per = 8 // depth
+        shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+        packed = (lines[:, :, None] >> shifts) & ((1 << depth) - 1)
+        samples = packed.reshape(h, -1)[:, :w].reshape(h, w, 1)
+        if ctype == 0:   # png_set_expand_gray_1_2_4_to_8
+            samples = samples * np.uint8(255 // ((1 << depth) - 1))
+    if ctype == 3:       # png_set_palette_to_rgb (tRNS dropped with the alpha)
+        if plte is None:
+            raise ValueError(f"could not read image {name}: PNG palette "
+                             f"image without a PLTE chunk")
+        table = np.zeros((256, 3), np.uint8)
+        table[:len(plte)] = plte[:256]
+        rgb = table[samples[..., 0]]
+    elif ch in (1, 2):   # gray (+ alpha): png_set_gray_to_rgb
+        rgb = np.repeat(samples[..., :1], 3, axis=2)
+    else:                # RGB (+ alpha)
+        rgb = samples[..., :3]
+    return np.ascontiguousarray(rgb[..., ::-1])     # png_set_bgr
+
+
+def _with_cv2(data: bytes, name: str, fmt: str) -> np.ndarray:
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            f"could not read image {name}: it is {fmt} (this module decodes "
+            f"PNG, PPM and PGM), and other formats need the cv2 module, "
+            f"which is not installed") from e
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    if img is None:
+        raise ValueError(f"could not read image {name}: cv2 cannot decode "
+                         f"this {fmt} data")
+    return img
+
+
+def imdecode(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """Encoded image bytes -> BGR uint8 [H, W, 3], as
+    `cv2.imdecode(buf, cv2.IMREAD_COLOR)`. Raises ValueError where the
+    bytes do not decode (cv2 returns None there), ImportError for a format
+    that needs cv2 when cv2 is not installed; `name` goes in the message."""
+    head = pnm_header(data)
+    if head is not None:
+        return _decode_pnm(data, head, name)
+    fmt = sniff(data)
+    if fmt == "PNG":
+        try:
+            return _decode_png(data, name)
+        except _Unsupported as e:
+            return _with_cv2(data, name, str(e))
+    return _with_cv2(data, name, f"a {fmt} file" if fmt != "unknown"
+                     else "of an unknown format")
+
+
+def imread(path: str) -> np.ndarray:
+    """HxWx3 BGR uint8, as `cv2.imread(path, cv2.IMREAD_COLOR)` gives it.
+    Raises FileNotFoundError for a file that cannot be read, and as
+    `imdecode` for bytes that cannot be decoded."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError as e:
+        raise FileNotFoundError(f"could not read image {path}") from e
+    return imdecode(data, path)

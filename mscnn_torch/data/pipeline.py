@@ -11,10 +11,11 @@ device inside the train step.
 
 Where the port differs from the JAX module:
 
-  * `load_image` reads binary PPM (P6) and PGM (P5) itself and returns
-    what `cv2.imread(path, cv2.IMREAD_COLOR)` returns (BGR uint8; a gray
-    image repeated over 3 channels). Other formats (PNG, JPEG) go through
-    cv2 where it can be imported; without it they raise, naming the file.
+  * `load_image` is `data/image_io.py::imread`: it decodes PNG and binary
+    PPM (P6) / PGM (P5) itself and returns what `cv2.imread(path,
+    cv2.IMREAD_COLOR)` returns (BGR uint8; a gray image repeated over 3
+    channels). Other formats (JPEG) go through cv2 where it can be
+    imported; without it they raise, naming the file and its format.
   * The device transfer (`jax.device_put` there) is `Prefetcher(...,
     device=)`. On a card the prefetch thread copies each batch from
     pinned host memory with `non_blocking=True` on a copy stream of its
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from mscnn_torch.data import augment as A
+from mscnn_torch.data import image_io
 from mscnn_torch.data import window_file as W
 
 PREFETCH_COUNT = 3
@@ -51,65 +53,8 @@ class DatasetSpec:
     seed: int = 1704             # solver_1st.prototxt random_seed
 
 
-def _pnm_header(data: bytes):
-    """(channels, width, height, maxval, offset of the pixels) of a binary
-    PPM (P6) or PGM (P5) file, or None for another format. The header is
-    the magic and three decimal fields separated by whitespace, with '#'
-    comments to the end of a line, then one whitespace byte."""
-    if data[:2] not in (b"P5", b"P6") or len(data) < 3 \
-            or not data[2:3].isspace():
-        return None
-    pos, fields = 2, []
-    while len(fields) < 3:
-        while pos < len(data) and (data[pos:pos + 1].isspace()
-                                   or data[pos:pos + 1] == b"#"):
-            if data[pos:pos + 1] == b"#":
-                pos = data.find(b"\n", pos)
-                if pos < 0:
-                    return None
-            pos += 1
-        end = pos
-        while end < len(data) and data[end:end + 1].isdigit():
-            end += 1
-        if end == pos or end >= len(data):
-            return None
-        fields.append(int(data[pos:end]))
-        pos = end
-    if not data[pos:pos + 1].isspace():
-        return None
-    width, height, maxval = fields
-    return (3 if data[:2] == b"P6" else 1), width, height, maxval, pos + 1
-
-
-def load_image(path: str) -> np.ndarray:
-    """HxWx3 BGR uint8, as `cv2.imread(path, cv2.IMREAD_COLOR)` gives it."""
-    try:
-        with open(path, "rb") as f:
-            data = f.read()
-    except OSError as e:
-        raise FileNotFoundError(f"could not read image {path}") from e
-    head = _pnm_header(data)
-    if head is None:
-        try:
-            import cv2
-        except ImportError as e:
-            raise ImportError(
-                f"could not read image {path}: it is not a binary PPM / PGM "
-                f"file, and other formats need the cv2 module, which is "
-                f"not installed") from e
-        img = cv2.imread(path, cv2.IMREAD_COLOR)
-        if img is None:
-            raise FileNotFoundError(f"could not read image {path}")
-        return img
-    c, w, h, maxval, off = head
-    if maxval != 255 or len(data) < off + h * w * c:
-        raise ValueError(f"could not read image {path}: {w}x{h}x{c} "
-                         f"maxval {maxval}, {len(data) - off} pixel bytes "
-                         f"(8-bit PPM / PGM with maxval 255 only)")
-    img = np.frombuffer(data, np.uint8, h * w * c, off).reshape(h, w, c)
-    if c == 1:
-        return np.repeat(img, 3, axis=2)
-    return np.ascontiguousarray(img[:, :, ::-1])    # RGB -> BGR
+# HxWx3 BGR uint8, as `cv2.imread(path, cv2.IMREAD_COLOR)` gives it
+load_image = image_io.imread
 
 
 def assemble_batch(samples, max_gts: int, max_ronis: int):

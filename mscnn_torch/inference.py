@@ -5,9 +5,15 @@ Ports `mscnn_tpu/inference.py`: `KITTI_CLASS_NAMES`, `DetectSpec`,
 `cascade=`), the cascade half (`cascade_deploy_outputs`,
 `cascade_post_cfg`, `expand_cascade_bbox`, `make_cascade_forward`,
 `detect_cascade`), `write_detections_txt`, `write_kitti_labels`,
-`detections_to_xywh` and `detections_to_kitti` (inference.py:26-406). The
-mesh-sharded forwards are ROADMAP item 20 (`make_cascade_forward(mesh=)`
-raises).
+`detections_to_xywh`, `detections_to_kitti` and `make_forward`
+(inference.py:26-406). The mesh-sharded forwards are ROADMAP item 20
+(`make_forward(mesh=)` and `make_cascade_forward(mesh=)` raise).
+
+`e2e_outputs` and `cascade_e2e_outputs` are the forward bodies that
+`io/aot.py` exports with `torch.export`: they set no grad mode and make no
+host sync (constants come from `device_const`, made once per device; the
+field ratio's log is a cached Python float, `ops/boxes.py::log_in_dtype`).
+The eager entry points run them under `torch.inference_mode()`.
 
 `postprocess_batch` is the batched core: every image x class NMS problem
 of a batch goes to NMS in one call (one kernel launch on the card).
@@ -73,8 +79,8 @@ def postprocess_batch(outputs, ratios, orig_wh, cfg: M.MSCNNConfig,
     if prob is None:
         prob = torch.softmax(cls_pred, dim=-1)
     dev = rois.device
-    mean = torch.tensor(cfg.bbox_mean, dtype=torch.float32, device=dev)
-    std = torch.tensor(cfg.bbox_std, dtype=torch.float32, device=dev)
+    mean = device_const(cfg.bbox_mean, dev)
+    std = device_const(cfg.bbox_std, dev)
     ctr_x = rois[..., 0] + 0.5 * pw
     ctr_y = rois[..., 1] + 0.5 * ph
     ratios = ratios.to(dev, torch.float32)
@@ -110,6 +116,39 @@ def postprocess_batch(outputs, ratios, orig_wh, cfg: M.MSCNNConfig,
     return b, s, ok
 
 
+_CONSTS: dict = {}
+
+
+def device_const(values, device) -> torch.Tensor:
+    """The float32 tensor of `values` on `device`, made once per device and
+    kept: a forward that needs a constant vector (the mean values, the bbox
+    mean and std) makes no host-to-card copy a call. It is made with
+    tracing off and outside inference mode, so that `torch.export` sees a
+    constant and autograd may use it; on a card the one copy leaves pinned
+    memory without blocking."""
+    device = torch.device(device)
+    key = (tuple(float(v) for v in values), device.type, device.index)
+    t = _CONSTS.get(key)
+    if t is None:
+        with torch._C._DisableTorchDispatch(), torch.inference_mode(False):
+            t = torch.tensor(key[0], dtype=torch.float32)
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            else:
+                t = t.to(device)
+        _CONSTS[key] = t
+    return t
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device`; to a card from pinned memory without
+    blocking the host."""
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 _ROI_KEYS = ("rois", "cls_pred", "bbox_pred", "roi_scores", "roi_valid",
              "cls_prob")
 
@@ -131,34 +170,70 @@ def _per_image(outputs, B, R):
             for k in _ROI_KEYS if k in outputs}
 
 
+def _mean_sub(img_u8, mean_values):
+    return img_u8.float() - device_const(mean_values, img_u8.device)
+
+
+def _decode(outputs, ratios, orig_wh, post_cfg: M.MSCNNConfig, spec):
+    """A deploy forward's outputs for B images (B = ratios' rows) -> one
+    batched decode + per-class NMS: the dict `e2e_outputs` returns."""
+    per = _per_image(outputs, ratios.shape[0], post_cfg.proposal.max_out)
+    boxes, scores, valid = postprocess_batch(per, ratios, orig_wh, post_cfg,
+                                             spec)
+    return {"boxes": boxes, "scores": scores, "valid": valid,
+            "rois": per["rois"], "roi_scores": per["roi_scores"],
+            "roi_valid": per["roi_valid"]}
+
+
+def e2e_outputs(p, img_u8, ratios, orig_wh, cfg: M.MSCNNConfig,
+                spec: DetectSpec = DetectSpec(), *,
+                mean_values=(104.0, 117.0, 123.0)):
+    """uint8 net-size images [B, H, W, 3] on the device -> mean
+    subtraction -> the deploy graph -> decode and per-class NMS: the dict
+    of `make_e2e_forward`, batched. Makes no host sync (ratios [B, 2] and
+    orig_wh [B, 2] are on the device too) and sets no grad mode: this is
+    the body that `io/aot.py` exports; the eager callers run it under
+    inference mode."""
+    outputs = M.deploy_forward(p, _mean_sub(img_u8, mean_values), cfg)
+    return _decode(outputs, ratios, orig_wh, cfg, spec)
+
+
 def make_e2e_forward(params, cfg: M.MSCNNConfig,
                      spec: DetectSpec = DetectSpec(), *,
                      mean_values=(104.0, 117.0, 123.0)):
     """One call from uint8 net-size images to final detections.
 
     The image crosses to the device as uint8 and is mean-subtracted there;
-    the deploy graph, decode and per-class NMS follow on the device.
-    Returned callable: f(params, img_u8 [B, H, W, 3] or [H, W, 3],
-    ratios [B, 2] or [2], orig_wh [B, 2] or [2]) -> dict of tensors
-    (boxes/scores/valid per class, plus the proposals), batched like the
-    input.
+    the deploy graph, decode and per-class NMS follow on the device
+    (`e2e_outputs`, under inference mode). Returned callable: f(params,
+    img_u8 [B, H, W, 3] or [H, W, 3], ratios [B, 2] or [2], orig_wh [B, 2]
+    or [2]) -> dict of tensors (boxes/scores/valid per class, plus the
+    proposals), batched like the input.
     """
     def fwd(p, img_u8, ratios, orig_wh):
         single = img_u8.dim() == 3
         if single:
             img_u8, ratios, orig_wh = img_u8[None], ratios[None], orig_wh[None]
         with torch.inference_mode():
-            mean = torch.tensor(mean_values, dtype=torch.float32,
-                                device=img_u8.device)
-            x = img_u8.float() - mean
-            outputs = M.deploy_forward(p, x, cfg)
-            per = _per_image(outputs, x.shape[0], cfg.proposal.max_out)
-            boxes, scores, valid = postprocess_batch(per, ratios, orig_wh,
-                                                     cfg, spec)
-        out = {"boxes": boxes, "scores": scores, "valid": valid,
-               "rois": per["rois"], "roi_scores": per["roi_scores"],
-               "roi_valid": per["roi_valid"]}
+            out = e2e_outputs(p, img_u8, ratios, orig_wh, cfg, spec,
+                              mean_values=mean_values)
         return {k: v[0] for k, v in out.items()} if single else out
+
+    return fwd
+
+
+def make_forward(params, cfg: M.MSCNNConfig, mesh=None):
+    """The deploy forward for batch loops over many images: f(params,
+    images [B, H, W, 3] mean-subtracted) -> `deploy_forward`'s outputs,
+    under inference mode (mscnn_tpu/inference.py::make_forward). mesh:
+    data-parallel serving, ROADMAP item 20; raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_forward(mesh=...) is data parallelism, ROADMAP item 20")
+
+    def fwd(p, images):
+        with torch.inference_mode():
+            return M.deploy_forward(p, images, cfg)
 
     return fwd
 
@@ -180,12 +255,17 @@ def _host_result(boxes, scores, valid, rois, rscores, rvalid, ratio_h,
 
 def detect(params, image_bgr: np.ndarray, cfg: M.MSCNNConfig,
            spec: DetectSpec = DetectSpec(), *,
-           mean_values=(104.0, 117.0, 123.0)):
+           mean_values=(104.0, 117.0, 123.0), e2e_fwd=None):
     """Single-image detection: resize (on the host) -> mean-sub ->
     deploy graph -> decode. Returns per-class fixed-shape detections in
-    original image coordinates plus the rescaled proposals, as numpy."""
-    return detect_batch(params, [image_bgr], cfg, spec,
-                        mean_values=mean_values)[0]
+    original image coordinates plus the rescaled proposals, as numpy.
+    Pass e2e_fwd=make_e2e_forward(...) to reuse one end-to-end forward
+    across calls (identical outputs)."""
+    if e2e_fwd is None:
+        return detect_batch(params, [image_bgr], cfg, spec,
+                            mean_values=mean_values)[0]
+    return _detect_with(params, [image_bgr], cfg.input_hw,
+                        lambda *a: e2e_fwd(params, *a))[0]
 
 
 def _resize_batch(images_bgr, net_hw):
@@ -204,28 +284,48 @@ def _resize_batch(images_bgr, net_hw):
             torch.tensor(origs, dtype=torch.float32))
 
 
-def detect_batch(params, images_bgr: Sequence[np.ndarray],
-                 cfg: M.MSCNNConfig, spec: DetectSpec = DetectSpec(), *,
-                 mean_values=(104.0, 117.0, 123.0), cascade=None) -> list:
-    """Batched detection: one deploy-graph call for N images, then one
-    batched decode + NMS. Returns one `detect()`-shaped dict per image.
-    Each image is resized on the host by `data/resize.py` (cv2's
-    INTER_LINEAR, bit for bit). Pass the CascadeConfig as `cascade` for
-    staged models (then `cfg` must be `cascade.base`)."""
+def _detect_with(params, images_bgr, net_hw, run) -> list:
+    """Resize on the host, cross to the params' device from pinned memory,
+    `run(img_u8, ratios, orig_wh)` -> the batched output dict, one
+    `detect()`-shaped dict per image."""
     dev = M.params_device(params)
-    img_u8, ratios_t, orig_t = _resize_batch(images_bgr, cfg.input_hw)
-    img_u8 = img_u8.to(dev)
-    if cascade is None:
-        out = make_e2e_forward(params, cfg, spec, mean_values=mean_values)(
-            params, img_u8, ratios_t, orig_t)
-    else:
-        out = _cascade_detect(params, img_u8, ratios_t, orig_t, cascade, spec,
-                              mean_values)
+    img_u8, ratios_t, orig_t = _resize_batch(images_bgr, net_hw)
+    out = run(*(to_device(t, dev) for t in (img_u8, ratios_t, orig_t)))
     return [_host_result(out["boxes"][i], out["scores"][i], out["valid"][i],
                          out["rois"][i], out["roi_scores"][i],
                          out["roi_valid"][i], float(ratios_t[i, 0]),
                          float(ratios_t[i, 1]))
             for i in range(len(images_bgr))]
+
+
+def detect_batch(params, images_bgr: Sequence[np.ndarray],
+                 cfg: M.MSCNNConfig, spec: DetectSpec = DetectSpec(), *,
+                 mean_values=(104.0, 117.0, 123.0), fwd=None,
+                 cascade=None) -> list:
+    """Batched detection: one deploy-graph call for N images, then one
+    batched decode + NMS. Returns one `detect()`-shaped dict per image.
+    Each image is resized on the host by `data/resize.py` (cv2's
+    INTER_LINEAR, bit for bit) and crosses to the device from pinned
+    memory. Pass the CascadeConfig as `cascade` for staged models (then
+    `cfg` must be `cascade.base`). fwd: a deploy forward to reuse across
+    calls (`make_forward`, or `make_cascade_forward` with `cascade`):
+    f(params, mean-subtracted images) -> the deploy outputs."""
+    def run(img_u8, ratios, orig_wh):
+        with torch.inference_mode():
+            if fwd is None and cascade is None:
+                return e2e_outputs(params, img_u8, ratios, orig_wh, cfg, spec,
+                                   mean_values=mean_values)
+            if fwd is None:
+                return cascade_e2e_outputs(params, img_u8, ratios, orig_wh,
+                                           cascade, spec,
+                                           mean_values=mean_values)
+            outputs = fwd(params, _mean_sub(img_u8, mean_values))
+            if cascade is None:
+                return _decode(outputs, ratios, orig_wh, cfg, spec)
+            return _decode(expand_cascade_bbox(outputs, cfg.num_classes),
+                           ratios, orig_wh, cascade_post_cfg(cascade), spec)
+
+    return _detect_with(params, images_bgr, cfg.input_hw, run)
 
 
 # ---------------------------------------------------------------------------
@@ -279,22 +379,22 @@ def make_cascade_forward(params, ccfg, mesh=None):
     return fwd
 
 
-def _cascade_detect(params, img_u8, ratios, orig_wh, ccfg, spec, mean_values):
+def cascade_e2e_outputs(p, img_u8, ratios, orig_wh, ccfg,
+                        spec: DetectSpec = DetectSpec(), *,
+                        mean_values=(104.0, 117.0, 123.0)):
     """uint8 net-size images on the device -> the cascade forward -> one
-    batched decode + per-class NMS with the last stage's std."""
-    cfg = ccfg.base
+    batched decode + per-class NMS with the last stage's std. No host
+    sync and no grad mode: the body `io/aot.py` exports for a cascade."""
+    outputs = cascade_deploy_outputs(p, _mean_sub(img_u8, mean_values), ccfg)
+    return _decode(expand_cascade_bbox(outputs, ccfg.base.num_classes),
+                   ratios, orig_wh, cascade_post_cfg(ccfg), spec)
+
+
+def _cascade_detect(params, img_u8, ratios, orig_wh, ccfg, spec, mean_values):
+    """`cascade_e2e_outputs` under inference mode."""
     with torch.inference_mode():
-        mean = torch.tensor(mean_values, dtype=torch.float32).to(
-            img_u8.device, non_blocking=True)
-        outputs = expand_cascade_bbox(
-            cascade_deploy_outputs(params, img_u8.float() - mean, ccfg),
-            cfg.num_classes)
-        per = _per_image(outputs, img_u8.shape[0], cfg.proposal.max_out)
-        boxes, scores, valid = postprocess_batch(per, ratios, orig_wh,
-                                                 cascade_post_cfg(ccfg), spec)
-    return {"boxes": boxes, "scores": scores, "valid": valid,
-            "rois": per["rois"], "roi_scores": per["roi_scores"],
-            "roi_valid": per["roi_valid"]}
+        return cascade_e2e_outputs(params, img_u8, ratios, orig_wh, ccfg, spec,
+                                   mean_values=mean_values)
 
 
 def detect_cascade(params, image_bgr: np.ndarray, ccfg,
@@ -303,9 +403,11 @@ def detect_cascade(params, image_bgr: np.ndarray, ccfg,
     """Cascade detection of one image: host resize, staged refinement,
     class-agnostic final regression. Scores follow ccfg.ensemble_avg.
     Returns per-class fixed-shape boxes / scores / valid as numpy."""
-    img_u8, ratios, orig_wh = _resize_batch([image_bgr], ccfg.base.input_hw)
-    out = _cascade_detect(params, img_u8.to(M.params_device(params)), ratios,
-                          orig_wh, ccfg, spec, mean_values)
+    dev = M.params_device(params)
+    img_u8, ratios, orig_wh = (to_device(t, dev) for t in _resize_batch(
+        [image_bgr], ccfg.base.input_hw))
+    out = _cascade_detect(params, img_u8, ratios, orig_wh, ccfg, spec,
+                          mean_values)
     return {k: out[k][0].cpu().numpy() for k in ("boxes", "scores", "valid")}
 
 

@@ -16,6 +16,8 @@ any leading batch dimensions.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # IoU denominators: "iou" = union, "iomu" = min area, "iofu" = first box area.
@@ -83,6 +85,16 @@ def cell_centers(height: int, width: int, stride: float,
     return torch.stack(torch.broadcast_tensors(cx[None, :], cy[:, None]), -1)
 
 
+@functools.lru_cache(maxsize=None)
+def log_in_dtype(value: float, dtype) -> float:
+    """log(value) computed in `dtype` (as jnp.log of that dtype) on the CPU,
+    as a Python float: exact in that dtype, no host-to-card copy, and, with
+    tracing off here and the result cached, a constant to `torch.export`
+    rather than a traced op or a data-dependent `.item()`."""
+    with torch._C._DisableTorchDispatch():
+        return torch.log(torch.tensor(value, dtype=dtype)).item()
+
+
 def decode_anchor_field(scores, coords, *, field_w: float, field_h: float,
                         stride: int, field_whr: float = 2.0,
                         field_xyr: float = 2.0, bbox_mean=None, bbox_std=None,
@@ -107,9 +119,7 @@ def decode_anchor_field(scores, coords, *, field_w: float, field_h: float,
         th = th * bbox_std[3] + bbox_mean[3]
 
     max_xyr = 1.0 / field_xyr
-    # log in the scores' dtype (as jnp.log of that dtype), kept as a Python
-    # scalar: exact in that dtype, and no host-to-card copy
-    max_whr = torch.log(torch.tensor(field_whr, dtype=scores.dtype)).item()
+    max_whr = log_in_dtype(field_whr, scores.dtype)
     tx = tx.clamp(-max_xyr, max_xyr)
     ty = ty.clamp(-max_xyr, max_xyr)
     tw = tw.clamp(-max_whr, max_whr)

@@ -7,11 +7,11 @@ hand-written kernel `mscnn_torch/csrc/conv1_pool.cu`, and
 `conv1_pool_fused` dispatches by device: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes the plain version.
 
-`conv1_pool_fused` is an autograd function, as the JAX `custom_vjp`
-(conv1_kernel.py:279-300) is: its forward is the kernel (the plain version
-on the CPU) and its backward the VJP of `conv1_pool_plain`, recomputed
-under autograd from the saved inputs, with respect to x, w1, b1, w2 and
-b2. The JAX package has no backward kernel either (its `_bwd` is XLA's
+`conv1_pool_fused` calls the operator `mscnn::conv1_pool` (`ops.py`),
+which is differentiable, as the JAX `custom_vjp` (conv1_kernel.py:279-300)
+is: its forward is the kernel (the plain version on the CPU) and its
+backward the VJP of `conv1_pool_plain`, recomputed under autograd from the
+saved inputs, with respect to x, w1, b1, w2 and b2. The JAX package has no backward kernel either (its `_bwd` is XLA's
 VJP of the unfused formulation), so cuDNN's conv backward is the faithful
 counterpart.
 
@@ -157,34 +157,14 @@ def conv1_pool_cuda(x, w1, b1, w2, b2):
     return out
 
 
-class _Conv1PoolFused(torch.autograd.Function):
-    """Forward: the kernel on the card, the plain version on the CPU;
-    backward: the VJP of `conv1_pool_plain` (JAX's `_bwd`)."""
-
-    @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2):
-        ctx.save_for_backward(x, w1, b1, w2, b2)
-        if x.is_cuda:
-            return conv1_pool_cuda(x.to(torch.bfloat16), w1, b1, w2, b2)
-        if x.device.type != "cpu":
-            raise RuntimeError(f"conv1_pool_fused: no kernel for {x.device}")
-        return conv1_pool_plain(x, w1, b1, w2, b2)
-
-    @staticmethod
-    def backward(ctx, g):
-        saved = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(need)
-                      for t, need in zip(saved, ctx.needs_input_grad)]
-            out = conv1_pool_plain(*leaves)
-            want = [t for t, need in zip(leaves, ctx.needs_input_grad) if need]
-            got = iter(torch.autograd.grad(out, want, g.to(out.dtype)))
-        return tuple(next(got) if need else None
-                     for need in ctx.needs_input_grad)
-
-
 def conv1_pool_fused(x, w1, b1, w2, b2):
-    """Fused conv1 block. CUDA tensor -> the kernel; CPU tensor ->
-    `conv1_pool_plain`. Differentiable in every input: the backward is the
-    VJP of `conv1_pool_plain` (see the module notes)."""
-    return _Conv1PoolFused.apply(x, w1, b1, w2, b2)
+    """Fused conv1 block: the operator `mscnn::conv1_pool` (`ops.py`). CUDA
+    tensor -> the kernel; CPU tensor -> `conv1_pool_plain`. Differentiable
+    in every input: the backward is the VJP of `conv1_pool_plain` (see the
+    module notes)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"conv1_pool_fused: no kernel for {x.device}")
+    return KO.conv1_pool(x, w1, b1, w2, b2)
+
+
+from mscnn_torch.ops.kernels import ops as KO  # noqa: E402  (ops imports this module)

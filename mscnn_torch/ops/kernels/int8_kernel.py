@@ -26,8 +26,9 @@ exact once 127^2 * K passes 2^24):
     that output, after `ops/conv.py::max_pool(y, 2, 2)` where the consumer
     sits behind the pool -- the order of the JAX trunk.
 
-`int8_conv` dispatches by device: a CUDA tensor launches the kernel (or
-raises), a CPU tensor takes the plain version. `launches` counts the
+`int8_conv` calls the operator `mscnn::int8_conv` (`ops.py`), which
+dispatches by device: a CUDA tensor launches the kernel (or raises), a CPU
+tensor takes the plain version. `launches` counts the
 kernel launches made through `int8_conv_cuda`.
 """
 
@@ -209,14 +210,14 @@ def int8_conv_cuda(xq, w_q, x_s=None, w_s=None, b=None, *, padding=(0, 0),
 
 def int8_conv(xq, w_q, x_s=None, w_s=None, b=None, *, padding=(0, 0),
               out_dtype=torch.int32, relu: bool = False, requant=()):
-    """Stride-1 int8 conv. CUDA tensor -> the kernel; CPU tensor -> the
-    plain version."""
-    kw = dict(padding=padding, out_dtype=out_dtype, relu=relu, requant=requant)
-    if xq.is_cuda:
-        return int8_conv_cuda(xq, w_q, x_s, w_s, b, **kw)
-    if xq.device.type != "cpu":
+    """Stride-1 int8 conv: the operator `mscnn::int8_conv` (`ops.py`). CUDA
+    tensor -> the kernel; CPU tensor -> the plain version."""
+    if xq.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"int8_conv: no kernel for {xq.device}")
-    return int8_conv_plain(xq, w_q, x_s, w_s, b, **kw)
+    y, copies = KO.int8_conv(xq, w_q, x_s, w_s, b, [int(p) for p in padding],
+                             out_dtype, bool(relu), [s for s, _ in requant],
+                             [bool(p) for _, p in requant])
+    return (y, copies) if requant else y
 
 
 def mm_int8(x, w):
@@ -225,3 +226,6 @@ def mm_int8(x, w):
     m, k = x.shape
     f = w.shape[0]
     return int8_conv(x.reshape(m, 1, 1, k), w.reshape(f, 1, 1, k)).reshape(m, f)
+
+
+from mscnn_torch.ops.kernels import ops as KO  # noqa: E402  (ops imports this module)

@@ -3,8 +3,9 @@
 Ports `mscnn_tpu/ops/nms.py`: `nms_xywh` (the select-and-suppress scan,
 nms.py:85-143) and `topk_candidates` (nms.py:146-155). The JAX module's
 Pallas capability probe `_pallas_supported` has no counterpart: a CUDA
-tensor goes to the hand-written kernel (`ops/kernels/nms_kernel.py`) or
-raises, and only a CPU tensor takes the plain scan `nms_xywh_plain`.
+tensor goes to the hand-written kernel (`ops/kernels/nms_kernel.py`, through
+the operator `mscnn::nms_xywh` of `ops/kernels/ops.py`) or raises, and only
+a CPU tensor takes the plain scan `nms_xywh_plain`.
 
 Every function takes any number of leading problem dimensions: boxes
 [..., N, 4] (x, y, w, h), scores and valid [..., N].
@@ -15,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from mscnn_torch.ops import boxes as box_ops
-from mscnn_torch.ops.kernels import nms_kernel
+from mscnn_torch.ops.kernels import ops as KO
 
 NEG_INF = -1e30
 
@@ -73,23 +74,21 @@ def nms_xywh(boxes, scores, valid, *, iou_thr: float, mode: str = "iou",
     boxes [..., N, 4] (x, y, w, h) f32; scores/valid [..., N]. Returns
     (boxes [..., max_out, 4], scores [..., max_out], valid [..., max_out]),
     survivors in descending score order, the rest zeroed and invalid.
-    A CUDA tensor launches the hand-written kernel (one CTA per problem);
-    a CPU tensor runs the plain scan.
+    It calls the operator `mscnn::nms_xywh` (`ops/kernels/ops.py`): a CUDA
+    tensor launches the hand-written kernel (one CTA per problem), a CPU
+    tensor runs the plain scan.
     """
-    if boxes.is_cuda:
-        lead = boxes.shape[:-2]
-        n = boxes.shape[-2]
-        ob, os_, ov = nms_kernel.nms_xywh_cuda(
-            boxes.reshape(-1, n, 4).float().contiguous(),
-            scores.reshape(-1, n).float().contiguous(),
-            valid.reshape(-1, n).bool().contiguous(),
-            iou_thr=iou_thr, mode=mode, max_out=max_out)
-        return (ob.reshape(*lead, max_out, 4), os_.reshape(*lead, max_out),
-                ov.reshape(*lead, max_out))
-    if boxes.device.type != "cpu":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"nms_xywh: no kernel for device {boxes.device}")
-    return nms_xywh_plain(boxes, scores, valid, iou_thr=iou_thr, mode=mode,
-                          max_out=max_out)
+    lead = boxes.shape[:-2]
+    n = boxes.shape[-2]
+    ob, os_, ov = KO.nms_xywh(
+        boxes.reshape(-1, n, 4).float().contiguous(),
+        scores.reshape(-1, n).float().contiguous(),
+        valid.reshape(-1, n).bool().contiguous(), float(iou_thr), mode,
+        int(max_out))
+    return (ob.reshape(*lead, max_out, 4), os_.reshape(*lead, max_out),
+            ov.reshape(*lead, max_out))
 
 
 def topk_candidates(boxes, scores, valid, k: int):

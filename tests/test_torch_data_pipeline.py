@@ -161,9 +161,13 @@ def test_load_image_errors(tmp_path, monkeypatch):
         TP.load_image(deep)
     png = str(tmp_path / "p.png")
     assert cv2.imwrite(png, np.zeros((4, 4, 3), np.uint8))
+    jpg = str(tmp_path / "p.jpg")
+    assert cv2.imwrite(jpg, np.zeros((4, 4, 3), np.uint8))
     monkeypatch.setitem(sys.modules, "cv2", None)   # as on a machine without cv2
-    with pytest.raises(ImportError, match=r"p\.png.*cv2"):
-        TP.load_image(png)
+    with pytest.raises(ImportError, match=r"p\.jpg.*JPEG.*cv2"):
+        TP.load_image(jpg)
+    # PNG needs no cv2 (data/image_io.py)
+    np.testing.assert_array_equal(TP.load_image(png), np.zeros((4, 4, 3), np.uint8))
 
 
 def test_prefetcher_devices(dataset):

@@ -535,3 +535,92 @@ def test_int8_kernel_at_cascade_shapes(gen, cuda, b, h, w, c, f, pad, copies):
     assert len(got[1]) == len(want[1]) == len(copies)
     for g, w in zip(got[1], want[1]):
         assert torch.equal(g, w)
+
+
+# -- the torch.library operators (ops/kernels/ops.py): each CUDA
+# implementation against the plain version, and each operator exported
+# alone with torch.export, saved, loaded and run on the card
+
+from mscnn_torch.ops.kernels import ops as KO   # noqa: E402
+
+
+class _OneOp(torch.nn.Module):
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def export_run(tmp_path, fn, args):
+    """fn exported with torch.export, saved, loaded and called on args:
+    (its output, the mscnn:: nodes of the loaded graph)."""
+    path = str(tmp_path / "op.pt2")
+    with torch.no_grad():
+        torch.export.save(torch.export.export(_OneOp(fn), args, strict=False), path)
+    loaded = torch.export.load(path)
+    nodes = [str(n.target) for n in loaded.graph.nodes
+             if n.op == "call_function" and str(n.target).startswith("mscnn.")]
+    with torch.inference_mode():
+        return loaded.module()(*args), nodes
+
+
+def cpu(tree):
+    return [t.cpu() for t in tree] if isinstance(tree, (list, tuple)) else tree.cpu()
+
+
+@pytest.mark.cuda
+def test_nms_op_cuda_equals_plain_and_exports(gen, cuda, tmp_path):
+    b, s, v = (t.to(cuda) for t in candidates(gen, 4, 2000))
+    args = (b, s, v, 0.65, "iou", 256)
+    want = TN.nms_xywh_plain(b, s, v, iou_thr=0.65, mode="iou", max_out=256)
+    before = NK.launches
+    got = KO.nms_xywh(*args)
+    assert NK.launches == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    cpu_got = KO.nms_xywh(*(t.cpu() for t in (b, s, v)), 0.65, "iou", 256)
+    assert all(torch.equal(g, w.cpu()) for g, w in zip(cpu_got, want))
+    out, nodes = export_run(tmp_path, lambda b_, s_, v_: KO.nms_xywh(
+        b_, s_, v_, 0.65, "iou", 256), (b, s, v))
+    assert nodes == ["mscnn.nms_xywh.default"] and NK.launches == before + 2
+    assert all(torch.equal(g, w) for g, w in zip(out, want))
+
+
+@pytest.mark.cuda
+def test_conv1_op_cuda_equals_plain_and_exports(gen, cuda, tmp_path):
+    args = conv1_inputs(gen, 2, 40, 70, cuda)
+    want = CK.conv1_pool_plain(*args).float()
+    before = CK.launches
+    conv1_gate(KO.conv1_pool(*args), want)
+    assert CK.launches == before + 1
+    assert torch.equal(KO.conv1_pool(*cpu(args)), CK.conv1_pool_plain(*cpu(args)))
+    out, nodes = export_run(tmp_path, KO.conv1_pool, tuple(args))
+    assert nodes == ["mscnn.conv1_pool.default"] and CK.launches == before + 2
+    conv1_gate(out, want)
+
+
+@pytest.mark.cuda
+def test_int8_op_cuda_equals_plain_and_exports(gen, cuda, tmp_path):
+    x, w, xs, ws, b = int8_tensors(gen, cuda, (2, 19, 37, 64), (64, 3, 3, 64))
+    scales = [torch.tensor(0.125, device=cuda), torch.tensor(0.0371, device=cuda)]
+    pooled = [True, False]
+    op_args = (x, w, xs, ws, b, [1, 1], torch.bfloat16, True, scales, pooled)
+    want = IK.int8_conv_plain(x, w, xs, ws, b, padding=(1, 1), out_dtype=torch.bfloat16,
+                              relu=True, requant=list(zip(scales, pooled)))
+    before = IK.launches
+    got = KO.int8_conv(*op_args)
+    assert IK.launches == before + 1
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(g, w_) for g, w_ in zip(got[1], want[1]))
+    cpu_args = tuple(cpu(a) if torch.is_tensor(a) or (isinstance(a, list) and a
+                     and torch.is_tensor(a[0])) else a for a in op_args)
+    cpu_got = KO.int8_conv(*cpu_args)
+    assert torch.equal(cpu_got[0], want[0].cpu())
+    out, nodes = export_run(
+        tmp_path, lambda x_, w2, xs_, ws_, b_, s0, s1: KO.int8_conv(
+            x_, w2, xs_, ws_, b_, [1, 1], torch.bfloat16, True, [s0, s1], pooled),
+        (x, w, xs, ws, b, *scales))
+    assert nodes == ["mscnn.int8_conv.default"] and IK.launches == before + 2
+    assert torch.equal(out[0], want[0])
+    assert all(torch.equal(g, w_) for g, w_ in zip(out[1], want[1]))
