@@ -108,8 +108,10 @@ Phases (any failure exits non-zero, before the result line):
                 solver_2nd written from zoo.kitti_car_8s_768()
                 (config/zoo_export.py) and imported back to it, then
                 `mscnn_torch.cli train2 --bf16 --uint8-input --conv1 auto`
-                (4 + 4 iterations, batch 4 of 768x1024 crops of images
-                resized to 768x2560, stage 2 snapshotting every 2) in
+                through the worker loader, the CLI's default (a worker
+                a core, no more than its 12 slots; 4 + 4 iterations,
+                batch 4 of 768x1024 crops of images resized to
+                768x2560, stage 2 snapshotting every 2) in
                 deterministic mode (`train2_entry_point`, which phase 15
                 shares): K2 8 launches and K1 4 (this run's counts alone),
                 each launch held against its plain version on the run's
@@ -179,8 +181,28 @@ Phases (any failure exits non-zero, before the result line):
                 `time --deploy --bf16 --max-out 256 --batch-size 4`; (i) the
                 KITTI cascade through `compile --batch 1` and `detect
                 --compiled`, equal to detect_cascade; (j) no jax, mscnn_tpu or
-                cv2 module loaded. No jax or mscnn_tpu module is loaded after
-                any phase.
+                cv2 module loaded;
+ 17. JPEG and the input path -- (a) every fixture of tests/assets/jpeg/
+                (one small JPEG a decoding mode, the Adam7 PNGs, eight
+                375x1242 JPEGs) decoded by data/image_io.py to cv2's array
+                bit for bit (the manifest's SHA-256 of cv2.imread's array),
+                the header shape equal, the JPEG decode ms an image; (b)
+                `detect --bf16 --conv1 auto` on the eight JPEGs at 768x2560
+                (2 K1 + 1 K2 an image, each held to plain, the labels equal
+                to detect_batch's) and `detect --int8 --int8-heads`
+                calibrated on two of them (17 K4 an image + 15 a head
+                calibration image, each equal to plain), the decode / resize
+                / device split; (c) one JPEG POSTed to `serve` (phase 16's
+                batch-4 artifact), the answer equal to compiled.detect; (d)
+                a record shard of the JPEGs through `train2` on phase 13's
+                harness (its checks (a), (b) off; 20 timed iterations):
+                through the worker loader (the CLI's default, a worker a
+                core; its timed iterations again at 2 workers, through
+                make_loader), then `--no-native`: the eight batches equal
+                (digests) and the first iteration's losses equal, each run's
+                input wait and share beside phase 13's; (e) no jax,
+                mscnn_tpu or cv2 module loaded. No jax or mscnn_tpu module
+                is loaded after any phase.
 
 The lines before the last give the card's name and power limit
 (nvidia-smi) and one JSON object listing every kernel, each with its
@@ -199,6 +221,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -646,9 +669,32 @@ def cli_args(cli, *argv):
     return p.parse_args(list(argv))
 
 
+def batch_digest(batch):
+    """One SHA-256 over a batch dict's arrays (host copies, sorted keys)."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        v = batch[k]
+        v = v.cpu().numpy() if torch.is_tensor(v) else v
+        h.update(k.encode() + str(v.dtype).encode() + str(v.shape).encode() + v.tobytes())
+    return h.hexdigest()
+
+
+def one_thread_dataset(wf, aug, dspec):
+    """The one-thread pipeline's dataset over a window file or a record shard."""
+    from mscnn_torch.data import pipeline as P
+    from mscnn_torch.data import records as R
+    if R.is_record_shard(wf):
+        return R.RecordShard(wf).dataset(aug, dspec)
+    return P.dataset_from_window_file(wf, aug, dspec)
+
+
 def train2_entry_point(tag, dev, counts, zero_counts, PROF, *, seed, train_hw,
                        write_nets, check_warm, loss_keys, exact_resume, timed_iters,
-                       extra=None):
+                       extra=None, write_data=None, argv_extra=(), timed_extra=(),
+                       full=True):
     """`mscnn_torch.cli train2` from one model's stage-1 trainval to its
     stage-2 trainval at full width: the harness phases 13 and 15 share
     (module notes). write_nets(root, wf) writes and checks the texts and
@@ -659,8 +705,14 @@ def train2_entry_point(tag, dev, counts, zero_counts, PROF, *, seed, train_hw,
     display metrics every stage-2 iteration reports, finite; exact_resume:
     the resumed run must equal the uninterrupted one bit for bit (else
     within the training step's tolerance); extra(root, wf, paths, ref, out)
-    runs the model's own checks on ref. Returns the figures the kernels
-    line and the log use."""
+    runs the model's own checks on ref. write_data(root) writes the images
+    and returns the window file or record shard (default: write_kitti_like's
+    PPMs); argv_extra: more CLI arguments for every run (e.g. --no-native);
+    timed_extra: (label, make_loader keywords) of more loader set-ups to
+    time as the timed iterations are timed; full=False leaves out (a), (b),
+    extra and the profiler window. Returns the figures the kernels line and
+    the log use, with each batch's digest and the display metrics of both
+    stages (`shown`)."""
     import warnings
 
     import numpy as np
@@ -668,6 +720,7 @@ def train2_entry_point(tag, dev, counts, zero_counts, PROF, *, seed, train_hw,
 
     from mscnn_torch import cli
     from mscnn_torch.config import zoo_import as ZI
+    from mscnn_torch.data import native_loader as NL
     from mscnn_torch.data import pipeline as P
     from mscnn_torch.io import checkpoint as CKPT
     from mscnn_torch.ops import nms as nms_ops
@@ -678,7 +731,7 @@ def train2_entry_point(tag, dev, counts, zero_counts, PROF, *, seed, train_hw,
     out = {}
     tmp = tempfile.TemporaryDirectory()
     root = tmp.name
-    wf = write_kitti_like(root, TRAIN_IMAGES, seed)
+    wf = write_data(root) if write_data else write_kitti_like(root, TRAIN_IMAGES, seed)
     paths = write_nets(root, wf)
 
     # -- the run: train2, counts from this run alone, the kernels' inputs kept
@@ -703,11 +756,19 @@ def train2_entry_point(tag, dev, counts, zero_counts, PROF, *, seed, train_hw,
         batches.append(b)
         return b
 
+    shown = []
+    solve = LP.solve
+
+    def rec_solve(*a, hooks=(), **kw):
+        return solve(*a, hooks=list(hooks) + [lambda it, m: shown.append((it, dict(m)))],
+                     **kw)
+
     argv = ["train2", "--solver1", paths[1][1], "--solver2", paths[2][1], "--bf16",
-            "--uint8-input", "--conv1", "auto", "--seed", str(SEED)]
+            "--uint8-input", "--conv1", "auto", "--seed", str(SEED), *argv_extra]
     # bitwise resume needs deterministic kernels (cuBLAS: its workspace config)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     NK.nms_xywh_cuda, CK.conv1_pool_cuda, P.Prefetcher.get = rec_nms, rec_conv1, rec_get
+    LP.solve = rec_solve
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with warnings.catch_warnings(record=True) as caught:
@@ -720,6 +781,9 @@ def train2_entry_point(tag, dev, counts, zero_counts, PROF, *, seed, train_hw,
             launches = counts()
     finally:
         NK.nms_xywh_cuda, CK.conv1_pool_cuda, P.Prefetcher.get = nms_cuda, conv1_cuda, get
+        LP.solve = solve
+    out["batch_digests"] = [batch_digest(b) for b in batches]
+    out["shown"] = shown
     nondet = sorted({str(w.message).split(" does not have")[0][:80] for w in caught
                      if "deterministic" in str(w.message)})
     if rc != 0:
@@ -761,63 +825,66 @@ def train2_entry_point(tag, dev, counts, zero_counts, PROF, *, seed, train_hw,
                     weights_only=True)["params"]
     ref = torch.load(os.path.join(snap2, CKPT.STATE_FILE), map_location="cpu",
                      weights_only=True)
-    common = ("--bf16", "--uint8-input", "--conv1", "auto", "--seed", str(SEED))
+    common = ("--bf16", "--uint8-input", "--conv1", "auto", "--seed", str(SEED),
+              *argv_extra)
 
     def build(*args):
         return cli._build_training(cli_args(cli, *common, *args), paths[2][1])
 
-    log(f"{tag}: (a) " + check_warm(build, s1, snap1, ref))
-    del s1
+    if full:   # (a) the warm start, (b) the resume, the model's own checks
+        log(f"{tag}: (a) " + check_warm(build, s1, snap1, ref))
+        del s1
 
-    # (b) resume: the iter-2 snapshot through the CLI's --snapshot path, then
-    # stage 2's iterations 2 and 3 on the batches the run gave them
-    st2, step2, _, lspec2, _, _ = build("--snapshot", f"{paths[2][2]}_iter_2")
-    if int(st2["solver"]["it"]) != 2 or len(batches) != 8:
-        fail(f"{tag}: resumed at {int(st2['solver']['it'])}, {len(batches)} batches")
-    replay = iter(batches[6:8])
-    seen = []
-    resumed = LP.solve(step2, st2, lambda: next(replay),
-                       dataclasses.replace(lspec2, snapshot=0, snapshot_prefix="",
-                                           display=1),
-                       seed=SEED, log=lambda m: None,
-                       hooks=[lambda it, m: seen.append(dict(m))])
+        # (b) resume: the iter-2 snapshot through the CLI's --snapshot path, then
+        # stage 2's iterations 2 and 3 on the batches the run gave them
+        st2, step2, _, lspec2, _, _ = build("--snapshot", f"{paths[2][2]}_iter_2")
+        if int(st2["solver"]["it"]) != 2 or len(batches) != 8:
+            fail(f"{tag}: resumed at {int(st2['solver']['it'])}, {len(batches)} batches")
+        replay = iter(batches[6:8])
+        seen = []
+        resumed = LP.solve(step2, st2, lambda: next(replay),
+                           dataclasses.replace(lspec2, snapshot=0, snapshot_prefix="",
+                                               display=1),
+                           seed=SEED, log=lambda m: None,
+                           hooks=[lambda it, m: seen.append(dict(m))])
+        torch.use_deterministic_algorithms(False)
+        diff = tree_diff(resumed["params"], ref["params"]) + \
+            tree_diff(resumed["solver"]["h1"], ref["solver"]["h1"])
+        if int(resumed["solver"]["it"]) != 4 or (diff and exact_resume):
+            fail(f"{tag}: (b) the resumed run differs from the uninterrupted one: "
+                 f"{diff[:5]} ({len(diff)} leaves), iter {int(resumed['solver']['it'])}")
+        if not diff:
+            out["resume"] = "bit-equal"
+        else:
+            # the training step's tolerance (phase 11, tests/test_torch_train_step.py):
+            # 1e-2 of each weight's movement over the two steps
+            st_w = torch.load(os.path.join(f"{paths[2][2]}_iter_2", CKPT.STATE_FILE),
+                              map_location="cpu", weights_only=True)
+            worst = 0.0
+            for n, p in ref["params"].items():
+                for k, w in p.items():
+                    g, w0 = resumed["params"][n][k].cpu(), st_w["params"][n][k]
+                    mv = (w - w0).abs().max().item()
+                    err = (g - w).abs().max().item()
+                    if err > 1e-2 * mv + 4 * np.spacing(np.float32(w.abs().max().item())):
+                        fail(f"{tag}: (b) the resumed {n}.{k} is {err:.4g} from the "
+                             f"uninterrupted run's (movement {mv:.4g})")
+                    worst = max(worst, err / mv if mv else 0.0)
+            out["resume"] = f"within the step tolerance ({len(diff)} leaves not " \
+                            f"bit-equal, worst {worst:.3g} of the movement)"
+        if len(seen) != 2 or not all(set(loss_keys) <= set(m) and all(
+                math.isfinite(v) for v in m.values()) for m in seen):
+            fail(f"{tag}: (b) losses of iterations 2-3 {seen}")
+        out["losses"] = {k: seen[0][k] for k in sorted(loss_keys)}
+        log(f"{tag}: (b) resumed from {os.path.basename(paths[2][2])}_iter_2 "
+            f"(`--snapshot`, stage 2's own batches 2-3 replayed: the data stream "
+            f"restarts on resume, as in the reference) to iter 4: {out['resume']} "
+            f"against the uninterrupted run; iteration 2's "
+            + ", ".join(f"{k} {v:.4f}" for k, v in out["losses"].items()))
+        del resumed, st2, replay
+        if extra is not None:
+            extra(root, wf, paths, ref, out)
     torch.use_deterministic_algorithms(False)
-    diff = tree_diff(resumed["params"], ref["params"]) + \
-        tree_diff(resumed["solver"]["h1"], ref["solver"]["h1"])
-    if int(resumed["solver"]["it"]) != 4 or (diff and exact_resume):
-        fail(f"{tag}: (b) the resumed run differs from the uninterrupted one: "
-             f"{diff[:5]} ({len(diff)} leaves), iter {int(resumed['solver']['it'])}")
-    if not diff:
-        out["resume"] = "bit-equal"
-    else:
-        # the training step's tolerance (phase 11, tests/test_torch_train_step.py):
-        # 1e-2 of each weight's movement over the two steps
-        st_w = torch.load(os.path.join(f"{paths[2][2]}_iter_2", CKPT.STATE_FILE),
-                          map_location="cpu", weights_only=True)
-        worst = 0.0
-        for n, p in ref["params"].items():
-            for k, w in p.items():
-                g, w0 = resumed["params"][n][k].cpu(), st_w["params"][n][k]
-                mv = (w - w0).abs().max().item()
-                err = (g - w).abs().max().item()
-                if err > 1e-2 * mv + 4 * np.spacing(np.float32(w.abs().max().item())):
-                    fail(f"{tag}: (b) the resumed {n}.{k} is {err:.4g} from the "
-                         f"uninterrupted run's (movement {mv:.4g})")
-                worst = max(worst, err / mv if mv else 0.0)
-        out["resume"] = f"within the step tolerance ({len(diff)} leaves not " \
-                        f"bit-equal, worst {worst:.3g} of the movement)"
-    if len(seen) != 2 or not all(set(loss_keys) <= set(m) and all(
-            math.isfinite(v) for v in m.values()) for m in seen):
-        fail(f"{tag}: (b) losses of iterations 2-3 {seen}")
-    out["losses"] = {k: seen[0][k] for k in sorted(loss_keys)}
-    log(f"{tag}: (b) resumed from {os.path.basename(paths[2][2])}_iter_2 "
-        f"(`--snapshot`, stage 2's own batches 2-3 replayed: the data stream "
-        f"restarts on resume, as in the reference) to iter 4: {out['resume']} "
-        f"against the uninterrupted run; iteration 2's "
-        + ", ".join(f"{k} {v:.4f}" for k, v in out["losses"].items()))
-    del resumed, st2, replay
-    if extra is not None:
-        extra(root, wf, paths, ref, out)
     del ref
 
     # the loop's cost: stage 2 resumed from its final snapshot for timed_iters
@@ -825,8 +892,8 @@ def train2_entry_point(tag, dev, counts, zero_counts, PROF, *, seed, train_hw,
     # displays
     state, step, make_source, lspec, _, _ = build("--snapshot", snap2)
     aug2, dspec2 = ZI.model_from_prototxt(paths[2][0])[2:4]
-    host = P.dataset_from_window_file(wf, dataclasses.replace(aug2, emit_uint8=True),
-                                      dspec2).next_batch()   # the transfer check
+    host = one_thread_dataset(wf, dataclasses.replace(aug2, emit_uint8=True),
+                              dspec2).next_batch()   # the transfer check
     lspec = dataclasses.replace(lspec, max_iter=4 + timed_iters, display=2, snapshot=0,
                                 snapshot_prefix="")
     marks, waits, it_box = [], [], [4]
@@ -900,9 +967,48 @@ def train2_entry_point(tag, dev, counts, zero_counts, PROF, *, seed, train_hw,
 
         busy = trace_window(PROF, one_iteration, f"{tag.replace(' ', '_')}_iteration",
                             f"two loop iterations of {tag}",
-                            "the iteration ms above is a host-clock time")
+                            "the iteration ms above is a host-clock time") \
+            if full else None
     out.update(iter_ms=iter_ms, wait_ms=wait_ms, wait_share=share, peak_gib=peak,
-               busy=busy)
+               busy=busy, timed={})
+    for label, loader_kw in timed_extra:
+        # the same timed iterations from the final snapshot through another
+        # loader set-up (host clock between displays; the wait inside get())
+        state, step, make_source, lspec, _, _ = build("--snapshot", snap2)
+        lspec = dataclasses.replace(lspec, max_iter=4 + timed_iters, display=2,
+                                    snapshot=0, snapshot_prefix="")
+        marks, waits, it_box = [], [], [4]
+        make_loader = NL.make_loader
+        NL.make_loader = lambda *a, **kw: make_loader(*a, **{**kw, **loader_kw})
+        try:
+            src = make_source()
+        finally:
+            NL.make_loader = make_loader
+        with src:
+            def source():
+                t = time.perf_counter()
+                b = src.get()
+                waits.append((it_box[0], time.perf_counter() - t))
+                it_box[0] += 1
+                return b
+
+            state = LP.solve(step, state, source, lspec, seed=SEED, log=lambda m: None,
+                             hooks=[lambda it, m: marks.append((it, time.perf_counter()))])
+            torch.cuda.synchronize()
+            stats = getattr(getattr(src, "dataset", None), "stats", None)
+        windows = [(b[1] - a[1]) / (b[0] - a[0]) for a, b in zip(marks, marks[1:])]
+        inside = [w for it, w in waits if marks[0][0] < it <= marks[-1][0]]
+        out["timed"][label] = {
+            "iter_ms": statistics.median(windows) * 1e3,
+            "wait_ms": statistics.median(inside) * 1e3,
+            "wait_share": sum(inside) / (marks[-1][1] - marks[0][1]),
+            "stats": dict(stats) if isinstance(stats, dict) else None}
+        t = out["timed"][label]
+        log(f"{tag}: {label}: iteration {t['iter_ms']:.2f} ms (median of "
+            f"{len(windows)} two-iteration windows: "
+            f"{', '.join(f'{w * 1e3:.2f}' for w in windows)}), input wait "
+            f"{t['wait_ms']:.2f} ms a step (median), {t['wait_share']:.4f} of the "
+            f"iterations' time")
     del state, step, moved_batch, batches
     tmp.cleanup()
     torch.cuda.empty_cache()
@@ -914,9 +1020,11 @@ def train2_entry_point(tag, dev, counts, zero_counts, PROF, *, seed, train_hw,
     return out
 
 
-def training_entry_point(dev, counts, zero_counts, PROF):
+def training_entry_point(dev, counts, zero_counts, PROF, tag="train entry", **harness):
     """Phase 13: `mscnn_torch.cli train2` on the flagship at full width
-    (module notes). Returns the figures the kernels line and the log use."""
+    (module notes). harness: more of train2_entry_point's arguments (phase
+    17's runs over a JPEG shard). Returns the figures the kernels line and
+    the log use."""
     import torch
 
     from mscnn_torch.config import zoo_export as ZE
@@ -927,8 +1035,6 @@ def training_entry_point(dev, counts, zero_counts, PROF):
     from mscnn_torch.io import checkpoint as CKPT
     from mscnn_torch.models import mscnn as M
     from mscnn_torch.models import zoo
-
-    tag = "train entry"
 
     def write_nets(root, wf):
         t0 = time.perf_counter()
@@ -953,7 +1059,7 @@ def training_entry_point(dev, counts, zero_counts, PROF):
                      f"{cfg.name} and its specs")
             paths[stage] = (net, solver, lspec.snapshot_prefix)
         log(f"{tag}: {TRAIN_IMAGES} synthetic KITTI images {KITTI_HW[0]}x{KITTI_HW[1]} "
-            f"(PPM) + window file, trainval_1st/2nd and solver_1st/2nd from "
+            f"({os.path.basename(wf)}), trainval_1st/2nd and solver_1st/2nd from "
             f"zoo.kitti_car_8s_768() import back to it "
             f"({time.perf_counter() - t0:.1f} s)")
         return paths
@@ -1044,7 +1150,7 @@ def training_entry_point(dev, counts, zero_counts, PROF):
         train_hw=zoo.kitti_car_8s_768().input_hw,
         write_nets=write_nets, check_warm=check_warm,
         loss_keys=("loss", "loss_cls", "loss_bbox"), exact_resume=False,
-        timed_iters=10, extra=extra)
+        timed_iters=harness.pop("timed_iters", 10), extra=extra, **harness)
 
 
 CASCADE_HW = (576, 1920)      # kitti_car/cascade-mscnn-7s-576-2x deploy
@@ -1467,22 +1573,54 @@ def same_outputs(tag, got, want):
     return differ
 
 
+def cli_run(out, rec, counts, zero_counts, tag, *argv, expect=None):
+    """`mscnn_torch.cli.main(argv)` in this process with the kernels'
+    launches counted from this run alone and every launch recorded (rec);
+    the launches go to out["launches"][tag]. Returns (stdout, launches,
+    sink, seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mscnn_torch import cli
+
+    sink = {"nms": [], "conv1": [], "int8": []}
+    buf = io.StringIO()
+    rec(True, sink)
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    rec(False, sink)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  [{tag}] {line}")
+    if rc != 0:
+        fail(f"{tag}: `{' '.join(map(str, argv))}` returned {rc}")
+    if expect is not None and any(launches[k] != v for k, v in expect.items()):
+        fail(f"{tag}: launches {launches}, expected {expect}")
+    out["launches"][tag] = launches
+    return text, launches, sink, seconds
+
+
 def deploy_entry_points(dev, counts, zero_counts, PROF, rec):
     """Phase 16 (module notes): the port's deploy commands through
     `mscnn_torch.cli.main`, in this process, at the flagship's full width.
     rec(on, sink) switches the kernels' recording wrappers on or off; every
     recorded launch is held to its plain version (`hold_to_plain`).
-    Returns the figures the kernels line and the log use."""
-    import contextlib
-    import io
-    import shutil
+    Returns the figures the kernels line and the log use, and (for phase
+    17) its directory, snapshot and batch-4 bf16 artifact, which the caller
+    removes."""
     import threading
     import urllib.request
 
     import numpy as np
     import torch
 
-    from mscnn_torch import cli
     from mscnn_torch import inference as I
     from mscnn_torch import serve as SV
     from mscnn_torch.data import image_io
@@ -1506,29 +1644,7 @@ def deploy_entry_points(dev, counts, zero_counts, PROF, rec):
     spec = I.DetectSpec()
     names = I.KITTI_CLASS_NAMES["kitti_car"]
 
-    def run_cli(tag, *argv, expect=None):
-        """cli.main(argv) with launches counted from this run alone and every
-        launch recorded; returns (stdout, launches, sink, seconds)."""
-        sink = {"nms": [], "conv1": [], "int8": []}
-        buf = io.StringIO()
-        rec(True, sink)
-        zero_counts()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main([str(a) for a in argv])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = counts()
-        rec(False, sink)
-        text = buf.getvalue()
-        for line in text.splitlines():
-            log(f"  [{tag}] {line}")
-        if rc != 0:
-            fail(f"{tag}: `{' '.join(map(str, argv))}` returned {rc}")
-        if expect is not None and any(launches[k] != v for k, v in expect.items()):
-            fail(f"{tag}: launches {launches}, expected {expect}")
-        out["launches"][tag] = launches
-        return text, launches, sink, seconds
+    run_cli = functools.partial(cli_run, out, rec, counts, zero_counts)
 
     def steady(text):
         m = re.search(r"\(([0-9.]+) s/img steady-state", text)
@@ -1935,9 +2051,236 @@ def deploy_entry_points(dev, counts, zero_counts, PROF, rec):
     # -- (j) nothing of jax, mscnn_tpu or cv2 was imported
     if jax_loaded() or any(m == "cv2" or m.startswith("cv2.") for m in sys.modules):
         fail("the deploy entry points imported jax, mscnn_tpu or cv2")
-    shutil.rmtree(root, ignore_errors=True)
+    out.update(root=root, snapshot=snap, art_bf16=arts["bf16"])
     out["seconds"] = time.perf_counter() - t_phase
     log(f"entry: no jax, mscnn_tpu or cv2 module loaded; phase 16 took "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 17: JPEG without cv2, the training input path ------------------------
+
+JPEG_ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                           "assets", "jpeg")
+
+
+def jpeg_input_path(dev, counts, zero_counts, PROF, rec, ep, tr):
+    """Phase 17 (module notes): the committed JPEG / Adam7 fixtures through
+    data/image_io.py, `detect` bf16 and int8 and `serve` on the eight
+    375x1242 JPEGs (phase 16's snapshot and batch-4 artifact, ep), and
+    `train2` from a record shard of them through the worker loader and the
+    one-thread pipeline (phase 13's harness; tr: phase 13's figures).
+    Returns the figures the kernels line and the log use."""
+    import hashlib
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mscnn_torch import inference as I
+    from mscnn_torch import serve as SV
+    from mscnn_torch.data import image_io
+    from mscnn_torch.data import records as R
+    from mscnn_torch.data import window_file as W
+    from mscnn_torch.data.resize import resize_bilinear_u8
+    from mscnn_torch.io import aot
+    from mscnn_torch.io import checkpoint as CKPT
+    from mscnn_torch.models import mscnn as M
+    from mscnn_torch.models import zoo
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "nms_err": 0.0, "conv1_err": 0.0, "conv1_share": 1.0,
+           "int8_err": 0.0}
+    run_cli = functools.partial(cli_run, out, rec, counts, zero_counts)
+    root = tempfile.mkdtemp(prefix="mscnn_jpeg_")
+    img_dir = os.path.join(JPEG_ASSETS, "kitti")
+    n_img = 8
+
+    # -- (a) every fixture decodes to cv2's decode, bit for bit (the manifest's
+    # digest of cv2.imread's array; the small ones also their .want.png)
+    with open(os.path.join(JPEG_ASSETS, "manifest.json")) as f:
+        manifest = json.load(f)
+    dec_ms = []
+    for rel, e in sorted(manifest.items()):
+        path = os.path.join(JPEG_ASSETS, rel)
+        t0 = time.perf_counter()
+        img = image_io.imread(path)
+        ms = (time.perf_counter() - t0) * 1e3
+        hw = image_io.shape(image_io.read_header_bytes(path))
+        if list(img.shape) != e["shape"] or hw != tuple(e["shape"][:2]) or \
+                hashlib.sha256(img.tobytes()).hexdigest() != e["sha256"]:
+            fail(f"jpeg: {rel} ({e['mode']}) does not decode to cv2's array "
+                 f"({img.shape}, header {hw})")
+        if rel.startswith("kitti/"):
+            dec_ms.append(ms)
+        elif not np.array_equal(img, image_io.imread(path.rsplit(".", 1)[0] + ".want.png")):
+            fail(f"jpeg: {rel} differs from its .want.png")
+    out["decode_ms"] = statistics.median(dec_ms)
+    log(f"jpeg: (a) all {len(manifest)} fixtures ({', '.join(sorted({e['mode'].split(',')[0] for e in manifest.values()}))} "
+        f"modes) decode bit for bit to cv2's arrays, header shapes equal; JPEG "
+        f"decode {out['decode_ms']:.1f} ms a 375x1242 image (median of {n_img}, "
+        f"{min(dec_ms):.1f}-{max(dec_ms):.1f})")
+
+    # -- (b) detect on the JPEGs at 768x2560: bf16 + conv1 auto (2 K1 + 1 K2 an
+    # image), the labels equal detect_batch's on the decoded images; int8 +
+    # heads on two of them (17 K4 an image, 15 a head-calibration image)
+    snap = ep["snapshot"]
+    det_b = os.path.join(root, "det_bf16")
+    text, launches, sink, secs = run_cli(
+        "jpeg detect bf16", "detect", "--zoo", FLAGSHIP_256, "--weights", snap, "--bf16",
+        "--conv1", "auto", "--image-dir", img_dir, "--output-dir", det_b,
+        expect={"nms": 2 * n_img, "conv1_pool": n_img, "int8_gemm": 0})
+    held = hold_to_plain(sink, "jpeg detect bf16", out)
+    del sink
+    m = re.search(r"\(([0-9.]+) s/img steady-state", text)
+    out["detect_s_img"] = float(m.group(1)) if m else None
+    p32 = torch.load(os.path.join(snap, CKPT.STATE_FILE), map_location=dev,
+                     weights_only=True)["params"]
+    cfg = dataclasses.replace(zoo.get(FLAGSHIP_256, deploy=True),
+                              compute_dtype="bfloat16", pallas_conv1=True)
+    params = M.cast_params(p32, torch.bfloat16)
+    del p32
+    spec = I.DetectSpec()
+    names = I.KITTI_CLASS_NAMES["kitti_car"]
+    decoded = [image_io.imread(os.path.join(img_dir, f"{i:06d}.jpg"))
+               for i in range(n_img)]
+    ref_dir = os.path.join(root, "ref_bf16")
+    for i, img in enumerate(decoded):
+        I.write_kitti_labels(I.detections_to_kitti(
+            I.detect_batch(params, [img], cfg, spec)[0], names), ref_dir, i)
+        with open(os.path.join(det_b, f"{i:06d}.txt")) as a, \
+                open(os.path.join(ref_dir, f"{i:06d}.txt")) as b:
+            if a.read() != b.read():
+                fail(f"jpeg detect bf16: {i:06d}.txt differs from detect_batch's labels")
+    log(f"jpeg: (b) detect --bf16 --conv1 auto on {n_img} JPEGs: {secs:.2f} s, "
+        f"launches {launches}; {held}; labels equal to detect_batch's on the "
+        f"decoded images; steady {out['detect_s_img']} s/img")
+    n8 = 2
+    text, launches, sink, secs = run_cli(
+        "jpeg detect int8", "detect", "--zoo", FLAGSHIP_256, "--weights", snap, "--bf16",
+        "--int8", "--int8-heads", "--calib-images", n8, "--image-dir", img_dir,
+        "--iterations", n8, "--output-dir", os.path.join(root, "det_int8"),
+        expect={"int8_gemm": 17 * n8 + 15 * n8, "conv1_pool": 0,
+                "nms": 2 * n8 + n8})   # + the head calibration's propose
+    held = hold_to_plain(sink, "jpeg detect int8", out)
+    del sink
+    torch.cuda.empty_cache()
+    log(f"jpeg: (b) detect --int8 --int8-heads, calibrated on {n8} JPEGs: {secs:.2f} s, "
+        f"launches {launches} = 17 x {n8} + 15 x {n8} (head calibration); {held}")
+    # the split of detect's time an image: decode, resize (host), batch-1 step
+    rs = []
+    for img in decoded:
+        t0 = time.perf_counter()
+        resize_bilinear_u8(img, (cfg.input_hw[1], cfg.input_hw[0]))
+        rs.append((time.perf_counter() - t0) * 1e3)
+    c = aot.load_deploy(ep["art_bf16"])
+    one = [t[:1] for t in c.inputs([c._prep(im) for im in decoded[:BATCH]])]
+    e2e1 = I.make_e2e_forward(params, cfg, spec)
+    out["split_ms"] = {"decode": out["decode_ms"], "resize": statistics.median(rs),
+                       "device": cuda_ms(lambda: e2e1(params, *one))}
+    log(f"jpeg: (b) detect split, ms an image (medians): JPEG decode "
+        f"{out['split_ms']['decode']:.2f}, resize to 768x2560 "
+        f"{out['split_ms']['resize']:.2f}, the batch-1 bf16 step "
+        f"{out['split_ms']['device']:.3f} (CUDA events)")
+    del e2e1, one, params
+
+    # -- (c) serve: one JPEG POST, the answer equal to compiled.detect
+    boot, ready = {}, threading.Event()
+
+    def started(httpd):
+        boot["httpd"] = httpd
+        ready.set()
+
+    threading.Thread(target=SV.serve, args=(ep["art_bf16"], 0), kwargs={
+        "started": started, "linger_ms": 5.0}, daemon=True).start()
+    if not ready.wait(300):
+        fail("jpeg serve: the server did not start")
+    httpd = boot["httpd"]
+    try:
+        with open(os.path.join(img_dir, "000000.jpg"), "rb") as f:
+            body = f.read()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/detect", data=body,
+            method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            res = json.loads(r.read())
+        out["serve_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        httpd.shutdown()
+    want = SV.detections_json(c.detect(decoded[0]))
+    err = 0.0
+    if res["num"] != len(want) or [d["class_id"] for d in res["detections"]] != \
+            [d["class_id"] for d in want]:
+        fail(f"jpeg serve: {res['num']} detections, compiled.detect {len(want)}")
+    for a, b in zip(res["detections"], want):
+        err = max([err, abs(a["score"] - b["score"])] +
+                  [abs(u - v) for u, v in zip(a["bbox"], b["bbox"])])
+    if err > 1e-3:
+        fail(f"jpeg serve: the answer differs from compiled.detect by {err}")
+    log(f"jpeg: (c) serve: a JPEG POST answered in {out['serve_ms']:.1f} ms with "
+        f"{res['num']} detections, equal to compiled.detect (max diff {err:.3g})")
+    del c
+    torch.cuda.empty_cache()
+
+    # -- (d) train2 from a record shard of the JPEGs on phase 13's harness:
+    # through the worker loader (the CLI's default, a worker a core; then 2
+    # workers timed), then --no-native; the same batches and the same first
+    # losses
+    def write_data(r):
+        shard = os.path.join(r, "trainval.rec")
+        R.write_records(shard, W.parse_window_file(os.path.join(img_dir, "trainval.txt"),
+                                                   img_dir + os.sep))
+        return shard
+
+    nw = min(len(os.sched_getaffinity(0)), 3 * BATCH)    # the CLI's worker count
+    runs = {}
+    for label, more, extra_t in (
+            ("worker loader", (), [("2 workers", {"num_workers": 2})]),
+            ("--no-native", ("--no-native",), [])):
+        runs[label] = training_entry_point(
+            dev, counts, zero_counts, PROF, tag=f"jpeg train {label}",
+            write_data=write_data, argv_extra=more, timed_extra=extra_t,
+            timed_iters=20, full=False)
+        out["launches"][f"train {label}"] = runs[label]["launches"]
+        out["conv1_err"] = max(out["conv1_err"], runs[label]["k2_err"])
+        out["conv1_share"] = min(out["conv1_share"], runs[label]["k2_share"])
+    a, b = runs["worker loader"], runs["--no-native"]
+    if a["batch_digests"] != b["batch_digests"] or len(a["batch_digests"]) != 8:
+        fail(f"jpeg train: the worker loader's {len(a['batch_digests'])} batches differ "
+             f"from the one-thread pipeline's")
+    if not a["shown"] or a["shown"][0] != b["shown"][0]:
+        fail(f"jpeg train: the first iteration's losses differ: {a['shown'][:1]} "
+             f"against {b['shown'][:1]}")
+    later = max((abs(x - y) / max(abs(y), 1e-12) for (_, ma), (_, mb) in
+                 zip(a["shown"][1:], b["shown"][1:]) for k, x in ma.items()
+                 for y in [mb[k]]), default=0.0)
+    out["train"] = {
+        "phase13": {"wait_ms": tr["wait_ms"], "wait_share": tr["wait_share"],
+                    "iter_ms": tr["iter_ms"]},
+        **{f"{k} {f'{nw} workers' if k == 'worker loader' else 'one thread'}":
+           {"wait_ms": v["wait_ms"], "wait_share": v["wait_share"], "iter_ms": v["iter_ms"]}
+           for k, v in runs.items()},
+        **{f"worker loader {k}": v for k, v in a["timed"].items()}}
+    log(f"jpeg: (d) train2 from a JPEG record shard: the worker loader's 8 batches "
+        f"equal the one-thread pipeline's (digests), the first iteration's losses "
+        f"equal (loss {a['shown'][0][1]['loss']:.6f}, {len(a['shown'][0][1])} display "
+        f"metrics); "
+        f"later displays within {later:.3g} (relative)")
+    for k, v in out["train"].items():
+        log(f"jpeg: (d) input wait, {k}: {v['wait_ms']:.2f} ms a step, "
+            f"{v['wait_share']:.4f} of the iteration ({v['iter_ms']:.2f} ms)"
+            + (f"; workers' decode {1e3 * v['stats']['decode_s'] / v['stats']['images']:.1f}"
+               f" ms, render {1e3 * v['stats']['render_s'] / v['stats']['images']:.1f} ms "
+               f"an image" if v.get("stats") and v["stats"]["images"] else ""))
+
+    # -- (e) nothing of jax, mscnn_tpu or cv2 was imported
+    if jax_loaded() or any(m == "cv2" or m.startswith("cv2.") for m in sys.modules):
+        fail("phase 17 imported jax, mscnn_tpu or cv2")
+    shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"jpeg: (e) no jax, mscnn_tpu or cv2 module loaded; phase 17 took "
         f"{out['seconds']:.1f} s")
     return out
 
@@ -3054,6 +3397,16 @@ def main():
     conv1_min_share = min(conv1_min_share, ep["conv1_share"])
     int8_max_err = max(int8_max_err, ep["int8_err"])
 
+    # -- 17. JPEG without cv2; train2 from a JPEG shard through the worker loader
+    try:
+        jp = jpeg_input_path(dev, counts, zero_counts, PROF, rec_into, ep, tr)
+    finally:
+        shutil.rmtree(ep["root"], ignore_errors=True)
+    nms_max_err = max(nms_max_err, jp["nms_err"])
+    conv1_max_err = max(conv1_max_err, jp["conv1_err"])
+    conv1_min_share = min(conv1_min_share, jp["conv1_share"])
+    int8_max_err = max(int8_max_err, jp["int8_err"])
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -3090,6 +3443,16 @@ def main():
         f"iteration, peak {ct['peak_gib']:.2f} GiB, busy share "
         + (f"{ct['busy']:.4f}" if ct["busy"] is not None else "not measured"))
 
+    log(f"jpeg on {card}: decode {jp['decode_ms']:.1f} ms a 375x1242 JPEG; detect "
+        f"split {jp['split_ms']}; steady {jp['detect_s_img']} s/img; input wait a "
+        f"train2 step and its share: " + "; ".join(
+            f"{k} {v['wait_ms']:.2f} ms, {v['wait_share']:.4f} ({v['iter_ms']:.2f} ms an "
+            f"iteration)" for k, v in jp["train"].items()))
+
+    def jpeg_launches(k):
+        """The kernel's launches in each run of phase 17."""
+        return {tag: v[k] for tag, v in jp["launches"].items()}
+
     def entry_launches(k):
         """The kernel's launches in each run of phase 16 (the CLI runs, the
         loaded artifacts' checked calls)."""
@@ -3117,6 +3480,7 @@ def main():
                               "widerface_align": cd["launches_wf"]["nms"],
                               "train2": ct["launches"]["nms"]},
          "launches_entry_points": entry_launches("nms"),
+         "launches_jpeg_input": jpeg_launches("nms"),
          "op": "mscnn::nms_xywh", "op_overhead_us": ep["op_overhead_us"]["nms_xywh"],
          "train": {tag: {"shape": [BATCH, fcfg.proposal.max_nms_num,
                                    fcfg.proposal.max_out], "kept": v[4],
@@ -3139,6 +3503,7 @@ def main():
                               "widerface_align": cd["launches_wf"]["conv1_pool"],
                               "train2": ct["launches"]["conv1_pool"]},
          "launches_entry_points": entry_launches("conv1_pool"),
+         "launches_jpeg_input": jpeg_launches("conv1_pool"),
          "op": "mscnn::conv1_pool", "op_overhead_us": ep["op_overhead_us"]["conv1_pool"],
          "train_entry_min_bit_equal_share": tr["k2_share"],
          "launches_train_pallas_tiny": k2_train_launches,
@@ -3161,6 +3526,7 @@ def main():
                               "widerface_align": cd["launches_wf"]["int8_gemm"],
                               "train2": ct["launches"]["int8_gemm"]},
          "launches_entry_points": entry_launches("int8_gemm"),
+         "launches_jpeg_input": jpeg_launches("int8_gemm"),
          "op": "mscnn::int8_conv", "op_overhead_us": ep["op_overhead_us"]["int8_conv"],
          "per_step": "sum of the 17 launches of one int8 deploy step; no one "
                      "PyTorch call computes an int8 conv with its epilogue, "

@@ -23,15 +23,18 @@ fused conv1 kernel (`pallas_conv1`, K2) on a card at bf16 unless `--int8`
 is set, as the JAX CLI picks its Pallas kernel on a TPU. A cascade
 prototxt or zoo entry routes to the cascade (`models/cascade.py`), with
 `--bf16` and `--conv1` applied to it too. Images are decoded by
-`data/image_io.py` (PNG, PPM and PGM without cv2) and resized by
+`data/image_io.py` (JPEG, PNG, PPM and PGM without cv2) and resized by
 `data/resize.py` (cv2's INTER_LINEAR, bit for bit). An artifact from
 `compile` is a `torch.export` program (`io/aot.py`) and runs on the device
-type it was exported on.
+type it was exported on. `train` / `train2` read their window file or
+record shard (`data/records.py`) through the worker loader
+(`data/native_loader.py`: one worker process a core of the host, no more
+than its slots), as the JAX CLI reads through its C++ loader;
+`--no-native` takes the one-thread pipeline.
 
 Not ported, each exiting or raising where the JAX CLI would take it: the
 generic-prototxt branch and `time --layers` (ROADMAP Queue 1 item 17),
-`--devices > 1` (item 20), the C++ data loader and record shards (item
-14c), and the tools commands (`resize_images`, `summary`, `plot_log`,
+`--devices > 1` (item 20), and the tools commands (`resize_images`, `summary`, `plot_log`,
 `upgrade_*_proto`, `draw`, `convert_imageset`, `vbb2bbgt`, `compute_mean`,
 `extract_features`; item 18).
 """
@@ -159,9 +162,17 @@ def _build_training(args, solver_path):
                              decay_mults=M.param_decay_multipliers(params, cfg),
                              loss_function=loss_function)
 
+    # one worker a core the process may run on, no more than the loader's
+    # slots (queue_depth 3 batches): decoding and rendering bound the loop
+    workers = min(len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+                  else os.cpu_count() or 1, 3 * dspec.batch_size)
+
     def make_batch_source():
         return NL.make_loader(window_file, aug, dspec,
-                              root_folder=args.root_folder, device=dev)
+                              root_folder=args.root_folder, device=dev,
+                              prefer_native=not getattr(args, "no_native",
+                                                        False),
+                              num_workers=workers, queue_depth=3)
 
     return state, step, make_batch_source, lspec, cfg, tspec
 
@@ -412,7 +423,8 @@ def cmd_time(args):
 
 def _read_image(path):
     """The decoded image, or None where the file does not decode (as
-    cv2.imread returns None); a format that needs cv2 without it raises."""
+    cv2.imread returns None); a format that needs cv2 without it, or a
+    JPEG mode data/jpeg.py does not decode, raises."""
     from mscnn_torch.data import image_io
 
     try:
@@ -896,6 +908,10 @@ def _add_common(p):
                    choices=["auto", "plain", "s2d", "pallas"],
                    help="conv1 strategy (auto: the fused conv1 kernel on a "
                         "card at bf16, else plain)")
+    p.add_argument("--no-native", action="store_true",
+                   help="read the training data on one thread (the "
+                        "one-thread pipeline) instead of the worker "
+                        "loader's processes")
     p.add_argument("--uint8-input", action="store_true",
                    help="ship raw uint8 image canvases and normalize on "
                         "the device (bit-identical; 4x less host->device "

@@ -1,16 +1,21 @@
 """Image decoding without cv2: what `cv2.imread(path, cv2.IMREAD_COLOR)` and
-`cv2.imdecode(buf, cv2.IMREAD_COLOR)` return, for PNG, PPM and PGM.
+`cv2.imdecode(buf, cv2.IMREAD_COLOR)` return, for JPEG, PNG, PPM and PGM.
 
 New in the port. The JAX package decodes with cv2 (mscnn_tpu/cli.py:510,
 :690, :734; mscnn_tpu/serve.py:141); the card's machine has no cv2, so the
 port decodes the formats its users feed it itself, in numpy and the
 standard library's zlib:
 
+  * JPEG: `data/jpeg.py` (libjpeg-turbo's integer decode, baseline and
+    progressive, EXIF orientation). It is used whether or not cv2 is
+    installed.
   * PNG (libpng's decode, as OpenCV configures it: 16-bit samples keep
     their high byte (`png_set_strip_16`), alpha is dropped
     (`png_set_strip_alpha`), a palette is expanded, gray of 1, 2 or 4 bits
-    is scaled to 8 and repeated over three channels), non-interlaced, bit
-    depths 1-16, every colour type, the five row filters. The filters
+    is scaled to 8 and repeated over three channels), bit depths 1-16,
+    every colour type, the five row filters, non-interlaced or Adam7
+    (each of the seven passes unfiltered on its own, then scattered into
+    the image), and the orientation of an `eXIf` chunk. The filters
     that read the pixel to the left (Sub, Average, Paeth) chain along a
     row and down the rows; they are undone over the image's anti-diagonals
     at once (each diagonal needs only the two before it; the pixels are
@@ -20,9 +25,10 @@ standard library's zlib:
     `data/pipeline.py`).
 
 The result is BGR uint8 [H, W, 3], equal to cv2's bit for bit
-(`tests/test_torch_image_io.py`). Any other format (JPEG, an interlaced
-PNG, ...) goes to cv2 where it can be imported; without it the call
-raises, naming the file and its format.
+(`tests/test_torch_image_io.py`, `tests/test_torch_jpeg.py`). BMP, TIFF
+and WEBP go to cv2 where it can be imported; without it the call raises,
+naming the file and its format. `shape` reads an image's height and width
+from its header alone.
 """
 
 from __future__ import annotations
@@ -32,7 +38,10 @@ import zlib
 
 import numpy as np
 
+from mscnn_torch.data import jpeg
+
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+PNG_MAX_SIDE = 1000000      # libpng's PNG_USER_WIDTH_MAX / PNG_USER_HEIGHT_MAX
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # PNG colour type -> samples a pixel
 
 
@@ -85,6 +94,7 @@ def pnm_header(data: bytes):
 
 def _decode_pnm(data: bytes, head, name: str) -> np.ndarray:
     c, w, h, maxval, off = head
+    jpeg.check_size(w, h, name)
     if maxval != 255 or len(data) < off + h * w * c:
         raise ValueError(f"could not read image {name}: {w}x{h}x{c} "
                          f"maxval {maxval}, {len(data) - off} pixel bytes "
@@ -95,13 +105,11 @@ def _decode_pnm(data: bytes, head, name: str) -> np.ndarray:
     return np.ascontiguousarray(img[:, :, ::-1])    # RGB -> BGR
 
 
-class _Unsupported(Exception):
-    """A valid PNG this decoder does not handle (interlaced)."""
-
-
-def _png_chunks(data: bytes, name: str):
-    """IHDR fields, the palette and the concatenated IDAT bytes."""
-    pos, ihdr, plte, idat = 8, None, None, []
+def _png_chunks(data: bytes, name: str, need_idat: bool = True):
+    """IHDR fields, the palette, the concatenated IDAT bytes and the EXIF
+    orientation of an `eXIf` chunk (libpng takes one that starts with II
+    or MM, before or after the image data)."""
+    pos, ihdr, plte, idat, orientation = 8, None, None, [], 1
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
@@ -113,12 +121,14 @@ def _png_chunks(data: bytes, name: str):
             plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"eXIf" and body[:2] in (b"II", b"MM"):
+            orientation = jpeg.exif_orientation(body)
         elif kind == b"IEND":
             break
         pos += 12 + length
-    if ihdr is None or not idat:
+    if ihdr is None or (need_idat and not idat):
         raise ValueError(f"could not read image {name}: truncated PNG")
-    return ihdr, plte, b"".join(idat)
+    return ihdr, plte, b"".join(idat), orientation
 
 
 def unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
@@ -173,38 +183,69 @@ def unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
     return out.reshape(h, r)
 
 
-def _decode_png(data: bytes, name: str) -> np.ndarray:
-    (w, h, depth, ctype, _comp, _filt, interlace), plte, idat = \
-        _png_chunks(data, name)
+# Adam7: each pass's first column, first row, column step, row step
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _samples(rows: np.ndarray, w: int, h: int, ch: int, depth: int,
+             ctype: int) -> np.ndarray:
+    """Filtered rows [h, 1 + row bytes] (filter byte first) -> samples
+    [h, w, ch] uint8 (16-bit: the high byte; gray of 1, 2 or 4 bits scaled
+    to 8; palette indices as they are)."""
+    lines = unfilter(rows[:, 1:], rows[:, 0], max(1, ch * depth // 8))
+    if depth == 16:      # png_set_strip_16: the high (first) byte
+        return lines[:, 0::2][:, :w * ch].reshape(h, w, ch)
+    if depth == 8:
+        return lines[:, :w * ch].reshape(h, w, ch)
+    # 1, 2, 4 bits, one sample a pixel, first in the high bits
+    per = 8 // depth
+    shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+    packed = (lines[:, :, None] >> shifts) & ((1 << depth) - 1)
+    samples = packed.reshape(h, -1)[:, :w].reshape(h, w, 1)
+    if ctype == 0:       # png_set_expand_gray_1_2_4_to_8
+        samples = samples * np.uint8(255 // ((1 << depth) - 1))
+    return samples
+
+
+def _png_header(data: bytes, name: str, need_idat: bool = True):
+    ihdr, plte, idat, orientation = _png_chunks(data, name, need_idat)
+    w, h, depth, ctype, _comp, _filt, interlace = ihdr
     if ctype not in _CHANNELS or depth not in (1, 2, 4, 8, 16) or \
             (ctype in (2, 4, 6) and depth < 8) or (ctype == 3 and depth > 8):
         raise ValueError(f"could not read image {name}: PNG colour type "
                          f"{ctype} at bit depth {depth}")
-    if interlace:
-        raise _Unsupported("interlaced PNG")
+    if interlace > 1:
+        raise ValueError(f"could not read image {name}: PNG interlace "
+                         f"method {interlace}")
+    jpeg.check_size(w, h, name, PNG_MAX_SIDE)
+    return ihdr, plte, idat, orientation
+
+
+def _decode_png(data: bytes, name: str) -> np.ndarray:
+    (w, h, depth, ctype, _comp, _filt, interlace), plte, idat, orientation = \
+        _png_header(data, name)
     ch = _CHANNELS[ctype]
-    row_bytes = (w * ch * depth + 7) // 8
     try:
         flat = np.frombuffer(zlib.decompress(idat), np.uint8)
     except zlib.error as e:
         raise ValueError(f"could not read image {name}: corrupt PNG data "
                          f"({e})") from e
-    if flat.size < h * (row_bytes + 1):
-        raise ValueError(f"could not read image {name}: PNG data holds "
-                         f"{flat.size} bytes, {h * (row_bytes + 1)} needed")
-    rows = flat[:h * (row_bytes + 1)].reshape(h, row_bytes + 1)
-    lines = unfilter(rows[:, 1:], rows[:, 0], max(1, ch * depth // 8))
-    if depth == 16:      # png_set_strip_16: the high (first) byte
-        samples = lines[:, 0::2][:, :w * ch].reshape(h, w, ch)
-    elif depth == 8:
-        samples = lines[:, :w * ch].reshape(h, w, ch)
-    else:                # 1, 2, 4 bits, one sample a pixel, first in the high bits
-        per = 8 // depth
-        shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
-        packed = (lines[:, :, None] >> shifts) & ((1 << depth) - 1)
-        samples = packed.reshape(h, -1)[:, :w].reshape(h, w, 1)
-        if ctype == 0:   # png_set_expand_gray_1_2_4_to_8
-            samples = samples * np.uint8(255 // ((1 << depth) - 1))
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    samples = np.empty((h, w, ch), np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue                      # an empty pass has no bytes
+        row_bytes = (pw * ch * depth + 7) // 8
+        need = ph * (row_bytes + 1)
+        if flat.size < pos + need:
+            raise ValueError(f"could not read image {name}: PNG data holds "
+                             f"{flat.size} bytes, {pos + need} needed")
+        rows = flat[pos:pos + need].reshape(ph, row_bytes + 1)
+        pos += need
+        samples[y0::dy, x0::dx] = _samples(rows, pw, ph, ch, depth, ctype)
     if ctype == 3:       # png_set_palette_to_rgb (tRNS dropped with the alpha)
         if plte is None:
             raise ValueError(f"could not read image {name}: PNG palette "
@@ -216,7 +257,7 @@ def _decode_png(data: bytes, name: str) -> np.ndarray:
         rgb = np.repeat(samples[..., :1], 3, axis=2)
     else:                # RGB (+ alpha)
         rgb = samples[..., :3]
-    return np.ascontiguousarray(rgb[..., ::-1])     # png_set_bgr
+    return jpeg.orient(rgb[..., ::-1], orientation)     # png_set_bgr
 
 
 def _with_cv2(data: bytes, name: str, fmt: str) -> np.ndarray:
@@ -225,8 +266,8 @@ def _with_cv2(data: bytes, name: str, fmt: str) -> np.ndarray:
     except ImportError as e:
         raise ImportError(
             f"could not read image {name}: it is {fmt} (this module decodes "
-            f"PNG, PPM and PGM), and other formats need the cv2 module, "
-            f"which is not installed") from e
+            f"JPEG, PNG, PPM and PGM), and other formats need the cv2 "
+            f"module, which is not installed") from e
     img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
     if img is None:
         raise ValueError(f"could not read image {name}: cv2 cannot decode "
@@ -234,20 +275,24 @@ def _with_cv2(data: bytes, name: str, fmt: str) -> np.ndarray:
     return img
 
 
-def imdecode(data: bytes, name: str = "<bytes>") -> np.ndarray:
+def imdecode(data: bytes, name: str = "<bytes>",
+             truncated_ok: bool = False) -> np.ndarray:
     """Encoded image bytes -> BGR uint8 [H, W, 3], as
     `cv2.imdecode(buf, cv2.IMREAD_COLOR)`. Raises ValueError where the
-    bytes do not decode (cv2 returns None there), ImportError for a format
-    that needs cv2 when cv2 is not installed; `name` goes in the message."""
+    bytes do not decode or their header declares a larger image than cv2
+    decodes (cv2 returns None or raises there), NotImplementedError for
+    a JPEG mode `data/jpeg.py` does not decode, ImportError for a format
+    that needs cv2 when cv2 is not installed; `name` goes in the message.
+    truncated_ok: decode a JPEG that ends before its EOI marker as
+    `cv2.imread` does (`imread` sets it)."""
     head = pnm_header(data)
     if head is not None:
         return _decode_pnm(data, head, name)
     fmt = sniff(data)
     if fmt == "PNG":
-        try:
-            return _decode_png(data, name)
-        except _Unsupported as e:
-            return _with_cv2(data, name, str(e))
+        return _decode_png(data, name)
+    if fmt == "JPEG":
+        return jpeg.decode(data, name, truncated_ok=truncated_ok)
     return _with_cv2(data, name, f"a {fmt} file" if fmt != "unknown"
                      else "of an unknown format")
 
@@ -261,4 +306,39 @@ def imread(path: str) -> np.ndarray:
             data = f.read()
     except OSError as e:
         raise FileNotFoundError(f"could not read image {path}") from e
-    return imdecode(data, path)
+    return imdecode(data, path, truncated_ok=True)
+
+
+def shape(data: bytes, name: str = "<bytes>"):
+    """(height, width) of the image `imdecode(data)` gives, from its header
+    alone (PNG IHDR and eXIf, JPEG SOF and EXIF, the PNM header), EXIF
+    orientation applied. Other formats are decoded (`imdecode`)."""
+    head = pnm_header(data)
+    if head is not None:
+        jpeg.check_size(head[1], head[2], name)
+        return head[2], head[1]
+    fmt = sniff(data)
+    if fmt == "PNG":
+        (w, h, *_), _plte, _idat, o = _png_header(data, name, False)
+    elif fmt == "JPEG":
+        h, w, o = jpeg.header(data, name)
+    else:
+        return imdecode(data, name).shape[:2]
+    return (w, h) if o in (5, 6, 7, 8) else (h, w)
+
+
+def read_header_bytes(path: str) -> bytes:
+    """Enough of a file's first bytes for `shape`: a JPEG's segments up to
+    its first scan, walked by their lengths (APP segments may hold 64 KiB
+    each, of any bytes), a PNG's chunks (its eXIf chunk may follow the
+    image data: the whole file)."""
+    with open(path, "rb") as f:
+        data = f.read(65536)
+        if data[:8] == PNG_MAGIC:
+            return data + f.read()
+        while data[:3] == b"\xff\xd8\xff" and jpeg.headers_end(data) is None:
+            more = f.read(65536)
+            if not more:
+                break
+            data += more
+    return data

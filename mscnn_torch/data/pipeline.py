@@ -11,11 +11,16 @@ device inside the train step.
 
 Where the port differs from the JAX module:
 
-  * `load_image` is `data/image_io.py::imread`: it decodes PNG and binary
-    PPM (P6) / PGM (P5) itself and returns what `cv2.imread(path,
+  * `load_image` is `data/image_io.py::imread`: it decodes JPEG, PNG and
+    binary PPM (P6) / PGM (P5) itself and returns what `cv2.imread(path,
     cv2.IMREAD_COLOR)` returns (BGR uint8; a gray image repeated over 3
-    channels). Other formats (JPEG) go through cv2 where it can be
-    imported; without it they raise, naming the file and its format.
+    channels; EXIF orientation applied). BMP, TIFF and WEBP go through
+    cv2 where it can be imported; without it they raise, naming the file
+    and its format.
+  * `MSCNNDataset(index_loader=)` reads an image by its index (a record
+    shard's `RecordShard.read_image`, `data/records.py`), as the JAX
+    module's does; `data/native_loader.py::WorkerLoader` gives the same
+    batches from worker processes.
   * The device transfer (`jax.device_put` there) is `Prefetcher(...,
     device=)`. On a card the prefetch thread copies each batch from
     pinned host memory with `non_blocking=True` on a copy stream of its
@@ -97,11 +102,15 @@ class MSCNNDataset:
     """Epoch-shuffled window-file dataset producing augmented host batches."""
 
     def __init__(self, images: Sequence[W.WindowImage], aug: A.AugmentSpec,
-                 spec: DatasetSpec, image_loader=load_image):
+                 spec: DatasetSpec, image_loader=load_image,
+                 index_loader=None):
+        """index_loader(i) -> image overrides path-based loading (used by
+        packed record shards, where bytes live at an offset, not a path)."""
         self.images = list(images)
         self.aug = aug
         self.spec = spec
         self.loader = image_loader
+        self.index_loader = index_loader
         self.rng = np.random.RandomState(spec.seed)
         self.index_list = W.build_image_list(self.images, spec.fg_img_multiple)
         self._order = None
@@ -118,9 +127,11 @@ class MSCNNDataset:
         return int(idx)
 
     def sample(self):
-        im = self.images[self._next_index()]
-        return A.augment(self.rng, self.loader(im.path), im.gts, im.ronis,
-                         self.aug)
+        idx = self._next_index()
+        im = self.images[idx]
+        img = (self.index_loader(idx) if self.index_loader is not None
+               else self.loader(im.path))
+        return A.augment(self.rng, img, im.gts, im.ronis, self.aug)
 
     def next_batch(self) -> dict:
         samples = [self.sample() for _ in range(self.spec.batch_size)]

@@ -162,12 +162,17 @@ def test_load_image_errors(tmp_path, monkeypatch):
     png = str(tmp_path / "p.png")
     assert cv2.imwrite(png, np.zeros((4, 4, 3), np.uint8))
     jpg = str(tmp_path / "p.jpg")
-    assert cv2.imwrite(jpg, np.zeros((4, 4, 3), np.uint8))
+    pattern = np.random.RandomState(1).randint(0, 256, (9, 13, 3)).astype(np.uint8)
+    assert cv2.imwrite(jpg, pattern)
+    want = JP.load_image(jpg)
+    bmp = str(tmp_path / "p.bmp")
+    assert cv2.imwrite(bmp, pattern)
     monkeypatch.setitem(sys.modules, "cv2", None)   # as on a machine without cv2
-    with pytest.raises(ImportError, match=r"p\.jpg.*JPEG.*cv2"):
-        TP.load_image(jpg)
-    # PNG needs no cv2 (data/image_io.py)
+    # JPEG and PNG need no cv2 (data/jpeg.py, data/image_io.py)
+    np.testing.assert_array_equal(TP.load_image(jpg), want)
     np.testing.assert_array_equal(TP.load_image(png), np.zeros((4, 4, 3), np.uint8))
+    with pytest.raises(ImportError, match=r"p\.bmp.*BMP.*cv2"):
+        TP.load_image(bmp)
 
 
 def test_prefetcher_devices(dataset):
@@ -201,19 +206,29 @@ def test_prefetcher_devices(dataset):
 
 
 def test_make_loader_python_path_only(dataset, tmp_path):
+    """make_loader's two paths: prefer_native (the default, as in JAX)
+    takes the worker loader, prefer_native=False the one-thread pipeline;
+    both read window files and record shards, with the same batches."""
+    from mscnn_tpu.data import records as JR
+    from mscnn_torch.data import records as TR
+
     _, wf = dataset
     _, _, ta, td = specs("crop", False)
-    with TNL.make_loader(wf, ta, td, device="cpu") as src:
+    want = TP.dataset_from_window_file(wf, ta, td).next_batch()
+    with TNL.make_loader(wf, ta, td, device="cpu", prefer_native=False) as src:
         b = src.get(timeout=30)
-    assert b["image"].shape == (3, 48, 64, 3)
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        TNL.make_loader(wf, ta, td, prefer_native=True)
+    assert isinstance(src, TP.Prefetcher) and b["image"].shape == (3, 48, 64, 3)
+    np.testing.assert_array_equal(b["image"].numpy(), want["image"])
+    with TNL.make_loader(wf, ta, td, num_workers=1) as src:
+        assert isinstance(src, TNL.WorkerLoader)
+        np.testing.assert_array_equal(src.get()["image"], want["image"])
     shard = str(tmp_path / "s.rec")
-    with open(shard, "wb") as f:
-        f.write(b"MSCR" + bytes(12))
+    assert JR.write_records(shard, JW.parse_window_file(wf)) == len(SIZES)
     assert TNL.is_record_shard(shard) and not TNL.is_record_shard(wf)
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        TNL.make_loader(shard, ta, td)
+    for native in (False, True):
+        with TNL.make_loader(shard, ta, td, prefer_native=native, num_workers=1) as src:
+            np.testing.assert_array_equal(src.get()["image"], want["image"])
+    assert TR.is_record_shard(shard)
 
 
 def test_specs_equal_jax():

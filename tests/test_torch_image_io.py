@@ -6,9 +6,10 @@ each of cv2's compression strategies, which pick the row filters
 themselves), and encoded here by hand, so that every row filter (None, Sub,
 Up, Average, Paeth, and a mix of all five) and every colour type (gray,
 gray + alpha, RGB, RGBA, palette, with tRNS) at bit depths 1-16 is
-covered whatever a zlib or libpng build prefers. A JPEG decodes through
-cv2 where it is installed and raises, naming the file and its format,
-where it is not.
+covered whatever a zlib or libpng build prefers. A JPEG decodes without
+cv2 (data/jpeg.py; its own tests are tests/test_torch_jpeg.py); BMP
+still needs cv2 and raises, naming the file and its format, where it is
+not installed.
 """
 
 import struct
@@ -166,7 +167,14 @@ def test_jpeg_needs_cv2_and_errors(tmp_path, monkeypatch):
         IO.imread(str(tmp_path / "nothing.png"))
     png = str(tmp_path / "p.png")
     assert cv2.imwrite(png, img)
+    bmp = str(tmp_path / "b.bmp")
+    assert cv2.imwrite(bmp, img)
+    want = cv2.imread(jpg, cv2.IMREAD_COLOR)
     monkeypatch.setitem(sys.modules, "cv2", None)   # as on a machine without cv2
-    with pytest.raises(ImportError, match=r"j\.jpg.*JPEG.*cv2"):
-        IO.imread(jpg)
+    # a JPEG decodes without cv2 (data/jpeg.py), equal to cv2's decode
+    np.testing.assert_array_equal(IO.imread(jpg), want)
+    with open(jpg, "rb") as f:
+        np.testing.assert_array_equal(IO.imdecode(f.read()), want)
+    with pytest.raises(ImportError, match=r"b\.bmp.*BMP.*cv2"):
+        IO.imread(bmp)
     assert IO.imread(png).shape == (16, 24, 3)      # PNG needs no cv2

@@ -113,6 +113,27 @@ def test_healthz_detect_and_errors(server):
     assert e.value.code == 404
 
 
+def test_oversized_header_answers_400(server):
+    """A body of a few hundred bytes whose header declares more pixels than
+    cv2 decodes (a JPEG SOF of 40000x30000, a PNG IHDR of 65535x65535) is
+    refused from its header with a 400, and the server goes on serving."""
+    httpd, compiled = server
+    port = httpd.server_address[1]
+    img = np.random.RandomState(9).randint(0, 255, (16, 16, 3)).astype(np.uint8)
+    ok, buf = cv2.imencode(".jpg", img)
+    jpg = bytearray(buf.tobytes())
+    sof = jpg.index(b"\xff\xc0")
+    jpg[sof + 5:sof + 9] = (30000).to_bytes(2, "big") + (40000).to_bytes(2, "big")
+    big_png = bytearray(png(img))
+    big_png[16:24] = (65535).to_bytes(4, "big") * 2
+    for body, size in ((bytes(jpg), "40000x30000"), (bytes(big_png), "65535x65535")):
+        with pytest.raises(urllib.error.HTTPError) as e:
+            post(port, body)
+        assert e.value.code == 400
+        assert f"an image of {size}" in json.loads(e.value.read())["error"]
+    check(post(port, png(img)), compiled.detect(img))
+
+
 def test_concurrent_clients_microbatch(server):
     httpd, compiled = server
     port = httpd.server_address[1]
