@@ -201,8 +201,25 @@ Phases (any failure exits non-zero, before the result line):
                 make_loader), then `--no-native`: the eight batches equal
                 (digests) and the first iteration's losses equal, each run's
                 input wait and share beside phase 13's; (e) no jax,
-                mscnn_tpu or cv2 module loaded. No jax or mscnn_tpu module
-                is loaded after any phase.
+                mscnn_tpu or cv2 module loaded;
+ 18. generic nets -- (a) examples/mnist's LeNet at its published widths
+                (conv 20 / 50, ip 500 / 10, batch 64, the solver's inv
+                policy), its HDF5Data swapped for ImageData over 1,280
+                seeded 28x28 PGM digits, through `cli train` (200
+                iterations, one snapshot: the loss must fall to half) and
+                `cli test` of the snapshot (finite loss and accuracy); one
+                generic step on the card equal to the same step on the CPU
+                (rtol 1e-4 / atol 1e-5, TF32 off); the step's ms with the
+                batch on the card; (b) VGG16's deploy net (the Model Zoo's
+                VGG_ILSVRC_16_layers_deploy layer list, gaussian weights)
+                through classify.Classifier at 224x224 with 10 oversampled
+                crops (input scale 0.017, so that the random logits stay
+                O(1)): argmax equal to a CPU run's, probabilities within
+                rtol 1e-3 / atol 1e-6, the 10-crop forward timed; (c) `cli
+                time --layers --model` on it, the per-layer table printed;
+                (d) none of K1-K4 launched (no TPU kernel lies on this
+                path), no jax, mscnn_tpu, cv2 or h5py module loaded. No jax
+                or mscnn_tpu module is loaded after any phase.
 
 The lines before the last give the card's name and power limit
 (nvidia-smi) and one JSON object listing every kernel, each with its
@@ -2284,6 +2301,281 @@ def jpeg_input_path(dev, counts, zero_counts, PROF, rec, ep, tr):
         f"{out['seconds']:.1f} s")
     return out
 
+# -- phase 18: the generic prototxt nets ---------------------------------------
+
+VGG16_CONVS = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512),
+               (512, 512, 512))     # VGG_ILSVRC_16_layers_deploy.prototxt
+
+
+def vgg16_deploy_prototxt(batch=10):
+    """The Caffe Model Zoo's VGG_ILSVRC_16_layers_deploy.prototxt (Simonyan
+    & Zisserman): 13 3x3 convs (pad 1) with ReLUs in 5 blocks, each ending in
+    a 2x2 / 2 max pool, fc6 / fc7 4096 with ReLU and dropout 0.5, fc8 1000,
+    softmax; input [batch, 3, 224, 224]. No weights are published with it
+    here: gaussian fillers with He's std sqrt(2 / fan_in), so that the
+    activations neither vanish nor blow up, and 0.01-std biases."""
+    def gauss(fan_in):
+        return (f'weight_filler {{ type: "gaussian" std: {math.sqrt(2.0 / fan_in):.6g} }} '
+                'bias_filler { type: "gaussian" std: 0.01 }')
+    out = ['name: "VGG_ILSVRC_16_layers"',
+           f'layer {{ name: "data" type: "Input" top: "data" input_param {{ '
+           f'shape {{ dim: {batch} dim: 3 dim: 224 dim: 224 }} }} }}']
+    bottom, cin = "data", 3
+    for b, block in enumerate(VGG16_CONVS, 1):
+        for i, cout in enumerate(block, 1):
+            name = f"conv{b}_{i}"
+            out.append(f'layer {{ name: "{name}" type: "Convolution" bottom: "{bottom}" '
+                       f'top: "{name}" convolution_param {{ num_output: {cout} pad: 1 '
+                       f'kernel_size: 3 {gauss(9 * cin)} }} }}')
+            out.append(f'layer {{ name: "relu{b}_{i}" type: "ReLU" bottom: "{name}" '
+                       f'top: "{name}" }}')
+            bottom, cin = name, cout
+        out.append(f'layer {{ name: "pool{b}" type: "Pooling" bottom: "{bottom}" '
+                   f'top: "pool{b}" pooling_param {{ pool: MAX kernel_size: 2 '
+                   'stride: 2 } }')
+        bottom = f"pool{b}"
+    fan = 7 * 7 * 512
+    for name, n in (("fc6", 4096), ("fc7", 4096), ("fc8", 1000)):
+        out.append(f'layer {{ name: "{name}" type: "InnerProduct" bottom: "{bottom}" '
+                   f'top: "{name}" inner_product_param {{ num_output: {n} '
+                   f'{gauss(fan)} }} }}')
+        bottom, fan = name, n
+        if name != "fc8":
+            k = name[2:]
+            out.append(f'layer {{ name: "relu{k}" type: "ReLU" bottom: "{name}" '
+                       f'top: "{name}" }}')
+            out.append(f'layer {{ name: "drop{k}" type: "Dropout" bottom: "{name}" '
+                       f'top: "{name}" dropout_param {{ dropout_ratio: 0.5 }} }}')
+    out.append('layer { name: "prob" type: "Softmax" bottom: "fc8" top: "prob" }')
+    return "\n".join(out) + "\n"
+
+
+def write_digits(root, n, seed):
+    """n seeded 28x28 8-bit PGM "digits" under root and an ImageData list:
+    class c is a fixed random stroke pattern of its own, shifted by up to 2
+    pixels and noised, so the 10 classes are learnable."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    templates = (rng.rand(10, 28, 28) < 0.18).astype(np.float32)
+    templates[:, :4] = templates[:, -4:] = 0
+    templates[:, :, :4] = templates[:, :, -4:] = 0
+    lines = []
+    for i in range(n):
+        c = i % 10
+        img = np.roll(templates[c], rng.randint(-2, 3, 2), (0, 1)) * 200.0
+        img = np.clip(img + rng.rand(28, 28) * 55.0, 0, 255).astype(np.uint8)
+        path = os.path.join(root, f"d{i:05d}.pgm")
+        with open(path, "wb") as f:
+            f.write(b"P5\n28 28\n255\n" + img.tobytes())
+        lines.append(f"{path} {c}\n")
+    return lines
+
+
+def lenet_on_image_data(root, train_list, test_list):
+    """examples/mnist/lenet.prototxt with its two HDF5Data layers (h5py is
+    not on the card's machine) as ImageData over the PGM lists, scaled by
+    1/256 as the reference's lenet_train_test.prototxt scales its input.
+    ImageData reads in colour (cv2.imread's IMREAD_COLOR in the JAX
+    sources): the gray digits arrive as 3 equal channels."""
+    from mscnn_torch.config import prototxt as PB
+
+    net = PB.parse_prototxt_file("examples/mnist/lenet.prototxt")
+    for layer in PB.layers(net):
+        if layer["type"] == "HDF5Data":
+            test = PB.layer_phase(layer) == "TEST"
+            p = layer.pop("hdf5_data_param")
+            layer["type"] = "ImageData"
+            layer["image_data_param"] = {
+                "source": test_list if test else train_list,
+                "batch_size": int(p["batch_size"]), "shuffle": not test}
+            layer["transform_param"] = {"scale": 0.00390625}
+    path = os.path.join(root, "lenet.prototxt")
+    with open(path, "w") as f:
+        f.write(PB.emit_prototxt(net))
+    return path
+
+
+def generic_nets(dev, counts, zero_counts):
+    """Phase 18 (module notes): LeNet through `cli train` / `test`, VGG16's
+    deploy net through classify.Classifier, and `cli time --layers` on it.
+    No TPU kernel lies on this path: the phase checks that none of K1-K4
+    launched. Returns its figures."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from mscnn_torch import classify as CL
+    from mscnn_torch import cli
+    from mscnn_torch.config import prototxt as PB
+    from mscnn_torch.io import bridge
+    from mscnn_torch.train import generic as G
+    from mscnn_torch.train import solver as S
+
+    t_phase = time.perf_counter()
+    out = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_generic_")
+    zero_counts()
+    try:
+        # -- (a) LeNet: cli train (300 iterations, one snapshot), cli test --
+        lines = write_digits(root, 1280, SEED + 18)
+        train_list, test_list = (os.path.join(root, n) for n in ("train.txt", "test.txt"))
+        with open(train_list, "w") as f:
+            f.writelines(lines[:1024])
+        with open(test_list, "w") as f:
+            f.writelines(lines[1024:])
+        net_path = lenet_on_image_data(root, train_list, test_list)
+        fields = PB.parse_prototxt_file("examples/mnist/lenet_solver.prototxt")
+        iters = 200
+        fields.update(net=net_path, max_iter=iters, snapshot=iters, display=25,
+                      snapshot_prefix=os.path.join(root, "lenet"))
+        solver = os.path.join(root, "lenet_solver.prototxt")
+        with open(solver, "w") as f:
+            f.write(PB.emit_prototxt(fields))
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["train", "--solver", solver])
+        train_s = time.perf_counter() - t0
+        losses = [float(x) for x in re.findall(r"loss = ([-+0-9.e]+)", buf.getvalue())]
+        snap = os.path.join(root, f"lenet_iter_{iters}")
+        if rc != 0 or len(losses) != iters // 25 or not os.path.isdir(snap):
+            fail(f"generic: cli train exited {rc} with losses {losses}")
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < 0.5 * losses[0]:
+            fail(f"generic: LeNet's loss did not fall: {losses}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["test", "--solver", solver, "--weights", snap,
+                           "--iterations", "4"])
+        test = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if rc != 0 or not all(math.isfinite(v) for v in test.values()):
+            fail(f"generic: cli test exited {rc}: {test}")
+        log(f"generic (a): LeNet cli train {iters} iterations in {train_s:.1f} s, "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; cli test {test}")
+
+        # one generic step on the card equals the same step on the CPU (TF32
+        # off): the same seed, params and batch (LeNet draws nothing)
+        sspec = S.spec_from_prototxt_fields(fields)
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            state, step, source, net = G.setup(net_path, sspec, seed=3, device=d)
+            batch = source()
+            state, m = step(state, batch)
+            runs.append((bridge.to_jax_net_params(state["params"],
+                                                  net.param_layouts()),
+                         float(m["loss"]), batch))
+        (gp, gl, gb), (cp, cl_, cb) = runs
+        if not all(torch.equal(gb[k].cpu(), cb[k]) for k in cb):
+            fail("generic: the card's and the CPU's first batches differ")
+        step_err = max(float(np.abs(gp[n][k] - cp[n][k]).max()) for n in cp for k in cp[n])
+        if not math.isclose(gl, cl_, rel_tol=1e-4, abs_tol=1e-5) or not all(
+                np.allclose(gp[n][k], cp[n][k], rtol=1e-4, atol=1e-5)
+                for n in cp for k in cp[n]):
+            fail(f"generic: one LeNet step on the card differs from the CPU's: "
+                 f"loss {gl} vs {cl_}, params max err {step_err:.3g}")
+        # the step's time with the batches on the card, and the host batch
+        state, step, source, net = G.setup(net_path, sspec, seed=3, device=dev)
+        t0 = time.perf_counter()
+        batches = [source() for _ in range(20)]
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) / 20 * 1e3
+        for b in batches[:5]:
+            state, m = step(state, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(50):
+            state, m = step(state, batches[i % 20])
+        torch.cuda.synchronize()
+        out["lenet"] = {"iter_ms": (time.perf_counter() - t0) / 50 * 1e3,
+                        "host_batch_ms": batch_ms,
+                        "cli_iter_ms": train_s / iters * 1e3,
+                        "loss": [losses[0], losses[-1]], "test": test,
+                        "card_vs_cpu_loss": [gl, cl_], "card_vs_cpu_max_err": step_err}
+        log(f"generic (a): LeNet step {out['lenet']['iter_ms']:.3f} ms on the card "
+            f"(batch on the card), host batch {batch_ms:.2f} ms, cli "
+            f"{out['lenet']['cli_iter_ms']:.2f} ms an iteration; one step card vs "
+            f"CPU: loss {gl:.7g} / {cl_:.7g}, params max err {step_err:.3g}")
+
+        # -- (b) VGG16 deploy, 10 oversampled crops, through Classifier ----------
+        vgg = os.path.join(root, "vgg16_deploy.prototxt")
+        with open(vgg, "w") as f:
+            f.write(vgg16_deploy_prototxt())
+        mean = np.array([103.939, 116.779, 123.68], np.float32)
+        img = np.random.RandomState(SEED + 19).rand(300, 400, 3).astype(np.float32) * 255
+        # the 0.017 input scale of Caffe's ImageNet MobileNet prototxts keeps
+        # the random net's logits O(1), so the softmax does not saturate
+        kw = dict(image_dims=(256, 256), mean=mean, input_scale=0.017, seed=1)
+        t0 = time.perf_counter()
+        clf = CL.Classifier(vgg, device=dev, **kw)
+        build_s = time.perf_counter() - t0
+        p_card = clf.predict([img])
+        t0 = time.perf_counter()
+        for _ in range(5):
+            p_card = clf.predict([img])
+        predict_ms = (time.perf_counter() - t0) / 5 * 1e3
+        crops = np.stack([clf.transformer.preprocess(clf.input_name, c)
+                          for c in CL.oversample([CL.resize_image(img, (256, 256))],
+                                                 (224, 224))])
+        x = torch.from_numpy(crops).to(dev)
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: clf.net.apply(clf.params, {"data": x})["prob"],
+                             iters=10, warmup=3)
+        cpu = CL.Classifier(vgg, device="cpu", **kw)
+        p_cpu = cpu.predict([img])
+        vgg_err = float(np.abs(p_card - p_cpu).max())
+        if p_card.shape != (1, clf.net.shapes["prob"][-1]) or \
+                not np.isfinite(p_card).all() or \
+                int(p_card.argmax()) != int(p_cpu.argmax()) or \
+                not np.allclose(p_card, p_cpu, rtol=1e-3, atol=1e-6):
+            fail(f"generic: VGG16 10-crop probabilities on the card differ from "
+                 f"the CPU's: argmax {int(p_card.argmax())} vs {int(p_cpu.argmax())}, "
+                 f"max err {vgg_err:.3g}")
+        del cpu
+        out["vgg16"] = {"forward_ms": fwd_ms, "predict_ms": predict_ms,
+                        "build_s": build_s, "max_abs_err": vgg_err,
+                        "top_prob": float(p_card.max()),
+                        "flops": 10 * 2 * 15.47e9}
+        log(f"generic (b): VGG16 10x224x224 forward {fwd_ms:.3f} ms on the card "
+            f"(Classifier.predict of one image {predict_ms:.1f} ms, build "
+            f"{build_s:.1f} s); argmax {int(p_card.argmax())} = the CPU's, probs "
+            f"max err {vgg_err:.3g} (top {float(p_card.max()):.5f})")
+        del clf, x
+
+        # -- (c) cli time --layers on VGG16's deploy net ------------------------
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["time", "--layers", "--model", vgg, "--iterations", "5"])
+        table = buf.getvalue().strip().splitlines()
+        rows = [ln.split() for ln in table[1:-1]]
+        n_rows = len(PB.layers(PB.parse_prototxt_file(vgg))) - 1   # not Input
+        if rc != 0 or len(rows) != n_rows or not all(
+                math.isfinite(float(r[2])) for r in rows):
+            fail(f"generic: time --layers exited {rc} with {len(rows)} rows")
+        for ln in table:
+            log(f"generic (c): {ln}")
+        top = sorted(rows, key=lambda r: -float(r[2]))[:5]
+        out["layers_top5"] = [(r[0], float(r[2]), float(r[3])) for r in top]
+        out["layers_total"] = [float(v) for v in table[-1].split()[-2:]]
+
+        # -- (d) no kernel and no jax, mscnn_tpu, cv2 or h5py --------------------
+        out["launches"] = counts()
+        if any(out["launches"].values()):
+            fail(f"generic: a TPU-kernel port launched on a path without one: "
+                 f"{out['launches']}")
+        loaded = [m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "mscnn_tpu", "cv2", "h5py")]
+        if loaded:
+            fail(f"generic: {sorted(loaded)[:5]} imported")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"generic (d): no K1-K4 launch, no jax, mscnn_tpu, cv2 or h5py module; "
+        f"phase 18 took {out['seconds']:.1f} s")
+    return out
+
 
 def main():
     import torch
@@ -3407,6 +3699,9 @@ def main():
     conv1_min_share = min(conv1_min_share, jp["conv1_share"])
     int8_max_err = max(int8_max_err, jp["int8_err"])
 
+    # -- 18. the generic prototxt nets: LeNet, VGG16's Classifier, time --layers
+    gn = generic_nets(dev, counts, zero_counts)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -3449,6 +3744,14 @@ def main():
             f"{k} {v['wait_ms']:.2f} ms, {v['wait_share']:.4f} ({v['iter_ms']:.2f} ms an "
             f"iteration)" for k, v in jp["train"].items()))
 
+    ln, vg = gn["lenet"], gn["vgg16"]
+    log(f"generic on {card}: LeNet step {ln['iter_ms']:.3f} ms, host batch "
+        f"{ln['host_batch_ms']:.2f} ms, cli {ln['cli_iter_ms']:.2f} ms an iteration; "
+        f"VGG16 10-crop forward {vg['forward_ms']:.3f} ms "
+        f"({vg['flops'] / vg['forward_ms'] / 1e9:.1f} TFLOP/s), predict "
+        f"{vg['predict_ms']:.1f} ms; time --layers top five (fwd, fwd+bwd ms): "
+        + "; ".join(f"{n} {f:.3f} / {b:.3f}" for n, f, b in gn["layers_top5"]))
+
     def jpeg_launches(k):
         """The kernel's launches in each run of phase 17."""
         return {tag: v[k] for tag, v in jp["launches"].items()}
@@ -3481,6 +3784,7 @@ def main():
                               "train2": ct["launches"]["nms"]},
          "launches_entry_points": entry_launches("nms"),
          "launches_jpeg_input": jpeg_launches("nms"),
+         "launches_generic_nets": gn["launches"]["nms"],
          "op": "mscnn::nms_xywh", "op_overhead_us": ep["op_overhead_us"]["nms_xywh"],
          "train": {tag: {"shape": [BATCH, fcfg.proposal.max_nms_num,
                                    fcfg.proposal.max_out], "kept": v[4],
@@ -3504,6 +3808,7 @@ def main():
                               "train2": ct["launches"]["conv1_pool"]},
          "launches_entry_points": entry_launches("conv1_pool"),
          "launches_jpeg_input": jpeg_launches("conv1_pool"),
+         "launches_generic_nets": gn["launches"]["conv1_pool"],
          "op": "mscnn::conv1_pool", "op_overhead_us": ep["op_overhead_us"]["conv1_pool"],
          "train_entry_min_bit_equal_share": tr["k2_share"],
          "launches_train_pallas_tiny": k2_train_launches,
@@ -3527,6 +3832,7 @@ def main():
                               "train2": ct["launches"]["int8_gemm"]},
          "launches_entry_points": entry_launches("int8_gemm"),
          "launches_jpeg_input": jpeg_launches("int8_gemm"),
+         "launches_generic_nets": gn["launches"]["int8_gemm"],
          "op": "mscnn::int8_conv", "op_overhead_us": ep["op_overhead_us"]["int8_conv"],
          "per_step": "sum of the 17 launches of one int8 deploy step; no one "
                      "PyTorch call computes an int8 conv with its epilogue, "
@@ -3536,6 +3842,7 @@ def main():
          "source": "mscnn_torch/csrc/conv1_v5.cu",
          "replaces": "examples/profile_conv1_v5.py:160",
          "launches": probe_launches["conv1_v5"], "max_abs_err": k3_max_err,
+         "launches_generic_nets": gn["launches"]["conv1_v5"],
          "min_bit_equal_share": k3_min_share,
          "ms": k3["1x768x2560"]["kernel"][f"{default_mode}_{th0}x{tq0}"],
          "plain_ms": k3["1x768x2560"]["plain"][default_mode],

@@ -32,11 +32,16 @@ record shard (`data/records.py`) through the worker loader
 than its slots), as the JAX CLI reads through its C++ loader;
 `--no-native` takes the one-thread pipeline.
 
-Not ported, each exiting or raising where the JAX CLI would take it: the
-generic-prototxt branch and `time --layers` (ROADMAP Queue 1 item 17),
-`--devices > 1` (item 20), and the tools commands (`resize_images`, `summary`, `plot_log`,
-`upgrade_*_proto`, `draw`, `convert_imageset`, `vbb2bbgt`, `compute_mean`,
-`extract_features`; item 18).
+A solver whose net is not an MS-CNN prototxt (no ImageGtData) trains and
+tests through the generic net builder (`_build_generic_training`,
+`train/generic.py`), as `caffe train` takes any net; `time --layers
+--model net.prototxt` times each layer of such a net alone (`_time_layers`,
+cli.py:255-335), with CUDA events on the card.
+
+Not ported, each exiting or raising where the JAX CLI would take it:
+`--devices > 1` (item 20), and the tools commands (`resize_images`,
+`summary`, `plot_log`, `upgrade_*_proto`, `draw`, `convert_imageset`,
+`vbb2bbgt`, `compute_mean`, `extract_features`; item 18).
 """
 
 from __future__ import annotations
@@ -88,9 +93,50 @@ def _cascade_objective(params, batch, cfg, tspec, *, ccfg, roi_batch, draws,
                       draws=draws, generator=generator, mark=mark)
 
 
+class _PlainSource:
+    """A batch function as a context manager with `get`, the loaders'
+    interface (`with make_batch_source() as src: src.get()`)."""
+
+    def __init__(self, fn):
+        self.get = fn
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def _build_generic_training(args, fields, net_path, sspec, lspec):
+    """Generic (non-MS-CNN) prototxt training through `train/generic.py`:
+    the `_build_training` tuple with cfg None (the generic marker) and the
+    Net in the tspec slot (`cmd_test` builds its eval step from it)."""
+    from mscnn_torch.io import checkpoint as CKPT
+    from mscnn_torch.train import generic as G
+
+    if args.bf16:
+        raise SystemExit("--bf16 applies to the MSCNN compute-dtype "
+                         "config; generic prototxt nets run f32")
+    if getattr(args, "uint8_input", False):
+        raise SystemExit("--uint8-input is the ImageGtData loader path; "
+                         "generic prototxt nets read their own data "
+                         "layers (no silent fallback)")
+    state, step, batch_source, net = G.setup(
+        net_path, sspec, phase=getattr(args, "phase", "TRAIN") or "TRAIN",
+        seed=int(fields.get("random_seed", 0)), weights=args.weights or None,
+        batch_size=args.batch_size or None, device=_device(args))
+    if args.snapshot:
+        state = CKPT.restore(args.snapshot, state)
+    lspec = dataclasses.replace(lspec, param_layouts=tuple(
+        (n, t, g) for n, (t, g) in net.param_layouts().items()))
+    return (state, step, lambda: _PlainSource(batch_source), lspec, None,
+            net)
+
+
 def _build_training(args, solver_path):
     """(state, step, make_batch_source, loop spec, cfg, tspec) of a solver
-    prototxt and the net it names."""
+    prototxt and the net it names (cfg None and the Net as tspec for a
+    generic prototxt)."""
     from mscnn_torch.config import prototxt as PB
     from mscnn_torch.config import zoo_import as Z
     from mscnn_torch.data import native_loader as NL
@@ -121,9 +167,10 @@ def _build_training(args, solver_path):
         except ValueError as e:
             if "ImageGtData" not in str(e):
                 raise
-            raise NotImplementedError(
-                f"{net_path} is not an MS-CNN net: generic-prototxt training "
-                f"is not ported yet (ROADMAP Queue 1 item 17, Slice D)") from e
+            # not an MS-CNN net: generic-prototxt training (caffe train
+            # accepts any NetParameter, tools/caffe.cpp:103-233)
+            return _build_generic_training(args, fields, net_path, sspec,
+                                           lspec)
     if args.batch_size:
         dspec = dataclasses.replace(dspec, batch_size=args.batch_size)
     if args.bf16:
@@ -279,7 +326,11 @@ def cmd_test(args):
     state, _, make_batch_source, lspec, cfg, tspec = \
         _build_training(args, args.solver)
     dev = _device(args)
-    eval_step = T.make_eval_step(cfg, tspec)
+    if cfg is None:     # generic prototxt: the tspec slot holds the Net
+        from mscnn_torch.train import generic as G
+        eval_step = G.make_eval_step(tspec)
+    else:
+        eval_step = T.make_eval_step(cfg, tspec)
     n = args.iterations or lspec.test_iter or 50
     with make_batch_source() as src:
         out = LP.test_eval(
@@ -292,6 +343,99 @@ def cmd_test(args):
 def _sync(dev):
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _timer(dev, iters: int):
+    """ms a call of fn(*a): after one warm-up call, `iters` calls between
+    two CUDA events on a card, on the host clock elsewhere."""
+    def timed(fn, *fargs):
+        fn(*fargs)
+        if torch.device(dev).type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            start.record()
+            for _ in range(iters):
+                fn(*fargs)
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / iters
+        t0 = _time.perf_counter()
+        for _ in range(iters):
+            fn(*fargs)
+        return (_time.perf_counter() - t0) / iters * 1e3
+    return timed
+
+
+def _time_layers(args):
+    """Per-layer forward and forward + backward times of a prototxt net,
+    the `caffe time` table (tools/caffe.cpp:369-419). Each layer runs alone
+    on the materialised blobs of one forward pass, so the column sums
+    exceed the whole net's time. A layer with no float output to
+    differentiate, or whose backward raises, reads nan."""
+    from mscnn_torch.config import prototxt as PB
+    from mscnn_torch.models.netbuilder import Net
+    from mscnn_torch.train import generic as G
+
+    _sourced = ("ImageData", "HDF5Data", "DummyData", "WindowData")
+    dev = _device(args)
+    net = Net(args.model, phase="TRAIN")
+    data_layer = G.find_data_layer(net)
+    inputs = {}
+    if data_layer is not None:
+        ltype = str(data_layer.get("type"))
+        if ltype not in _sourced:
+            print(f"time --layers cannot source a {ltype!r} layer (no host "
+                  "reader; use ImageData / HDF5Data)")
+            return 1
+        # one batch of the net's own data layer gives the top shapes and
+        # values, as caffe time runs the data layer (and generic.setup)
+        first = G.make_batch_source(net, data_layer, train=True)()
+        net = Net(args.model, phase="TRAIN",
+                  input_shapes={k: tuple(v.shape) for k, v in first.items()})
+        inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                  for k, v in first.items()}
+    for n, sh in net.inputs().items():      # Input-layer blobs: zeros
+        inputs.setdefault(n, torch.zeros(sh, device=dev))
+    params = net.init(torch.Generator().manual_seed(0), device=dev)
+    with torch.no_grad():
+        blobs = net.apply(params, inputs)
+    timed = _timer(dev, args.iterations or 10)
+
+    print(f"{'layer':<24}{'type':<20}{'fwd ms':>10}{'bwd ms':>10}")
+    tot_f = tot_b = 0.0
+    for layer in net.layers:
+        ltype = str(layer.get("type"))
+        if ltype in ("Input", "Silence") or ltype in G.DATA_LAYER_TYPES:
+            continue
+        name = str(layer.get("name"))
+        bots = [blobs[str(b)] for b in PB.as_list(layer.get("bottom"))]
+
+        def run(lp, bb, layer=layer, name=name):
+            p2 = {**params, name: lp} if name in params else params
+            return net.apply_layer(layer, p2, bb)[0]
+
+        def fwd_bwd(lp, bb, run=run):
+            lp = {k: v.detach().requires_grad_() for k, v in lp.items()
+                  if v.is_floating_point()}
+            bb = [b.detach().requires_grad_() if b.is_floating_point() else b
+                  for b in bb]
+            outs = [o for o in run(lp, bb)
+                    if torch.is_tensor(o) and o.is_floating_point()]
+            wrt = list(lp.values()) + [b for b in bb if b.requires_grad]
+            torch.autograd.grad(sum(o.sum() for o in outs), wrt,
+                                allow_unused=True)
+
+        lp = params.get(name, {})
+        with torch.no_grad():
+            fwd_ms = timed(run, lp, bots)
+        try:
+            bwd_ms = timed(fwd_bwd, lp, bots)
+        except (RuntimeError, TypeError, AttributeError):
+            bwd_ms = float("nan")   # not differentiable (ArgMax, ...)
+        tot_f += fwd_ms
+        tot_b += 0.0 if bwd_ms != bwd_ms else bwd_ms
+        print(f"{name:<24}{ltype:<20}{fwd_ms:>10.3f}{bwd_ms:>10.3f}")
+    print(f"{'TOTAL (unfused sum)':<44}{tot_f:>10.3f}{tot_b:>10.3f}")
+    return 0
 
 
 def cmd_time(args):
@@ -309,10 +453,11 @@ def cmd_time(args):
     from mscnn_torch.utils import profiling as PROF
 
     if getattr(args, "layers", False):
-        print("time --layers runs each layer of a prototxt net through the "
-              "generic net builder, which is not ported yet (ROADMAP Queue 1 "
-              "item 17)")
-        return 1
+        if not args.model:
+            print("--layers needs --model <prototxt> (per-layer timing runs "
+                  "on the generic net builder)")
+            return 1
+        return _time_layers(args)
     if args.int8_heads and not args.int8:
         print("--int8-heads extends the int8 trunk; pass --int8 too")
         return 1
@@ -972,8 +1117,9 @@ def main(argv=None):
     p_time.add_argument("--stages", action="store_true",
                         help="per-stage time, FLOPs and MFU table")
     p_time.add_argument("--layers", action="store_true",
-                        help="per-layer table of a --model prototxt (needs "
-                             "the generic net builder: ROADMAP item 17)")
+                        help="per-layer fwd / fwd+bwd table of a --model "
+                             "prototxt (caffe time; each layer runs alone, "
+                             "so the column sums exceed the whole net)")
     p_time.set_defaults(fn=cmd_time)
 
     p_det = sub.add_parser("detect", help="run detection over an image dir")

@@ -25,6 +25,19 @@ leaf's layout and "it" a 0-d int32. Gradients are param-shaped, so
 fc6 needs no row permutation: the port's `roi_head` flattens roi_c1's
 output in NHWC (h, w, c) order, as the JAX `roi_head` does
 (mscnn.py:529). `tests/test_torch_bridge.py` pins that order.
+
+A generic prototxt net's params (`models/netbuilder.py::Net`) cross with
+`from_jax_net_params` / `to_jax_net_params`, keyed by each layer's type
+(`Net.param_layouts()`: {layer: (type, group)}), because a leaf's name and
+rank do not say its layout there:
+  * Convolution "w": HWIO -> OIHW;
+  * Deconvolution "w": JAX [kh, kw, in/g, out] -> port [in, out/g, kh, kw]
+    (`F.conv_transpose2d` with groups=g);
+  * InnerProduct "w": [in, out] -> [out, in];
+  * every other leaf keeps the JAX layout: biases, Embed's table
+    [input_dim, num_output] (looked up by row), Parameter blobs of any
+    shape, LSTM / RNN's wx, wh, wo ([in, out], multiplied from the right),
+    PReLU's slope, BatchNorm's mean / var, Scale's w / b, Python layers'.
 """
 
 from __future__ import annotations
@@ -58,6 +71,60 @@ def leaf_to_jax(t: torch.Tensor, key: str = "w") -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return np.array(t.contiguous().numpy())   # a copy; 0-d stays 0-d
+
+
+def net_leaf_to_port(w, ltype: str, key: str, group: int = 1) -> torch.Tensor:
+    """One JAX-layout leaf of a generic net's `ltype` layer -> the port's
+    layout (see the module notes)."""
+    t = w if torch.is_tensor(w) else torch.from_numpy(np.array(w))
+    if key == "w" and ltype == "Convolution":
+        t = t.permute(3, 2, 0, 1)
+    elif key == "w" and ltype == "Deconvolution":
+        kh, kw, j, o = t.shape
+        t = t.reshape(kh, kw, j, group, o // group).permute(3, 2, 4, 0, 1)
+        t = t.reshape(group * j, o // group, kh, kw)
+    elif key == "w" and ltype == "InnerProduct":
+        t = t.t()
+    return t.contiguous()
+
+
+def net_leaf_to_jax(t: torch.Tensor, ltype: str, key: str,
+                    group: int = 1) -> np.ndarray:
+    """Inverse of `net_leaf_to_port`, as a numpy array (bfloat16 as
+    float32)."""
+    t = t.detach().cpu()
+    if key == "w" and ltype == "Convolution":
+        t = t.permute(2, 3, 1, 0)
+    elif key == "w" and ltype == "Deconvolution":
+        cin, og, kh, kw = t.shape
+        t = t.reshape(group, cin // group, og, kh, kw).permute(3, 4, 1, 0, 2)
+        t = t.reshape(kh, kw, cin // group, group * og)
+    elif key == "w" and ltype == "InnerProduct":
+        t = t.t()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return np.array(t.contiguous().numpy())
+
+
+def from_jax_net_params(flat: dict, layouts: dict) -> dict:
+    """JAX params of a generic net -> the port's (CPU). layouts:
+    `Net.param_layouts()`; a layer it lacks keeps every leaf's layout."""
+    out = {}
+    for name, p in flat.items():
+        ltype, group = layouts.get(name, ("", 1))
+        out[name] = {k: net_leaf_to_port(v, ltype, k, group)
+                     for k, v in p.items()}
+    return out
+
+
+def to_jax_net_params(params: dict, layouts: dict) -> dict:
+    """Port params of a generic net -> JAX layouts (numpy)."""
+    out = {}
+    for name, p in params.items():
+        ltype, group = layouts.get(name, ("", 1))
+        out[name] = {k: net_leaf_to_jax(v, ltype, k, group)
+                     for k, v in p.items()}
+    return out
 
 
 def from_jax_params(flat: dict, cfg=None) -> dict:

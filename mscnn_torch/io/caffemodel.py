@@ -20,9 +20,16 @@ Wire schema (field numbers from the reference's caffe.proto):
   (packed float), legacy dims num/channels/height/width = 1/2/3/4.
   SolverState.iter = 1, .learned_net = 2, .history = 3, .current_step = 4.
 
-Not ported: the generic-net leaves of the JAX module (recurrent,
-BatchNorm, PReLU, Scale / Bias layers) and `net_layout_hints`, which
-belong to the generic prototxt nets (ROADMAP Queue 1 item 17).
+A generic prototxt net's params (`models/netbuilder.py::Net`) pass
+`layouts=net.param_layouts()`, which crosses them with
+`bridge.to_jax_net_params` / `from_jax_net_params`, and take the JAX
+module's generic leaves: LSTM / RNN (W_xc, b, W_hc[, W_ho, b_o],
+weights transposed), BatchNorm (mean, var and the scale-factor blob,
+written as 1 and divided out on load), PReLU's slope, a Bias layer's b
+and Scale's per-channel w. `net_layout_hints(net)` derives, from an
+initialised Net's shapes, the FC layers fed by a 4-D blob (NCHW flatten
+order in Caffe), the Deconvolution layers and the recurrent ones.
+`array_to_blobproto` / `blobproto_to_array` are pycaffe's.
 """
 
 from __future__ import annotations
@@ -265,16 +272,47 @@ def _export_weight(name: str, w: np.ndarray, deconv_names,
     raise ValueError(f"layer {name}: cannot export weight of rank {w.ndim}")
 
 
-def _iter_layer_blobs(jax_params, deconv_names, fc_after_pool):
-    """(name, type, [Caffe-layout blobs]) per layer with a "w", in params
-    order, weight then bias (Net::ToProto)."""
+def _f32(a, transpose: bool = False) -> np.ndarray:
+    a = np.asarray(a, np.float32)
+    return np.ascontiguousarray(a.T) if transpose else a.reshape(-1)
+
+
+def _recurrent_pairs(p) -> List[Tuple[str, bool]]:
+    """(leaf, transposed) in a recurrent layer's blob order (FillUnrolledNet:
+    LSTM W_xc, b_c, W_hc; RNN W_xh, b_h, W_hh, W_ho, b_o)."""
+    pairs = [("wx", True), ("b", False), ("wh", True)]
+    return pairs + [("wo", True), ("bo", False)] if "wo" in p else pairs
+
+
+def _iter_layer_blobs(jax_params, deconv_names, fc_after_pool,
+                      recurrent=None):
+    """(name, type, [Caffe-layout blobs]) per layer with learnable blobs, in
+    params order, weight then bias (Net::ToProto). Recurrent, BatchNorm,
+    PReLU and Bias-only layers are recognised by their leaves, as in the
+    JAX module (`recurrent` only names a recurrent layer's type)."""
     for name, p in jax_params.items():
+        if "wx" in p:
+            ltype = str(recurrent[name]) if recurrent and name in recurrent \
+                else ("RNN" if "wo" in p else "LSTM")
+            yield name, ltype, [_f32(p[k], t) for k, t in _recurrent_pairs(p)]
+            continue
+        if "mean" in p and "var" in p and "w" not in p:
+            # [mean, var, scale factor]: the stats are stored normalised,
+            # so the factor is 1 (batch_norm_layer.cpp:98-105)
+            yield name, "BatchNorm", [_f32(p["mean"]), _f32(p["var"]),
+                                      np.ones((1,), np.float32)]
+            continue
+        if "slope" in p and "w" not in p:
+            yield name, "PReLU", [_f32(p["slope"])]
+            continue
         if "w" not in p:
+            if p.get("b") is not None:
+                yield name, "Bias", [_f32(p["b"])]
             continue
         ltype, w = _export_weight(name, p["w"], deconv_names, fc_after_pool)
         blobs = [w]
         if p.get("b") is not None:
-            blobs.append(np.asarray(p["b"], np.float32).reshape(-1))
+            blobs.append(_f32(p["b"]))
         yield name, ltype, blobs
 
 
@@ -304,34 +342,90 @@ def _encode_blob(arr: np.ndarray) -> bytes:
     return shape + _w_len(5, arr.astype("<f4").tobytes())
 
 
+def array_to_blobproto(arr: np.ndarray) -> bytes:
+    """numpy array -> BlobProto wire bytes (pycaffe io.py)."""
+    return _encode_blob(np.asarray(arr))
+
+
+def blobproto_to_array(data: bytes) -> np.ndarray:
+    """BlobProto wire bytes -> numpy array (pycaffe io.py; legacy
+    num/channels/height/width dims as well as BlobShape)."""
+    return _parse_blob(memoryview(data))
+
+
+def net_layout_hints(net) -> dict:
+    """Layout hints of an initialised `netbuilder.Net` (its `shapes`):
+    fc_after_pool {InnerProduct layer: (h, w, c)} for every FC whose
+    bottom is 4-D (NHWC flatten here, NCHW in Caffe); deconv_names, the
+    Deconvolution layers (Caffe's reversed in / out); recurrent {LSTM /
+    RNN layer: type}."""
+    from mscnn_torch.config import prototxt as PB
+
+    if not net.shapes:
+        raise ValueError("net has no inferred shapes; call net.init() "
+                         "before deriving layout hints")
+    fc, deconv, recurrent = {}, set(), {}
+    for layer in net.layers:
+        ltype = layer.get("type")
+        name = str(layer.get("name"))
+        if ltype == "Deconvolution":
+            deconv.add(name)
+        elif ltype in ("LSTM", "RNN"):
+            recurrent[name] = str(ltype)
+        elif ltype == "InnerProduct":
+            bots = [str(b) for b in PB.as_list(layer.get("bottom"))]
+            sh = net.shapes.get(bots[0]) if bots else None
+            if sh is not None and len(sh) == 4:
+                fc[name] = (int(sh[1]), int(sh[2]), int(sh[3]))
+    return {"fc_after_pool": fc, "deconv_names": frozenset(deconv),
+            "recurrent": recurrent}
+
+
 # ---------------------------------------------------------------------------
 # The port's params
 # ---------------------------------------------------------------------------
 
-def _port_leaf(arr: np.ndarray, key: str, like: torch.Tensor) -> torch.Tensor:
+def _to_jax(params, layouts):
+    """Port params -> JAX-layout numpy: by layer type for a generic net
+    (`layouts`), by leaf name and rank for the MS-CNN params."""
+    if layouts is None:
+        return bridge.to_jax_params(params)
+    return bridge.to_jax_net_params(params, layouts)
+
+
+def _port_leaf(arr: np.ndarray, key: str, like: torch.Tensor, layouts=None,
+               name: str = "") -> torch.Tensor:
     """A JAX-layout numpy leaf -> the port's layout, on `like`'s device and
     in its dtype."""
-    return bridge.leaf_to_port(np.ascontiguousarray(arr), key).to(
-        device=like.device, dtype=like.dtype)
+    arr = np.ascontiguousarray(arr)
+    if layouts is None:
+        t = bridge.leaf_to_port(arr, key)
+    else:
+        ltype, group = layouts.get(name, ("", 1))
+        t = bridge.net_leaf_to_port(arr, ltype, key, group)
+    return t.to(device=like.device, dtype=like.dtype)
 
 
 def save_caffemodel(params, path: str, *, net_name: str = "mscnn_tpu",
                     deconv_names=DECONV_NAMES,
-                    fc_after_pool: Optional[dict] = None) -> int:
+                    fc_after_pool: Optional[dict] = None,
+                    recurrent: Optional[dict] = None,
+                    layouts: Optional[dict] = None) -> int:
     """Write the port's params as a NetParameter binaryproto: one
     LayerParameter (field 100; name, type, blobs) a layer, in params order,
     in Caffe's layouts. The same bytes as the JAX package's
-    `save_caffemodel` for the same params, its default net name
+    `save_caffemodel` for the same params and hints, its default net name
     included. fc_after_pool: {fc layer: (s, c) or (h, w, c)}; by default
-    every fc6* fed by the matching roi_c1*. Returns the layer count.
-    Ref: net.cpp:856-866."""
-    jp = bridge.to_jax_params(params)
+    every fc6* fed by the matching roi_c1* (an MS-CNN name rule: pass
+    `net_layout_hints(net)`'s for a generic net). layouts: a generic net's
+    `param_layouts()`. Returns the layer count. Ref: net.cpp:856-866."""
+    jp = _to_jax(params, layouts)
     if fc_after_pool is None:
         fc_after_pool = _infer_fc_after_pool(jp)
     out = [_w_len(1, net_name.encode())]
     n = 0
     for name, ltype, blobs in _iter_layer_blobs(jp, deconv_names,
-                                                fc_after_pool):
+                                                fc_after_pool, recurrent):
         payload = _w_len(1, name.encode()) + _w_len(2, ltype.encode())
         for b in blobs:
             payload += _w_len(7, _encode_blob(b))
@@ -344,14 +438,15 @@ def save_caffemodel(params, path: str, *, net_name: str = "mscnn_tpu",
 
 def save_solverstate(state, path: str, *, learned_net: str = "",
                      current_step: int = 0, deconv_names=DECONV_NAMES,
-                     fc_after_pool: Optional[dict] = None) -> int:
+                     fc_after_pool: Optional[dict] = None,
+                     layouts: Optional[dict] = None) -> int:
     """Write the port's solver state ({"it", "h1"(, "h2")}) as a
     SolverState binaryproto: iter, learned_net, the h1 history blobs in
     Net::learnable_params order with the weights' layout transposes, and
     current_step (the multistep lr stage). The same bytes as the JAX
     function's. Returns the history blob count. Ref: sgd_solver.cpp:
     246-302."""
-    h1 = bridge.to_jax_params(state["h1"])
+    h1 = _to_jax(state["h1"], layouts)
     if fc_after_pool is None:
         fc_after_pool = _infer_fc_after_pool(h1)
     out = [_w_varint((1 << 3) | WIRE_VARINT) + _w_varint(int(state["it"]))]
@@ -368,19 +463,61 @@ def save_solverstate(state, path: str, *, learned_net: str = "",
     return n
 
 
+def _check_shape(what: str, arr: np.ndarray, target) -> np.ndarray:
+    if arr.shape != tuple(target):
+        raise ValueError(f"{what} {arr.shape} vs {tuple(target)}")
+    return arr
+
+
+def _import_layer(name, bl, jp, deconv_names, fc_after_pool):
+    """One layer's Caffe blobs -> {leaf: JAX-layout array} for the leaves
+    of `jp` (the layer's JAX-layout template), as the JAX module maps them:
+    recurrent (transposed weights), BatchNorm (the running sums divided by
+    the scale factor), Bias-only, PReLU, then weight and bias."""
+    if "wx" in jp:
+        pairs = _recurrent_pairs(jp)
+        if len(bl) != len(pairs):
+            raise ValueError(f"{len(bl)} blobs for recurrent layer "
+                             f"(expected {len(pairs)})")
+        return {k: _check_shape(k, np.ascontiguousarray(b.T) if t
+                                else b.reshape(-1), jp[k].shape)
+                for (k, t), b in zip(pairs, bl)}
+    if "mean" in jp and "var" in jp and "w" not in jp:
+        if len(bl) != 3:
+            raise ValueError(f"{len(bl)} blobs for BatchNorm (expected 3)")
+        sf = float(np.asarray(bl[2]).reshape(-1)[0])
+        sc = 0.0 if sf == 0 else 1.0 / sf
+        _check_shape("mean", bl[0].reshape(-1), jp["mean"].shape)
+        return {"mean": bl[0].reshape(-1) * sc, "var": bl[1].reshape(-1) * sc}
+    if "b" in jp and "w" not in jp and "slope" not in jp:
+        return {"b": _check_shape("bias", bl[0].reshape(-1), jp["b"].shape)}
+    if "slope" in jp and "w" not in jp:
+        return {"slope": _check_shape("slope", bl[0].reshape(-1),
+                                      jp["slope"].shape)}
+    new = {}
+    if "w" in jp:
+        new["w"] = _import_weight(name, bl[0], jp["w"].shape, deconv_names,
+                                  fc_after_pool)
+    if "b" in jp and len(bl) > 1:
+        new["b"] = _check_shape("bias", bl[1].reshape(-1), jp["b"].shape)
+    return new
+
+
 def load_caffemodel_params(path: str, params,
                            fc_after_pool: Optional[dict] = None,
-                           deconv_names=DECONV_NAMES):
+                           deconv_names=DECONV_NAMES,
+                           layouts: Optional[dict] = None):
     """Map a .caffemodel's layers onto the port's params by name.
 
     Layers in both are overwritten, their shapes checked after the layout
     transposes; the others keep their values (CopyTrainedLayersFrom,
     net.cpp:750-786). A layer whose blobs do not fit keeps its values and
     is reported. Returns (params, {"copied", "skipped", "mismatched"}).
-    fc_after_pool: as in `save_caffemodel`.
+    fc_after_pool, layouts: as in `save_caffemodel` (recurrent layers are
+    known by their leaves).
     """
     blobs = parse_caffemodel(path)
-    jp = bridge.to_jax_params(params)
+    jp = _to_jax(params, layouts)
     if fc_after_pool is None:
         fc_after_pool = _infer_fc_after_pool(jp)
     out = {}
@@ -390,51 +527,47 @@ def load_caffemodel_params(path: str, params,
             out[name] = p
             report["skipped"].append(name)
             continue
-        bl = blobs[name]
         try:
-            new = dict(p)
-            if "w" in p:
-                wt = _import_weight(name, bl[0], jp[name]["w"].shape,
-                                    deconv_names, fc_after_pool)
-                new["w"] = _port_leaf(wt, "w", p["w"])
-            if "b" in p and len(bl) > 1:
-                b = bl[1].reshape(-1)
-                if b.shape != jp[name]["b"].shape:
-                    raise ValueError(
-                        f"bias {bl[1].shape} vs {jp[name]['b'].shape}")
-                new["b"] = _port_leaf(b, "b", p["b"])
-            out[name] = new
-            report["copied"].append(name)
+            got = _import_layer(name, blobs[name], jp[name], deconv_names,
+                                fc_after_pool)
         except ValueError as e:
             out[name] = p
             report["mismatched"].append((name, str(e)))
+            continue
+        out[name] = {**p, **{k: _port_leaf(v, k, p[k], layouts, name)
+                             for k, v in got.items()}}
+        report["copied"].append(name)
     return out, report
 
 
 def load_solverstate_history(path: str, state_template,
                              deconv_names=DECONV_NAMES,
-                             fc_after_pool: Optional[dict] = None):
+                             fc_after_pool: Optional[dict] = None,
+                             layouts: Optional[dict] = None):
     """Map a SolverState's positional history blobs onto the port's solver
     state (the template's layer names, shapes, devices and dtypes; the
-    inverse layout transposes applied). Returns (state, iter)."""
-    h1t = bridge.to_jax_params(state_template["h1"])
+    inverse layout transposes applied). Each layer takes as many blobs as
+    `save_solverstate` writes for it, so the BatchNorm, PReLU and Bias
+    blobs it writes read back too (the JAX function skips them and
+    misreads the blobs after; ROADMAP Queue 3). Returns (state, iter)."""
+    h1t = _to_jax(state_template["h1"], layouts)
     if fc_after_pool is None:
         fc_after_pool = _infer_fc_after_pool(h1t)
+    counts = {name: len(blobs) for name, _, blobs in
+              _iter_layer_blobs(h1t, deconv_names, fc_after_pool)}
     parsed = parse_solverstate(path)
     hist = list(parsed["history"])
     h1 = {}
     for name, p in state_template["h1"].items():
-        new = dict(p)
-        if "w" in p:
-            if not hist:
-                raise ValueError("solverstate has fewer history blobs than "
-                                 "the state template expects")
-            wt = _import_weight(name, hist.pop(0), h1t[name]["w"].shape,
-                                deconv_names, fc_after_pool)
-            new["w"] = _port_leaf(wt, "w", p["w"])
-            if "b" in p:
-                new["b"] = _port_leaf(hist.pop(0).reshape(-1), "b", p["b"])
-        h1[name] = new
+        n = counts.get(name, 0)
+        if len(hist) < n:
+            raise ValueError("solverstate has fewer history blobs than "
+                             "the state template expects")
+        got = _import_layer(name, hist[:n], h1t[name], deconv_names,
+                            fc_after_pool) if n else {}
+        hist = hist[n:]
+        h1[name] = {**p, **{k: _port_leaf(v, k, p[k], layouts, name)
+                            for k, v in got.items()}}
     state = dict(state_template)
     state["h1"] = h1
     it = state_template["it"]

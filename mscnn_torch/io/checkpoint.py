@@ -53,19 +53,24 @@ def snapshot(prefix: str, train_state, it: Optional[int] = None) -> str:
 
 
 def snapshot_caffemodel(prefix: str, train_state, it: Optional[int] = None,
-                        current_step: int = 0) -> str:
+                        current_step: int = 0,
+                        layouts: Optional[dict] = None) -> str:
     """Write `<prefix>_iter_N.caffemodel` + `.solverstate` in the
     reference's binaryproto snapshot format (solver.cpp:403-419,
-    sgd_solver.cpp:246-302). Returns the .caffemodel path."""
+    sgd_solver.cpp:246-302). layouts: a generic net's `param_layouts()`.
+    The FC row order follows the JAX function's default hints (the MS-CNN
+    name rule), so the bytes are the JAX snapshot's. Returns the
+    .caffemodel path."""
     from mscnn_torch.io import caffemodel as CM
 
     base = _path(prefix, _iter_of(train_state, it))
-    CM.save_caffemodel(train_state["params"], base + ".caffemodel")
+    CM.save_caffemodel(train_state["params"], base + ".caffemodel",
+                       layouts=layouts)
     solver = train_state["solver"]
     if "h1" in solver:
         CM.save_solverstate(solver, base + ".solverstate",
                             learned_net=os.path.basename(base) + ".caffemodel",
-                            current_step=current_step)
+                            current_step=current_step, layouts=layouts)
     return base + ".caffemodel"
 
 
@@ -110,13 +115,22 @@ def _warn_mismatched(path: str, report: dict) -> None:
             f"{report['mismatched']}")
 
 
-def restore_params(path: str, template_params):
+def restore_params(path: str, template_params, layout_hints=None,
+                   layouts=None):
     """Restore only the params of a snapshot (for warm start, eval,
     deploy). `.caffemodel` paths (ours or the reference's) go through the
-    wire importer; anything else is read as a `snapshot` directory."""
+    wire importer, with a generic net's `caffemodel.net_layout_hints` and
+    `param_layouts()` where given; anything else is read as a `snapshot`
+    directory."""
     if path.endswith(".caffemodel"):
         from mscnn_torch.io import caffemodel as CM
-        out, report = CM.load_caffemodel_params(path, template_params)
+        kw = {}
+        if layout_hints:
+            kw = {"fc_after_pool": layout_hints.get("fc_after_pool"),
+                  "deconv_names": layout_hints.get("deconv_names",
+                                                   CM.DECONV_NAMES)}
+        out, report = CM.load_caffemodel_params(path, template_params,
+                                                layouts=layouts, **kw)
         _warn_mismatched(path, report)
         return out
     if path.endswith((".h5", ".hdf5")):

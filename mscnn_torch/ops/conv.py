@@ -1,8 +1,10 @@
 """Convolution / pooling / upsampling primitives with NHWC activations.
 
 Ports `mscnn_tpu/ops/conv.py`: `conv2d`, `max_pool`, `avg_pool`,
-`deconv2d`, `bilinear_kernel`, `upsample2x_bilinear`, `dense` and
-`dropout` (`stochastic_pool` belongs to the generic nets and waits).
+`deconv2d`, `bilinear_kernel`, `upsample2x_bilinear`, `dense`, `dropout`
+and `stochastic_pool` (with `_pool_patches`). Pooling takes square or
+rectangular (kernel_h/w, stride_h/w, pad_h/w) windows, as the JAX
+functions do.
 
 Activations are NHWC at every function, as in the JAX package. Inside, an
 NHWC tensor is handed to PyTorch as its NCHW permutation, which is a
@@ -124,6 +126,48 @@ def avg_pool(x, k=2, stride=2, pad=0, ceil_mode: bool = True):
     dw = _ave_divisor(x.shape[2], kw, sw, pw, ow, x.device)
     div = (dh[:, None] * dw[None, :])[None, :, :, None]
     return s / div.to(s.dtype)
+
+
+def _pool_patches(x, k: int, stride: int, ceil_mode: bool):
+    """(N, OH, OW, k*k, C) unpadded pooling windows, cells past the input
+    edge zeroed, plus the [1, OH, OW, k*k, 1] validity mask. Windows start
+    at ``p * stride`` and are clipped at the edge (pooling_layer.cu:95-98);
+    each window is flattened row-major, the reference's scan order."""
+    n, h, w, c = x.shape
+    _, oh = _pool_padding(h, k, stride, 0, ceil_mode)
+    _, ow = _pool_padding(w, k, stride, 0, ceil_mode)
+    ar = torch.arange(k, device=x.device)
+    h_idx = torch.arange(oh, device=x.device)[:, None] * stride + ar[None, :]
+    w_idx = torch.arange(ow, device=x.device)[:, None] * stride + ar[None, :]
+    xh = x.index_select(1, h_idx.clamp(max=h - 1).reshape(-1))
+    xw = xh.reshape(n, oh, k, w, c).index_select(
+        3, w_idx.clamp(max=w - 1).reshape(-1)).reshape(n, oh, k, ow, k, c)
+    patches = xw.permute(0, 1, 3, 2, 4, 5).reshape(n, oh, ow, k * k, c)
+    mask = (h_idx < h)[:, None, :, None] & (w_idx < w)[None, :, None, :]
+    mask = mask.reshape(1, oh, ow, k * k, 1)
+    return patches * mask, mask
+
+
+def stochastic_pool(x, k: int = 2, stride: int = 2, *, train: bool = False,
+                    u=None, ceil_mode: bool = True):
+    """Stochastic pooling (Zeiler & Fergus), Caffe STOCHASTIC mode, NHWC.
+
+    Train (pooling_layer.cu StoPoolForwardTrain): a window's output is its
+    first cell whose running sum reaches u * sum(window); the gradient
+    goes to that cell only. ``u`` holds the uniforms, [N, OH, OW, 1, C]
+    float32, drawn by the caller (the JAX function draws them from its
+    key). Test (StoPoolForwardTest): sum(x^2) / (FLT_MIN + sum(x)). No
+    padding (pooling_layer.cpp:67-74)."""
+    patches, _ = _pool_patches(x, k, stride, ceil_mode)
+    if not train:
+        cumsum = patches.sum(dim=3) + torch.finfo(torch.float32).tiny
+        return (patches.square().sum(dim=3) / cumsum).to(x.dtype)
+    if u is None:
+        raise ValueError("stochastic_pool(train=True) needs its uniforms u")
+    csum = torch.cumsum(patches, dim=3)
+    thres = (u * csum[:, :, :, -1:, :]).detach()
+    sel = torch.argmax((csum >= thres).to(torch.uint8), dim=3, keepdim=True)
+    return torch.gather(patches, 3, sel)[:, :, :, 0, :]
 
 
 def deconv2d(x, w, b=None, *, stride: int = 2, pad: int = 1, groups: int = 1):

@@ -49,6 +49,8 @@ class LoopSpec:
     snapshot_after_train: bool = True  # solver.cpp:294-299
     stepvalue: tuple = ()          # multistep lr boundaries (for the
     #                                solverstate current_step field)
+    param_layouts: tuple = ()      # a generic net's ((layer, type,
+    #                                group), ...) for binaryproto snapshots
 
 
 class SignalActions:
@@ -89,8 +91,9 @@ def _snapshot(spec: LoopSpec, train_state, it) -> str:
         # current_step = multistep lr stage index (sgd_solver.cpp's
         # this->current_step_), so the reference resumes the lr schedule
         cur = sum(1 for sv in spec.stepvalue if it >= int(sv))
+        layouts = {n: (t, g) for n, t, g in spec.param_layouts} or None
         return CKPT.snapshot_caffemodel(spec.snapshot_prefix, train_state, it,
-                                        current_step=cur)
+                                        current_step=cur, layouts=layouts)
     return CKPT.snapshot(spec.snapshot_prefix, train_state, it)
 
 

@@ -72,3 +72,34 @@ def step_draws(key, cfg, tspec, batch_size, n_gt, head_sizes):
                                      (tspec.roi_batch, cfg.fc_dim))
             draws["dropout"] = torch.from_numpy(np.array(m))
     return draws
+
+
+def net_draws(key, net):
+    """The port's `draws` dict for one `mscnn_tpu/models/netbuilder.py::
+    Net.apply(params, inputs, train=True, key=key)` call: apply splits its
+    key 16 ways and hands the next key to each Dropout and STOCHASTIC
+    pooling layer in layer order (netbuilder.py:611-627); dropout draws
+    bernoulli(k, 1 - ratio, x.shape), stochastic pooling uniform(k,
+    [N, OH, OW, 1, C]). net: the port's Net, after `init` (its `shapes`
+    give each layer's input and output shapes)."""
+    from mscnn_torch.config import prototxt as PB
+    from mscnn_torch.models import netbuilder as NB
+
+    keys = iter(jax.random.split(key, 16))
+    draws = {}
+    for layer in net.layers:
+        if not NB.needs_draw(layer):
+            continue
+        k = next(keys)
+        name = str(layer.get("name"))
+        x_shape = net.shapes[str(PB.as_list(layer.get("bottom"))[0])]
+        if str(layer.get("type")) == "Dropout":
+            ratio = float(layer.get("dropout_param", {})
+                          .get("dropout_ratio", 0.5))
+            m = jax.random.bernoulli(k, 1.0 - ratio, tuple(x_shape))
+            draws[name] = torch.from_numpy(np.array(m))
+        else:
+            _, oh, ow, c = net.shapes[str(PB.as_list(layer.get("top"))[0])]
+            u = jax.random.uniform(k, (x_shape[0], oh, ow, 1, c))
+            draws[name] = torch.from_numpy(np.array(u))
+    return draws

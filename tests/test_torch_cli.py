@@ -117,9 +117,11 @@ def test_cli_branches_not_ported(data, tmp_path, monkeypatch):
     base = ["train", "--solver", solver2, "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="item 20"):
         cli.main(base + ["--devices", "2"])
+    # a non-MS-CNN net goes to the generic builder (train/generic.py), which
+    # refuses a net with no data layer, as JAX's does
     (tmp_path / "generic.prototxt").write_text(
         'name: "g"\nlayer { name: "data" type: "Input" top: "data" }\n')
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="nothing to train from"):
         cli.main(base + ["--model", str(tmp_path / "generic.prototxt")])
     # no card and no --device: the entry point raises instead of using the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

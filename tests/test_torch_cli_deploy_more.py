@@ -114,7 +114,7 @@ def test_parity_and_device_query(tiny, tmp_path):
 
 def test_unported_options_exit_naming_the_roadmap(tiny):
     rc, out = port("time", "--layers", "--zoo", "tiny-fc256")
-    assert rc == 1 and "item 17" in out
+    assert rc == 1 and "--layers needs --model" in out
     with pytest.raises(SystemExit, match="item 20"):
         port("detect", "--zoo", "tiny-fc256", "--image-dir", tiny["imgs"],
              "--output-dir", tiny["root"] / "dev2", "--devices", 2)

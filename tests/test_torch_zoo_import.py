@@ -102,6 +102,9 @@ def test_tiny_trainval_and_solver_equal_jax(tmp_path):
     jl = dataclasses.asdict(JLP.loop_spec_from_solver_fields(fields))
     # the default snapshot format is each package's own directory format
     assert (tl.pop("snapshot_format"), jl.pop("snapshot_format")) == ("torch", "orbax")
+    # the port's own field: a generic net's layer layouts for binaryproto
+    # snapshots, set by the CLI's generic branch only
+    assert tl.pop("param_layouts") == ()
     assert tl == jl
 
 
