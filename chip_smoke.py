@@ -194,7 +194,8 @@ Phases (any failure exits non-zero, before the result line):
                 calibration image, each equal to plain), the decode / resize
                 / device split; (c) one JPEG POSTed to `serve` (phase 16's
                 batch-4 artifact), the answer equal to compiled.detect; (d)
-                a record shard of the JPEGs through `train2` on phase 13's
+                a record shard of the JPEGs, written by `cli
+                convert_imageset --window-file`, through `train2` on phase 13's
                 harness (its checks (a), (b) off; 20 timed iterations):
                 through the worker loader (the CLI's default, a worker a
                 core; its timed iterations again at 2 workers, through
@@ -218,8 +219,27 @@ Phases (any failure exits non-zero, before the result line):
                 rtol 1e-3 / atol 1e-6, the 10-crop forward timed; (c) `cli
                 time --layers --model` on it, the per-layer table printed;
                 (d) none of K1-K4 launched (no TPU kernel lies on this
-                path), no jax, mscnn_tpu, cv2 or h5py module loaded. No jax
-                or mscnn_tpu module is loaded after any phase.
+                path), no jax, mscnn_tpu, cv2 or h5py module loaded;
+ 19. Caffe databases -- (a) 10,000 seeded 28x28 PGM digits (MNIST's
+                test-set count at its size), `cli convert_imageset
+                --listfile` to an LMDB and to a LevelDB (records/s written,
+                bytes on disk, records/s each reader reads and decodes), the
+                two databases' records equal; (b) the LMDB, LevelDB and
+                ImageData sources give bit-equal batches from the unshuffled
+                list and one seed (crop, mirror, mean and scale on); (c)
+                `cli compute_mean` on the list: its BGR triple and per-pixel
+                BlobProto equal the numpy mean of the digits; (d) LeNet
+                (examples/mnist/lenet.prototxt at its published widths) with
+                its HDF5Data layers as `Data` layers, TRAIN on the LMDB
+                (backend LMDB), TEST on the LevelDB, scale 1/256, through
+                `cli train` (200 iterations: the loss must fall to half) and
+                `cli test`; the step ms, host batch ms and `cli` iteration
+                ms beside phase 18's ImageData figures; (e) a solver with
+                `snapshot_format: HDF5` fails with the ImportError that names
+                h5py where h5py is not installed (and writes the .h5 pair
+                where it is), and in no other way; (f) none of K1-K4
+                launched, no jax, mscnn_tpu or cv2 module loaded. No jax or
+                mscnn_tpu module is loaded after any phase.
 
 The lines before the last give the card's name and power limit
 (nvidia-smi) and one JSON object listing every kernel, each with its
@@ -2246,9 +2266,21 @@ def jpeg_input_path(dev, counts, zero_counts, PROF, rec, ep, tr):
     # workers timed), then --no-native; the same batches and the same first
     # losses
     def write_data(r):
-        shard = os.path.join(r, "trainval.rec")
-        R.write_records(shard, W.parse_window_file(os.path.join(img_dir, "trainval.txt"),
-                                                   img_dir + os.sep))
+        # the shard through the tools entry point, as a user writes one
+        import contextlib
+        import io
+
+        from mscnn_torch import cli
+
+        wf, shard = os.path.join(img_dir, "trainval.txt"), os.path.join(r, "trainval.rec")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["convert_imageset", "--window-file", wf,
+                           "--root-folder", img_dir + os.sep, "-o", shard])
+        n = len(W.parse_window_file(wf, img_dir + os.sep))
+        if rc != 0 or buf.getvalue() != f"Packed {n} records into {shard}\n" or \
+                len(R.RecordShard(shard)) != n:
+            fail(f"jpeg train: cli convert_imageset exited {rc}: {buf.getvalue()!r}")
         return shard
 
     nw = min(len(os.sched_getaffinity(0)), 3 * BATCH)    # the CLI's worker count
@@ -2574,6 +2606,240 @@ def generic_nets(dev, counts, zero_counts):
     out["seconds"] = time.perf_counter() - t_phase
     log(f"generic (d): no K1-K4 launch, no jax, mscnn_tpu, cv2 or h5py module; "
         f"phase 18 took {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 19: Caffe databases -------------------------------------------------
+
+DIGITS = 10000      # MNIST's test-set count, at its 28x28 size
+
+
+def lenet_on_data(root, train_db, test_db):
+    """examples/mnist/lenet.prototxt with its two HDF5Data layers as the
+    `Data` layers of the reference's lenet_train_test.prototxt (scale
+    1/256): TRAIN reads the LMDB, TEST the LevelDB."""
+    from mscnn_torch.config import prototxt as PB
+
+    net = PB.parse_prototxt_file("examples/mnist/lenet.prototxt")
+    for layer in PB.layers(net):
+        if layer["type"] == "HDF5Data":
+            test = PB.layer_phase(layer) == "TEST"
+            p = layer.pop("hdf5_data_param")
+            layer["type"] = "Data"
+            layer["data_param"] = {"source": test_db if test else train_db,
+                                   "backend": "LEVELDB" if test else "LMDB",
+                                   "batch_size": int(p["batch_size"])}
+            layer["transform_param"] = {"scale": 0.00390625}
+    path = os.path.join(root, "lenet_data.prototxt")
+    with open(path, "w") as f:
+        f.write(PB.emit_prototxt(net))
+    return path
+
+
+def caffe_databases(dev, counts, zero_counts, gn):
+    """Phase 19 (module notes): convert_imageset to an LMDB and a LevelDB,
+    the three sources' batches, compute_mean, LeNet through `cli train` /
+    `test` on `Data` layers, and snapshot_format HDF5. No TPU kernel lies
+    on this path. gn: phase 18's figures. Returns the phase's figures."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import numpy as np
+    import torch
+
+    from mscnn_torch import cli
+    from mscnn_torch import tools as TL
+    from mscnn_torch.config import prototxt as PB
+    from mscnn_torch.data import sources as SRC
+    from mscnn_torch.io import caffemodel as CM
+    from mscnn_torch.io import leveldb as LDB
+    from mscnn_torch.io import lmdb as L
+    from mscnn_torch.train import generic as G
+    from mscnn_torch.train import solver as S
+
+    def run(*argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(argv))
+        return rc, buf.getvalue(), time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    out = {"db": {}}
+    root = tempfile.mkdtemp(prefix="chip_smoke_caffe_db_")
+    zero_counts()
+    try:
+        # -- (a) 10,000 digits to an LMDB and a LevelDB ------------------------
+        lines = write_digits(root, DIGITS, SEED + 20)
+        lst = os.path.join(root, "digits.txt")
+        with open(lst, "w") as f:
+            f.writelines(lines)
+        dbs = {}
+        for backend, reader in (("lmdb", L.LMDBReader), ("leveldb", LDB.LevelDBReader)):
+            dbs[backend] = os.path.join(root, f"digits_{backend}")
+            rc, said, write_s = run("convert_imageset", "--listfile", lst,
+                                    "--backend", backend, "-o", dbs[backend])
+            if rc != 0 or said != f"Packed {DIGITS} records into {dbs[backend]}\n":
+                fail(f"databases: convert_imageset --backend {backend} exited {rc}: "
+                     f"{said!r}")
+            nbytes = sum(os.path.getsize(os.path.join(dbs[backend], n))
+                         for n in os.listdir(dbs[backend]))
+            t0 = time.perf_counter()
+            with reader(dbs[backend]) as db:
+                items = list(db.items())
+                pixels = [L.decode_datum(v).array() for _, v in items]
+            read_s = time.perf_counter() - t0
+            if len(items) != DIGITS or any(p.shape != (3, 28, 28) for p in pixels):
+                fail(f"databases: the {backend} holds {len(items)} records")
+            out["db"][backend] = {"write_rec_s": DIGITS / write_s, "bytes": nbytes,
+                                  "read_rec_s": DIGITS / read_s, "items": items}
+            if backend == "leveldb":
+                # the table's checksums: numpy lanes (io/leveldb.py) against the
+                # JAX module's byte loop, on the records' values
+                values = [v for _, v in items]
+                t0 = time.perf_counter()
+                lanes = LDB._crc32c_many(values)
+                lanes_s = time.perf_counter() - t0
+                table = [int(t) for t in LDB._CRC_TABLE]
+                t0 = time.perf_counter()
+                for v, want in zip(values[:1000], lanes):
+                    crc = 0xFFFFFFFF
+                    for x in v:
+                        crc = (crc >> 8) ^ table[(crc ^ x) & 0xFF]
+                    if crc ^ 0xFFFFFFFF != want:
+                        fail("databases: the numpy crc32c differs from the byte loop")
+                loop_s = time.perf_counter() - t0
+                mb = sum(map(len, values)) / 1e6
+                out["crc32c_mb_s"] = {"lanes": mb / lanes_s,
+                                      "byte_loop": sum(map(len, values[:1000])) / 1e6 / loop_s}
+                log(f"databases (a): crc32c of the {DIGITS} values ({mb:.1f} MB): numpy "
+                    f"lanes {out['crc32c_mb_s']['lanes']:.1f} MB/s, the byte loop (first "
+                    f"1,000) {out['crc32c_mb_s']['byte_loop']:.2f} MB/s")
+            log(f"databases (a): {backend}: {DIGITS} records written in "
+                f"{write_s:.2f} s ({DIGITS / write_s:.0f} records/s), {nbytes} bytes on "
+                f"disk; read and decoded in {read_s:.3f} s ({DIGITS / read_s:.0f} "
+                f"records/s)")
+        if out["db"]["lmdb"].pop("items") != out["db"]["leveldb"].pop("items"):
+            fail("databases: the LMDB's and the LevelDB's records differ")
+
+        # -- (b) the three sources, bit for bit --------------------------------
+        tspec = SRC.TransformSpec(scale=0.00390625, mean_values=(33.0, 33.0, 33.0),
+                                  crop_size=24, mirror=True)
+        srcs = (SRC.LMDBDataset(dbs["lmdb"], 64, tspec, seed=SEED),
+                SRC.LevelDBDataset(dbs["leveldb"], 64, tspec, seed=SEED),
+                SRC.ImageListDataset(lst, 64, tspec, shuffle=False, seed=SEED))
+        for i in range(3):
+            (a, b, c) = (s.next_batch() for s in srcs)
+            if not (np.array_equal(a["data"], b["data"]) and
+                    np.array_equal(a["data"], c["image"]) and
+                    np.array_equal(a["label"], b["label"]) and
+                    np.array_equal(a["label"], c["label"])):
+                fail(f"databases: batch {i} of the LMDB, LevelDB and ImageData "
+                     f"sources differ")
+        for s in srcs[:2]:
+            s.close()
+        log("databases (b): LMDB, LevelDB and ImageData batches bit-equal (3 x 64, "
+            "crop 24, mirror, mean, scale)")
+
+        # -- (c) compute_mean against numpy ----------------------------------
+        mean_path = os.path.join(root, "mean.binaryproto")
+        rc, said, _ = run("compute_mean", lst, "-o", mean_path)
+        digits = np.stack([np.fromfile(ln.split()[0], np.uint8)[-784:].reshape(28, 28)
+                           for ln in lines])
+        m = float(np.sum(digits, dtype=np.uint64)) / digits.size
+        with open(mean_path, "rb") as f:
+            blob = CM.blobproto_to_array(f.read())
+        want_blob = np.repeat((digits.sum(0, dtype=np.float64) / DIGITS)
+                              .astype(np.float32)[None, None], 3, 1)
+        bgr, _ = TL.compute_image_mean(lst)
+        if rc != 0 or said != (f"mean_value (BGR): {m:.4f} {m:.4f} {m:.4f}\nWrote "
+                               f"per-pixel mean BlobProto to {mean_path}\n") or \
+                list(bgr) != [m] * 3 or not np.array_equal(blob, want_blob):
+            fail(f"databases: compute_mean exited {rc}: {said!r}, triple {list(bgr)} "
+                 f"against {m}, blob {blob.shape}")
+        log(f"databases (c): compute_mean {said.splitlines()[0]!r} = the numpy mean "
+            f"{m:.6f}; the per-pixel BlobProto {list(blob.shape)} equal")
+
+        # -- (d) LeNet on Data layers: cli train, cli test --------------------
+        net_path = lenet_on_data(root, dbs["lmdb"], dbs["leveldb"])
+        fields = PB.parse_prototxt_file("examples/mnist/lenet_solver.prototxt")
+        iters = 200
+        fields.update(net=net_path, max_iter=iters, snapshot=iters, display=25,
+                      snapshot_prefix=os.path.join(root, "lenet"))
+        solver = os.path.join(root, "lenet_solver.prototxt")
+        with open(solver, "w") as f:
+            f.write(PB.emit_prototxt(fields))
+        rc, said, train_s = run("train", "--solver", solver)
+        losses = [float(x) for x in re.findall(r"loss = ([-+0-9.e]+)", said)]
+        snap = os.path.join(root, f"lenet_iter_{iters}")
+        if rc != 0 or len(losses) != iters // 25 or not os.path.isdir(snap):
+            fail(f"databases: cli train exited {rc} with losses {losses}")
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < 0.5 * losses[0]:
+            fail(f"databases: LeNet's loss did not fall: {losses}")
+        rc, said, _ = run("test", "--solver", solver, "--weights", snap,
+                          "--iterations", "4")
+        test = json.loads(said.strip().splitlines()[-1])
+        if rc != 0 or not all(math.isfinite(v) for v in test.values()):
+            fail(f"databases: cli test exited {rc}: {test}")
+        state, step, source, _ = G.setup(net_path, S.spec_from_prototxt_fields(fields),
+                                         seed=3, device=dev)
+        t0 = time.perf_counter()
+        batches = [source() for _ in range(20)]
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) / 20 * 1e3
+        for b in batches[:5]:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(50):
+            state, _ = step(state, batches[i % 20])
+        torch.cuda.synchronize()
+        g18 = gn["lenet"]
+        out["lenet"] = {"iter_ms": (time.perf_counter() - t0) / 50 * 1e3,
+                        "host_batch_ms": batch_ms, "cli_iter_ms": train_s / iters * 1e3,
+                        "loss": [losses[0], losses[-1]], "test": test}
+        log(f"databases (d): LeNet on Data layers: cli train {iters} iterations in "
+            f"{train_s:.1f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; cli test {test}")
+        log(f"databases (d): step {out['lenet']['iter_ms']:.3f} ms (ImageData, phase 18: "
+            f"{g18['iter_ms']:.3f}), host batch {batch_ms:.2f} ms ({g18['host_batch_ms']:.2f}), "
+            f"cli {out['lenet']['cli_iter_ms']:.2f} ms an iteration "
+            f"({g18['cli_iter_ms']:.2f})")
+
+        # -- (e) snapshot_format: HDF5 -----------------------------------------
+        h5_solver = os.path.join(root, "h5_solver.prototxt")
+        with open(h5_solver, "w") as f:
+            f.write(PB.emit_prototxt(dict(fields, max_iter=2, snapshot=2, display=0,
+                                          test_interval=0, snapshot_format="HDF5",
+                                          snapshot_prefix=os.path.join(root, "h5"))))
+        has_h5py = importlib.util.find_spec("h5py") is not None
+        try:
+            rc, said, _ = run("train", "--solver", h5_solver)
+            raised = None
+        except ImportError as e:
+            raised = str(e)
+        wrote = os.path.exists(os.path.join(root, "h5_iter_2.caffemodel.h5"))
+        if has_h5py and (raised is not None or rc != 0 or not wrote):
+            fail(f"databases: an HDF5 snapshot with h5py installed: {raised or rc}")
+        if not has_h5py and (raised is None or "h5py" not in raised):
+            fail(f"databases: snapshot_format HDF5 without h5py did not raise the "
+                 f"ImportError naming h5py (raised {raised!r})")
+        out["hdf5"] = "wrote the .h5 pair" if has_h5py else f"ImportError: {raised}"
+        log(f"databases (e): snapshot_format HDF5 -> {out['hdf5']}")
+
+        # -- (f) no kernel, no jax, mscnn_tpu or cv2 ---------------------------
+        out["launches"] = counts()
+        if any(out["launches"].values()):
+            fail(f"databases: a TPU-kernel port launched on a path without one: "
+                 f"{out['launches']}")
+        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "mscnn_tpu", "cv2")]
+        if loaded:
+            fail(f"databases: {sorted(loaded)[:5]} imported")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"databases (f): no K1-K4 launch, no jax, mscnn_tpu or cv2 module; "
+        f"phase 19 took {out['seconds']:.1f} s")
     return out
 
 
@@ -3702,6 +3968,9 @@ def main():
     # -- 18. the generic prototxt nets: LeNet, VGG16's Classifier, time --layers
     gn = generic_nets(dev, counts, zero_counts)
 
+    # -- 19. Caffe databases: convert_imageset, Data layers, compute_mean, HDF5
+    cdb = caffe_databases(dev, counts, zero_counts, gn)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -3752,6 +4021,17 @@ def main():
         f"{vg['predict_ms']:.1f} ms; time --layers top five (fwd, fwd+bwd ms): "
         + "; ".join(f"{n} {f:.3f} / {b:.3f}" for n, f, b in gn["layers_top5"]))
 
+    dl = cdb["lenet"]
+    log(f"databases on {card}: " + "; ".join(
+        f"{k} written {v['write_rec_s']:.0f} records/s, {v['bytes']} bytes, read "
+        f"{v['read_rec_s']:.0f} records/s" for k, v in cdb["db"].items())
+        + f"; LeNet on Data layers: step {dl['iter_ms']:.3f} ms, host batch "
+        f"{dl['host_batch_ms']:.2f} ms, cli {dl['cli_iter_ms']:.2f} ms an iteration "
+        f"(ImageData: {ln['iter_ms']:.3f} / {ln['host_batch_ms']:.2f} / "
+        f"{ln['cli_iter_ms']:.2f}), loss {dl['loss'][0]:.4f} -> {dl['loss'][1]:.4f}, "
+        f"test {dl['test']}; crc32c {cdb['crc32c_mb_s']['lanes']:.1f} MB/s (the byte "
+        f"loop {cdb['crc32c_mb_s']['byte_loop']:.2f}); phase 19 {cdb['seconds']:.1f} s")
+
     def jpeg_launches(k):
         """The kernel's launches in each run of phase 17."""
         return {tag: v[k] for tag, v in jp["launches"].items()}
@@ -3785,6 +4065,7 @@ def main():
          "launches_entry_points": entry_launches("nms"),
          "launches_jpeg_input": jpeg_launches("nms"),
          "launches_generic_nets": gn["launches"]["nms"],
+         "launches_caffe_databases": cdb["launches"]["nms"],
          "op": "mscnn::nms_xywh", "op_overhead_us": ep["op_overhead_us"]["nms_xywh"],
          "train": {tag: {"shape": [BATCH, fcfg.proposal.max_nms_num,
                                    fcfg.proposal.max_out], "kept": v[4],
@@ -3809,6 +4090,7 @@ def main():
          "launches_entry_points": entry_launches("conv1_pool"),
          "launches_jpeg_input": jpeg_launches("conv1_pool"),
          "launches_generic_nets": gn["launches"]["conv1_pool"],
+         "launches_caffe_databases": cdb["launches"]["conv1_pool"],
          "op": "mscnn::conv1_pool", "op_overhead_us": ep["op_overhead_us"]["conv1_pool"],
          "train_entry_min_bit_equal_share": tr["k2_share"],
          "launches_train_pallas_tiny": k2_train_launches,
@@ -3833,6 +4115,7 @@ def main():
          "launches_entry_points": entry_launches("int8_gemm"),
          "launches_jpeg_input": jpeg_launches("int8_gemm"),
          "launches_generic_nets": gn["launches"]["int8_gemm"],
+         "launches_caffe_databases": cdb["launches"]["int8_gemm"],
          "op": "mscnn::int8_conv", "op_overhead_us": ep["op_overhead_us"]["int8_conv"],
          "per_step": "sum of the 17 launches of one int8 deploy step; no one "
                      "PyTorch call computes an int8 conv with its epilogue, "
@@ -3843,6 +4126,7 @@ def main():
          "replaces": "examples/profile_conv1_v5.py:160",
          "launches": probe_launches["conv1_v5"], "max_abs_err": k3_max_err,
          "launches_generic_nets": gn["launches"]["conv1_v5"],
+         "launches_caffe_databases": cdb["launches"]["conv1_v5"],
          "min_bit_equal_share": k3_min_share,
          "ms": k3["1x768x2560"]["kernel"][f"{default_mode}_{th0}x{tq0}"],
          "plain_ms": k3["1x768x2560"]["plain"][default_mode],

@@ -38,10 +38,15 @@ tests through the generic net builder (`_build_generic_training`,
 --model net.prototxt` times each layer of such a net alone (`_time_layers`,
 cli.py:255-335), with CUDA events on the card.
 
+The dataset tools `convert_imageset` (an image list or window file to a
+record shard, an LMDB or a LevelDB; a Caffe database to a record shard)
+and `compute_mean` are `cmd_convert_imageset` / `cmd_compute_mean`
+(cli.py:1169-1182, :1220-1232) over `tools.py`.
+
 Not ported, each exiting or raising where the JAX CLI would take it:
-`--devices > 1` (item 20), and the tools commands (`resize_images`,
-`summary`, `plot_log`, `upgrade_*_proto`, `draw`, `convert_imageset`,
-`vbb2bbgt`, `compute_mean`, `extract_features`; item 18).
+`--devices > 1` (item 20), and the tools commands `resize_images`,
+`summary`, `plot_log`, `upgrade_net_proto` / `upgrade_solver_proto`,
+`draw`, `vbb2bbgt` and `extract_features` (item 18's second part).
 """
 
 from __future__ import annotations
@@ -383,8 +388,9 @@ def _time_layers(args):
     if data_layer is not None:
         ltype = str(data_layer.get("type"))
         if ltype not in _sourced:
-            print(f"time --layers cannot source a {ltype!r} layer (no host "
-                  "reader; use ImageData / HDF5Data)")
+            print(f"time --layers cannot source a {ltype!r} layer (the "
+                  "JAX CLI's time sources ImageData, HDF5Data, DummyData "
+                  "and WindowData only)")
             return 1
         # one batch of the net's own data layer gives the top shapes and
         # values, as caffe time runs the data layer (and generic.setup)
@@ -1037,6 +1043,37 @@ def cmd_device_query(args):
     return 0
 
 
+def cmd_convert_imageset(args):
+    """Pack a window file / image list into a record shard, an LMDB or a
+    LevelDB, or migrate a Caffe database to a record shard (the
+    tools/convert_imageset.cpp analog; see tools.py)."""
+    from mscnn_torch import tools as TL
+
+    n = TL.convert_imageset(
+        args.output, window_file=args.window_file, listfile=args.listfile,
+        from_lmdb=args.from_lmdb, from_leveldb=args.from_leveldb,
+        root_folder=args.root_folder,
+        shuffle=args.shuffle, seed=args.seed,
+        encode=args.encode, quality=args.quality, backend=args.backend)
+    print(f"Packed {n} records into {args.output}")
+    return 0
+
+
+def cmd_compute_mean(args):
+    """Dataset mean (tools/compute_image_mean.cpp analog): prints the BGR
+    mean_value triple; optionally writes a BlobProto binaryproto."""
+    from mscnn_torch import tools as TL
+
+    bgr, pixel = TL.compute_image_mean(args.source,
+                                       root_folder=args.root_folder,
+                                       output=args.output)
+    print(f"mean_value (BGR): {bgr[0]:.4f} {bgr[1]:.4f} {bgr[2]:.4f}")
+    if args.output:
+        kind = "per-pixel" if pixel is not None else "per-channel"
+        print(f"Wrote {kind} mean BlobProto to {args.output}")
+    return 0
+
+
 def _add_common(p):
     p.add_argument("--model", help="trainval prototxt (overrides solver's net:)")
     p.add_argument("--weights", help="snapshot to warm-start params from")
@@ -1230,6 +1267,39 @@ def main(argv=None):
                        help="comma list incl. bg for named detections")
     _add_device(p_srv)
     p_srv.set_defaults(fn=cmd_serve)
+
+    p_conv = sub.add_parser(
+        "convert_imageset",
+        help="pack a window file / image list into a record shard")
+    p_conv.add_argument("--window-file")
+    p_conv.add_argument("--listfile", help="`path label` lines")
+    p_conv.add_argument("--from-lmdb",
+                        help="migrate an existing Caffe LMDB env")
+    p_conv.add_argument("--from-leveldb",
+                        help="migrate an existing Caffe LevelDB dir")
+    p_conv.add_argument("--backend", default="records",
+                        choices=["records", "lmdb", "leveldb"],
+                        help="output format (lmdb/leveldb = Caffe "
+                             "Datum databases)")
+    p_conv.add_argument("--root-folder", default="")
+    p_conv.add_argument("--shuffle", action="store_true")
+    p_conv.add_argument("--seed", type=int, default=0)
+    p_conv.add_argument("--encode", default=None,
+                        help="re-encode as .png (default: raw bytes; the "
+                             "JAX CLI's .jpg needs a JPEG encoder, which "
+                             "the port does not have yet)")
+    p_conv.add_argument("--quality", type=int, default=95)
+    p_conv.add_argument("-o", "--output", required=True)
+    p_conv.set_defaults(fn=cmd_convert_imageset)
+
+    p_mean = sub.add_parser(
+        "compute_mean", help="dataset BGR mean (+ BlobProto output)")
+    p_mean.add_argument("source",
+                        help="window file, record shard, or image list")
+    p_mean.add_argument("--root-folder", default="")
+    p_mean.add_argument("-o", "--output", default=None,
+                        help="write mean as BlobProto binaryproto")
+    p_mean.set_defaults(fn=cmd_compute_mean)
 
     p_dq = sub.add_parser("device_query", help="list the CUDA devices")
     p_dq.set_defaults(fn=cmd_device_query)

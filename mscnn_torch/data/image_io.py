@@ -1,5 +1,6 @@
 """Image decoding without cv2: what `cv2.imread(path, cv2.IMREAD_COLOR)` and
-`cv2.imdecode(buf, cv2.IMREAD_COLOR)` return, for JPEG, PNG, PPM and PGM.
+`cv2.imdecode(buf, cv2.IMREAD_COLOR)` return, for JPEG, PNG, PPM and PGM;
+`imdecode(unchanged=True)` as `cv2.IMREAD_UNCHANGED`; a PNG encoder.
 
 New in the port. The JAX package decodes with cv2 (mscnn_tpu/cli.py:510,
 :690, :734; mscnn_tpu/serve.py:141); the card's machine has no cv2, so the
@@ -25,10 +26,24 @@ standard library's zlib:
     `data/pipeline.py`).
 
 The result is BGR uint8 [H, W, 3], equal to cv2's bit for bit
-(`tests/test_torch_image_io.py`, `tests/test_torch_jpeg.py`). BMP, TIFF
-and WEBP go to cv2 where it can be imported; without it the call raises,
-naming the file and its format. `shape` reads an image's height and width
-from its header alone.
+(`tests/test_torch_image_io.py`, `tests/test_torch_jpeg.py`). With
+`unchanged=True` it is what `cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)`
+returns, the decode an encoded Caffe Datum takes (`io/lmdb.py::Datum.
+array`): gray (PGM, gray JPEG, gray PNG of any depth) stays one channel
+[H, W]; a PNG keeps its alpha (BGRA; gray + alpha as gray, gray, gray,
+alpha; a tRNS chunk becomes alpha for RGB and palette images, as
+`png_set_tRNS_to_alpha` does), 16-bit PNG samples stay uint16; no EXIF
+orientation is applied (`tests/test_torch_lmdb.py`). BMP, TIFF and WEBP
+go to cv2 where it can be imported; without it the call raises, naming
+the file and its format. `shape` reads an image's height and width from
+its header alone.
+
+`imencode_png` writes 8-bit gray, BGR or BGRA as `cv2.imencode(".png")`
+does (the JAX package's `convert_imageset --encode .png` and record
+re-encode): the Sub filter on every row, zlib level 1 with the Z_RLE
+strategy, libpng's window sizing and its CMF rewrite, IDAT chunks of 8,192
+bytes. Its decode is the source's pixels, and with this zlib its bytes
+are cv2's.
 """
 
 from __future__ import annotations
@@ -92,24 +107,31 @@ def pnm_header(data: bytes):
     return (3 if data[:2] == b"P6" else 1), width, height, maxval, pos + 1
 
 
-def _decode_pnm(data: bytes, head, name: str) -> np.ndarray:
+def _decode_pnm(data: bytes, head, name: str,
+                unchanged: bool = False) -> np.ndarray:
     c, w, h, maxval, off = head
     jpeg.check_size(w, h, name)
+    if unchanged and maxval != 255:
+        raise NotImplementedError(
+            f"could not read image {name}: {'PGM' if c == 1 else 'PPM'} with "
+            f"maxval {maxval} under IMREAD_UNCHANGED (cv2 keeps its samples "
+            f"unscaled, 16-bit above 255); this module decodes maxval 255 "
+            f"only")
     if maxval != 255 or len(data) < off + h * w * c:
         raise ValueError(f"could not read image {name}: {w}x{h}x{c} "
                          f"maxval {maxval}, {len(data) - off} pixel bytes "
                          f"(8-bit PPM / PGM with maxval 255 only)")
     img = np.frombuffer(data, np.uint8, h * w * c, off).reshape(h, w, c)
     if c == 1:
-        return np.repeat(img, 3, axis=2)
+        return img[:, :, 0].copy() if unchanged else np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[:, :, ::-1])    # RGB -> BGR
 
 
 def _png_chunks(data: bytes, name: str, need_idat: bool = True):
-    """IHDR fields, the palette, the concatenated IDAT bytes and the EXIF
+    """IHDR fields, the palette, the concatenated IDAT bytes, the EXIF
     orientation of an `eXIf` chunk (libpng takes one that starts with II
-    or MM, before or after the image data)."""
-    pos, ihdr, plte, idat, orientation = 8, None, None, [], 1
+    or MM, before or after the image data) and the tRNS chunk's bytes."""
+    pos, ihdr, plte, idat, orientation, trns = 8, None, None, [], 1, None
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
@@ -121,6 +143,8 @@ def _png_chunks(data: bytes, name: str, need_idat: bool = True):
             plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"eXIf" and body[:2] in (b"II", b"MM"):
             orientation = jpeg.exif_orientation(body)
         elif kind == b"IEND":
@@ -128,7 +152,7 @@ def _png_chunks(data: bytes, name: str, need_idat: bool = True):
         pos += 12 + length
     if ihdr is None or (need_idat and not idat):
         raise ValueError(f"could not read image {name}: truncated PNG")
-    return ihdr, plte, b"".join(idat), orientation
+    return ihdr, plte, b"".join(idat), orientation, trns
 
 
 def unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
@@ -189,11 +213,15 @@ ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
 
 
 def _samples(rows: np.ndarray, w: int, h: int, ch: int, depth: int,
-             ctype: int) -> np.ndarray:
+             ctype: int, keep16: bool = False) -> np.ndarray:
     """Filtered rows [h, 1 + row bytes] (filter byte first) -> samples
-    [h, w, ch] uint8 (16-bit: the high byte; gray of 1, 2 or 4 bits scaled
-    to 8; palette indices as they are)."""
+    [h, w, ch] uint8 (16-bit: the high byte, or with keep16 the uint16
+    sample; gray of 1, 2 or 4 bits scaled to 8; palette indices as they
+    are)."""
     lines = unfilter(rows[:, 1:], rows[:, 0], max(1, ch * depth // 8))
+    if depth == 16 and keep16:
+        return lines[:, :2 * w * ch].view(">u2").astype(np.uint16) \
+            .reshape(h, w, ch)
     if depth == 16:      # png_set_strip_16: the high (first) byte
         return lines[:, 0::2][:, :w * ch].reshape(h, w, ch)
     if depth == 8:
@@ -209,7 +237,7 @@ def _samples(rows: np.ndarray, w: int, h: int, ch: int, depth: int,
 
 
 def _png_header(data: bytes, name: str, need_idat: bool = True):
-    ihdr, plte, idat, orientation = _png_chunks(data, name, need_idat)
+    ihdr, plte, idat, orientation, trns = _png_chunks(data, name, need_idat)
     w, h, depth, ctype, _comp, _filt, interlace = ihdr
     if ctype not in _CHANNELS or depth not in (1, 2, 4, 8, 16) or \
             (ctype in (2, 4, 6) and depth < 8) or (ctype == 3 and depth > 8):
@@ -219,12 +247,42 @@ def _png_header(data: bytes, name: str, need_idat: bool = True):
         raise ValueError(f"could not read image {name}: PNG interlace "
                          f"method {interlace}")
     jpeg.check_size(w, h, name, PNG_MAX_SIDE)
-    return ihdr, plte, idat, orientation
+    return ihdr, plte, idat, orientation, trns
 
 
-def _decode_png(data: bytes, name: str) -> np.ndarray:
-    (w, h, depth, ctype, _comp, _filt, interlace), plte, idat, orientation = \
-        _png_header(data, name)
+def _with_alpha(bgr: np.ndarray, alpha: np.ndarray) -> np.ndarray:
+    return np.concatenate([bgr, alpha[..., None].astype(bgr.dtype)], 2)
+
+
+def _png_unchanged(samples, ctype, depth, table, n_plte, trns):
+    """IMREAD_UNCHANGED's channels (OpenCV's PngDecoder: CV_8UC1 for gray,
+    CV_8UC4 for an alpha channel or a valid tRNS on an RGB or palette
+    image, else CV_8UC3; 16-bit depth kept): gray [H, W], BGR or BGRA."""
+    top = 65535 if depth == 16 else 255
+    if ctype == 3:       # png_set_palette_to_rgb, png_set_tRNS_to_alpha
+        bgr = table[samples[..., 0]][..., ::-1]
+        if trns is None or not 0 < len(trns) <= n_plte:
+            return bgr
+        alpha = np.full(256, 255, np.uint8)
+        alpha[:len(trns)] = np.frombuffer(trns, np.uint8)
+        return _with_alpha(bgr, alpha[samples[..., 0]])
+    if ctype == 0:       # the tRNS is stripped with the alpha
+        return samples[..., 0].copy()
+    if ctype == 4:       # png_set_gray_to_rgb, the alpha kept
+        return _with_alpha(np.repeat(samples[..., :1], 3, axis=2),
+                           samples[..., 1])
+    bgr = samples[..., 2::-1]
+    if ctype == 6:
+        return _with_alpha(bgr, samples[..., 3])
+    if trns is None or len(trns) != 6:
+        return np.ascontiguousarray(bgr)
+    key = np.array(struct.unpack(">3H", trns)) & top
+    return _with_alpha(bgr, np.where((samples == key).all(-1), 0, top))
+
+
+def _decode_png(data: bytes, name: str, unchanged: bool = False) -> np.ndarray:
+    (w, h, depth, ctype, _comp, _filt, interlace), plte, idat, orientation, \
+        trns = _png_header(data, name)
     ch = _CHANNELS[ctype]
     try:
         flat = np.frombuffer(zlib.decompress(idat), np.uint8)
@@ -232,7 +290,8 @@ def _decode_png(data: bytes, name: str) -> np.ndarray:
         raise ValueError(f"could not read image {name}: corrupt PNG data "
                          f"({e})") from e
     passes = ADAM7 if interlace else ((0, 0, 1, 1),)
-    samples = np.empty((h, w, ch), np.uint8)
+    keep16 = unchanged and depth == 16
+    samples = np.empty((h, w, ch), np.uint16 if keep16 else np.uint8)
     pos = 0
     for x0, y0, dx, dy in passes:
         pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
@@ -245,13 +304,19 @@ def _decode_png(data: bytes, name: str) -> np.ndarray:
                              f"{flat.size} bytes, {pos + need} needed")
         rows = flat[pos:pos + need].reshape(ph, row_bytes + 1)
         pos += need
-        samples[y0::dy, x0::dx] = _samples(rows, pw, ph, ch, depth, ctype)
-    if ctype == 3:       # png_set_palette_to_rgb (tRNS dropped with the alpha)
+        samples[y0::dy, x0::dx] = _samples(rows, pw, ph, ch, depth, ctype,
+                                           keep16)
+    table = None
+    if ctype == 3:
         if plte is None:
             raise ValueError(f"could not read image {name}: PNG palette "
                              f"image without a PLTE chunk")
         table = np.zeros((256, 3), np.uint8)
         table[:len(plte)] = plte[:256]
+    if unchanged:        # no EXIF orientation (OpenCV applies it for COLOR)
+        return _png_unchanged(samples, ctype, depth, table,
+                              0 if plte is None else len(plte), trns)
+    if ctype == 3:       # png_set_palette_to_rgb (tRNS dropped with the alpha)
         rgb = table[samples[..., 0]]
     elif ch in (1, 2):   # gray (+ alpha): png_set_gray_to_rgb
         rgb = np.repeat(samples[..., :1], 3, axis=2)
@@ -260,7 +325,7 @@ def _decode_png(data: bytes, name: str) -> np.ndarray:
     return jpeg.orient(rgb[..., ::-1], orientation)     # png_set_bgr
 
 
-def _with_cv2(data: bytes, name: str, fmt: str) -> np.ndarray:
+def _with_cv2(data: bytes, name: str, fmt: str, unchanged: bool) -> np.ndarray:
     try:
         import cv2
     except ImportError as e:
@@ -268,17 +333,19 @@ def _with_cv2(data: bytes, name: str, fmt: str) -> np.ndarray:
             f"could not read image {name}: it is {fmt} (this module decodes "
             f"JPEG, PNG, PPM and PGM), and other formats need the cv2 "
             f"module, which is not installed") from e
-    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    img = cv2.imdecode(np.frombuffer(data, np.uint8),
+                       cv2.IMREAD_UNCHANGED if unchanged else cv2.IMREAD_COLOR)
     if img is None:
         raise ValueError(f"could not read image {name}: cv2 cannot decode "
                          f"this {fmt} data")
     return img
 
 
-def imdecode(data: bytes, name: str = "<bytes>",
-             truncated_ok: bool = False) -> np.ndarray:
+def imdecode(data: bytes, name: str = "<bytes>", truncated_ok: bool = False,
+             unchanged: bool = False) -> np.ndarray:
     """Encoded image bytes -> BGR uint8 [H, W, 3], as
-    `cv2.imdecode(buf, cv2.IMREAD_COLOR)`. Raises ValueError where the
+    `cv2.imdecode(buf, cv2.IMREAD_COLOR)`, or with `unchanged` as
+    `cv2.IMREAD_UNCHANGED` (module notes). Raises ValueError where the
     bytes do not decode or their header declares a larger image than cv2
     decodes (cv2 returns None or raises there), NotImplementedError for
     a JPEG mode `data/jpeg.py` does not decode, ImportError for a format
@@ -287,14 +354,66 @@ def imdecode(data: bytes, name: str = "<bytes>",
     `cv2.imread` does (`imread` sets it)."""
     head = pnm_header(data)
     if head is not None:
-        return _decode_pnm(data, head, name)
+        return _decode_pnm(data, head, name, unchanged)
     fmt = sniff(data)
     if fmt == "PNG":
-        return _decode_png(data, name)
+        return _decode_png(data, name, unchanged)
     if fmt == "JPEG":
-        return jpeg.decode(data, name, truncated_ok=truncated_ok)
+        return jpeg.decode(data, name, truncated_ok=truncated_ok,
+                           unchanged=unchanged)
     return _with_cv2(data, name, f"a {fmt} file" if fmt != "unknown"
-                     else "of an unknown format")
+                     else "of an unknown format", unchanged)
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + \
+        struct.pack(">I", zlib.crc32(kind + body))
+
+
+def imencode_png(img: np.ndarray) -> bytes:
+    """uint8 gray [H, W] or [H, W, 1], BGR [H, W, 3] or BGRA [H, W, 4] ->
+    PNG bytes, written as OpenCV's PngEncoder writes them by default
+    (grfmt_png.cpp: PNG_FILTER_SUB, which libpng writes as None on a
+    one-pixel row, Z_BEST_SPEED, IMWRITE_PNG_STRATEGY_RLE; libpng's
+    png_deflate_claim window, its optimize_cmf header rewrite and 8,192-byte
+    IDAT chunks)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or \
+            (img.ndim == 3 and img.shape[2] not in (1, 3, 4)):
+        raise ValueError(f"imencode_png takes uint8 gray, BGR or BGRA "
+                         f"images, not {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    px = img.reshape(h, w, c)
+    if c >= 3:                                       # png_set_bgr
+        px = px[..., [2, 1, 0, 3][:c]]
+    rows = px.reshape(h, w * c)
+    sub = rows.copy()
+    sub[:, c:] -= rows[:, :-c]                      # the Sub filter, mod 256
+    ftype = np.full((h, 1), 1 if w > 1 else 0, np.uint8)   # libpng: None
+    raw = np.concatenate([ftype, sub], 1).tobytes()        # one pixel wide
+    wbits = 15
+    if len(raw) <= 16384:
+        while len(raw) + 262 <= 1 << (wbits - 1):
+            wbits -= 1
+    z = zlib.compressobj(1, zlib.DEFLATED, wbits, 8, zlib.Z_RLE)
+    data = bytearray(z.compress(raw) + z.flush())
+    cinfo = data[0] >> 4
+    if len(raw) <= 16384 and len(raw) <= 1 << (cinfo + 7):
+        while True:                                 # optimize_cmf
+            cinfo -= 1
+            if cinfo == 0 or len(raw) > 1 << (cinfo + 7):
+                break
+        data[0] = (data[0] & 0x0F) | (cinfo << 4)
+        flg = data[1] & 0xE0
+        data[1] = flg + 0x1F - ((data[0] << 8) + flg) % 0x1F
+    ctype = {1: 0, 3: 2, 4: 6}[c]
+    out = [PNG_MAGIC,
+           _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))]
+    out += [_png_chunk(b"IDAT", bytes(data[i:i + 8192]))
+            for i in range(0, len(data), 8192)]
+    out.append(_png_chunk(b"IEND", b""))
+    return b"".join(out)
 
 
 def imread(path: str) -> np.ndarray:
@@ -319,7 +438,7 @@ def shape(data: bytes, name: str = "<bytes>"):
         return head[2], head[1]
     fmt = sniff(data)
     if fmt == "PNG":
-        (w, h, *_), _plte, _idat, o = _png_header(data, name, False)
+        (w, h, *_), _plte, _idat, o, _trns = _png_header(data, name, False)
     elif fmt == "JPEG":
         h, w, o = jpeg.header(data, name)
     else:

@@ -36,7 +36,8 @@ that library's integer path step by step:
     16); a gray image repeated over three channels; an image that Adobe
     APP14 (transform 0) or its component ids mark as RGB taken as is.
   * EXIF orientation 1-8 applied, as `IMREAD_COLOR` does (OpenCV reads the
-    first APP1 segment).
+    first APP1 segment); `decode(unchanged=True)` is `IMREAD_UNCHANGED`: a
+    gray image as one channel [H, W], and no orientation.
 
 Arithmetic coding, 12-bit samples, lossless and hierarchical JPEG, CMYK /
 YCCK and a progressive image whose scans leave any of coefficients 0-9
@@ -771,13 +772,15 @@ def _rgb_marked(f: _Frame) -> bool:
     return [c[0] for c in f.comps] == [82, 71, 66]      # 'R', 'G', 'B'
 
 
-def decode(data: bytes, name: str = "<bytes>",
-           truncated_ok: bool = False) -> np.ndarray:
+def decode(data: bytes, name: str = "<bytes>", truncated_ok: bool = False,
+           unchanged: bool = False) -> np.ndarray:
     """JPEG bytes -> BGR uint8 [H, W, 3], as `cv2.imdecode(buf,
     cv2.IMREAD_COLOR)` (EXIF orientation applied), which fails where the
     bytes end before the EOI marker. truncated_ok: decode such bytes as
     `cv2.imread` decodes a file (libjpeg's file source then ends the data
     with a fake EOI, and the blocks past the end keep zero coefficients).
+    unchanged: as `cv2.IMREAD_UNCHANGED`: a gray image stays [H, W] and
+    no EXIF orientation is applied.
     """
     f = _segments(data, name)
     if not f.eoi and not truncated_ok:
@@ -799,12 +802,16 @@ def decode(data: bytes, name: str = "<bytes>",
             .reshape(by * 8, bx * 8)[:dh, :dw]
         planes.append(upsample(plane, h, v, mh, mv, name)
                       [:f.height, :f.width])
+    if len(planes) == 1 and unchanged:
+        return planes[0].astype(np.uint8)
     if len(planes) == 1:
         img = np.repeat(planes[0].astype(np.uint8)[..., None], 3, 2)
     elif _rgb_marked(f):
         img = np.stack(planes[::-1], -1).astype(np.uint8)
     else:
         img = ycc_to_bgr(*planes)
+    if unchanged:
+        return img
     o = exif_orientation(f.exif[6:]) if f.exif and len(f.exif) > 6 else 1
     return orient(img, o)
 

@@ -20,9 +20,10 @@ Wire layout (little-endian):
              "MSCX"
 
 Where the port differs: images decode with `data/image_io.py::imdecode`
-(no cv2), and `write_records(encode=".png" / ".jpg")`, which re-encodes
-through cv2 in the JAX package, raises NotImplementedError: the port has no
-image encoder yet (ROADMAP item 18). This module imports no torch.
+and `write_records(encode=".png")` re-encodes with `image_io.imencode_png`
+(cv2's PNG bytes, without cv2); `encode=".jpg"` raises NotImplementedError:
+the port has no JPEG encoder yet (ROADMAP item 18's second part). This
+module imports no torch.
 """
 
 from __future__ import annotations
@@ -48,6 +49,16 @@ def is_record_shard(path: str) -> bool:
             return f.read(4) == MAGIC
     except OSError:
         return False
+
+
+def check_encode(encode: Optional[str], quality: int = 95) -> None:
+    """Refuse a re-encode the port cannot write: it has a PNG encoder
+    (`image_io.imencode_png`) and no other."""
+    if encode not in (None, ".png"):
+        raise NotImplementedError(
+            f"encode={encode!r} (quality {quality}): the port encodes PNG "
+            f"only; a JPEG encoder is ROADMAP item 18's second part "
+            f"(encode=None stores the files' bytes as they are)")
 
 
 def _pack_meta(im: W.WindowImage) -> bytes:
@@ -88,22 +99,22 @@ def write_records(path: str, images: Sequence[W.WindowImage],
     Returns the record count.
 
     encode=None stores the original file bytes unchanged (lossless, no
-    decode). The JAX package's encode=".png" / ".jpg" (a re-encode through
-    cv2 at JPEG `quality`) raises NotImplementedError here (ROADMAP item
-    18)."""
-    if encode is not None:
-        raise NotImplementedError(
-            f"write_records(encode={encode!r}, quality={quality}): "
-            f"re-encoding needs an image encoder, which the port does not "
-            f"have yet (ROADMAP item 18); encode=None stores the files' "
-            f"bytes as they are")
+    decode); encode=".png" re-encodes each image as read in colour
+    (`image_io.imread`, cv2.imread's IMREAD_COLOR) with
+    `image_io.imencode_png`. The JAX package's encode=".jpg" (cv2 at JPEG
+    `quality`) raises NotImplementedError here (ROADMAP item 18's second
+    part)."""
+    check_encode(encode, quality)
     offsets: List[int] = []
     with open(path, "wb") as f:
         f.write(MAGIC + struct.pack("<I", VERSION))
         for im in images:
             src = os.path.join(root_folder, im.path) if root_folder else im.path
-            with open(src, "rb") as imf:
-                img_bytes = imf.read()
+            if encode is None:
+                with open(src, "rb") as imf:
+                    img_bytes = imf.read()
+            else:
+                img_bytes = image_io.imencode_png(image_io.imread(src))
             meta = _pack_meta(im)
             offsets.append(f.tell())
             f.write(struct.pack("<I", len(meta)))

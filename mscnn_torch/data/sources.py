@@ -2,9 +2,10 @@
 
 Copied from `mscnn_tpu/data/sources.py` (jax-free, so copied, not
 imported): `TransformSpec` / `transform`, `ImageListDataset`,
-`MemoryDataset`, `HDF5Dataset`, `write_hdf5` and `WindowCropDataset`, the
-equivalents of src/caffe/layers/{image,hdf5,memory,dummy}_data_layer.cpp
-and window_data_layer.cpp. Every random draw is the JAX module's, from a
+`MemoryDataset`, `LMDBDataset`, `LevelDBDataset`, `HDF5Dataset`,
+`write_hdf5` and `WindowCropDataset`, the equivalents of
+src/caffe/layers/{image,data,hdf5,memory,dummy}_data_layer.cpp and
+window_data_layer.cpp. Every random draw is the JAX module's, from a
 numpy RandomState in the same order, so both packages give the same
 batches from the same seed.
 
@@ -13,8 +14,9 @@ cv2's decode without cv2), and `WindowCropDataset`'s warp of the uint8
 patch is `data/resize.py::resize_bilinear_u8`, cv2's INTER_LINEAR bit for
 bit. h5py is imported by the HDF5 functions alone: without it (as on the
 card's machine) they raise ImportError. `LMDBDataset` / `LevelDBDataset`
-read through `io/lmdb.py` / `io/leveldb.py`, which are not ported yet
-(ROADMAP Queue 1 item 18): they raise NotImplementedError.
+read Caffe Datum databases through the port's `io/lmdb.py` /
+`io/leveldb.py`, an encoded Datum decoded as cv2's IMREAD_UNCHANGED by
+`data/image_io.py`.
 """
 
 from __future__ import annotations
@@ -137,23 +139,59 @@ class MemoryDataset:
     get = next_batch
 
 
-_ITEM_18 = ("{}: Caffe {} databases are read by io/{}.py, which is not "
-            "ported yet (ROADMAP Queue 1 item 18)")
-
-
 class LMDBDataset:
-    """DataLayer over a Caffe LMDB (data_layer.cpp): needs io/lmdb.py."""
+    """DataLayer over an existing Caffe LMDB (data_layer.cpp +
+    data_reader.cpp): a cyclic cursor over (key, Datum) records, decoded
+    and run through the DataTransformer chain. Yields NHWC float batches
+    + int labels. Records are indexed once up front (the pure-Python
+    reader is mmap-backed, so this holds offsets, not pixels)."""
 
-    def __init__(self, source: str, *args, **kwargs):
-        raise NotImplementedError(_ITEM_18.format(source, "LMDB", "lmdb"))
+    def __init__(self, source: str, batch_size: int,
+                 tspec: Optional[TransformSpec] = None, seed: int = 0,
+                 reader=None):
+        from mscnn_torch.io import lmdb as L
+        self._decode = L.decode_datum
+        self._db = reader if reader is not None else L.LMDBReader(source)
+        self._items = list(self._db.items())
+        if not self._items:
+            raise ValueError(f"empty LMDB dataset {source!r}")
+        self.batch_size = batch_size
+        self.tspec = tspec or TransformSpec()
+        self.rng = np.random.RandomState(seed)
+        self._pos = 0
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def next_batch(self, train: bool = True) -> dict:
+        imgs, labels = [], []
+        for _ in range(self.batch_size):
+            _, raw = self._items[self._pos]
+            self._pos = (self._pos + 1) % len(self._items)
+            d = self._decode(raw)
+            chw = d.array()
+            hwc = np.ascontiguousarray(chw.transpose(1, 2, 0))
+            imgs.append(transform(self.rng, hwc, self.tspec, train=train))
+            labels.append(d.label)
+        return {"data": np.stack(imgs).astype(np.float32),
+                "label": np.asarray(labels, np.int32)}
+
+    get = next_batch
+
+    def close(self):
+        self._db.close()
 
 
-class LevelDBDataset:
-    """DataLayer over a Caffe LevelDB: needs io/leveldb.py."""
+class LevelDBDataset(LMDBDataset):
+    """DataLayer over an existing Caffe LevelDB (util/db_leveldb.cpp):
+    same cyclic (key, Datum) cursor and transform chain as LMDBDataset,
+    read by the pure-Python SSTable/log reader (io/leveldb.py)."""
 
-    def __init__(self, source: str, *args, **kwargs):
-        raise NotImplementedError(_ITEM_18.format(source, "LevelDB",
-                                                  "leveldb"))
+    def __init__(self, source: str, batch_size: int,
+                 tspec: Optional[TransformSpec] = None, seed: int = 0):
+        from mscnn_torch.io import leveldb as LDB
+        super().__init__(source, batch_size, tspec, seed,
+                         reader=LDB.LevelDBReader(source))
 
 
 class HDF5Dataset:

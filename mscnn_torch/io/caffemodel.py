@@ -516,7 +516,16 @@ def load_caffemodel_params(path: str, params,
     fc_after_pool, layouts: as in `save_caffemodel` (recurrent layers are
     known by their leaves).
     """
-    blobs = parse_caffemodel(path)
+    return params_from_blobs(parse_caffemodel(path), params, fc_after_pool,
+                             deconv_names, layouts)
+
+
+def params_from_blobs(blobs: Dict[str, List[np.ndarray]], params,
+                      fc_after_pool: Optional[dict] = None,
+                      deconv_names=DECONV_NAMES,
+                      layouts: Optional[dict] = None):
+    """`load_caffemodel_params` of {layer: [Caffe-layout blobs]} already
+    read (a .caffemodel's, or an HDF5 weight file's)."""
     jp = _to_jax(params, layouts)
     if fc_after_pool is None:
         fc_after_pool = _infer_fc_after_pool(jp)
@@ -550,13 +559,25 @@ def load_solverstate_history(path: str, state_template,
     `save_solverstate` writes for it, so the BatchNorm, PReLU and Bias
     blobs it writes read back too (the JAX function skips them and
     misreads the blobs after; ROADMAP Queue 3). Returns (state, iter)."""
+    parsed = parse_solverstate(path)
+    return state_from_history(parsed["history"], parsed["iter"],
+                              state_template, deconv_names, fc_after_pool,
+                              layouts), parsed["iter"]
+
+
+def state_from_history(history, it: int, state_template,
+                       deconv_names=DECONV_NAMES,
+                       fc_after_pool: Optional[dict] = None,
+                       layouts: Optional[dict] = None):
+    """The solver state of `state_template` with its h1 taken from Caffe's
+    positional history blobs (each layer as many as `save_solverstate`
+    writes for it) and its iteration set to `it`."""
     h1t = _to_jax(state_template["h1"], layouts)
     if fc_after_pool is None:
         fc_after_pool = _infer_fc_after_pool(h1t)
     counts = {name: len(blobs) for name, _, blobs in
               _iter_layer_blobs(h1t, deconv_names, fc_after_pool)}
-    parsed = parse_solverstate(path)
-    hist = list(parsed["history"])
+    hist = list(history)
     h1 = {}
     for name, p in state_template["h1"].items():
         n = counts.get(name, 0)
@@ -570,7 +591,6 @@ def load_solverstate_history(path: str, state_template,
                             for k, v in got.items()}}
     state = dict(state_template)
     state["h1"] = h1
-    it = state_template["it"]
-    state["it"] = torch.full((), parsed["iter"], dtype=torch.int32,
-                             device=it.device)
-    return state, parsed["iter"]
+    state["it"] = torch.full((), int(it), dtype=torch.int32,
+                             device=state_template["it"].device)
+    return state

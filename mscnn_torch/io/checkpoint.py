@@ -17,8 +17,9 @@ same silent skip of missing layers and the same shape rule.
 `latest_snapshot` matches the JAX function, gap included: it parses
 `int(name[len(base) + 6:])`, so `<prefix>_iter_N.caffemodel` files are
 skipped and a stage-1 run that snapshots only BINARYPROTO leaves `train2`
-no stage-1 snapshot (ROADMAP Queue 3). HDF5 snapshots need h5py
-(`io/hdf5_snapshot.py`, ROADMAP Queue 1 item 18) and raise.
+no stage-1 snapshot (ROADMAP Queue 3). `snapshot_hdf5` writes the
+reference's HDF5 pair and `restore_params` reads `.h5` / `.hdf5` weights
+(`io/hdf5_snapshot.py`); both need h5py and raise ImportError without it.
 """
 
 from __future__ import annotations
@@ -30,8 +31,6 @@ from typing import Optional
 import torch
 
 STATE_FILE = "state.pt"
-_HDF5 = ("HDF5 snapshots (io/hdf5_snapshot.py) are not ported yet "
-         "(ROADMAP Queue 1 item 18)")
 
 
 def _path(prefix: str, it: int) -> str:
@@ -75,8 +74,24 @@ def snapshot_caffemodel(prefix: str, train_state, it: Optional[int] = None,
 
 
 def snapshot_hdf5(prefix: str, train_state, it: Optional[int] = None,
-                  current_step: int = 0) -> str:
-    raise NotImplementedError(_HDF5)
+                  current_step: int = 0,
+                  layouts: Optional[dict] = None) -> str:
+    """Write `<prefix>_iter_N.caffemodel.h5` + `.solverstate.h5` in the
+    reference's HDF5 snapshot format (Net::ToHDF5 net.cpp:868,
+    sgd_solver.cpp:279-302); the JAX function's files. layouts: a generic
+    net's `param_layouts()`. Returns the .caffemodel.h5 path."""
+    from mscnn_torch.io import hdf5_snapshot as H5
+
+    base = _path(prefix, _iter_of(train_state, it))
+    H5.save_hdf5_weights(train_state["params"], base + ".caffemodel.h5",
+                         layouts=layouts)
+    solver = train_state["solver"]
+    if "h1" in solver:
+        H5.save_hdf5_solverstate(
+            solver, base + ".solverstate.h5",
+            learned_net=os.path.basename(base) + ".caffemodel.h5",
+            current_step=current_step, layouts=layouts)
+    return base + ".caffemodel.h5"
 
 
 def _load(path: str):
@@ -119,22 +134,23 @@ def restore_params(path: str, template_params, layout_hints=None,
                    layouts=None):
     """Restore only the params of a snapshot (for warm start, eval,
     deploy). `.caffemodel` paths (ours or the reference's) go through the
-    wire importer, with a generic net's `caffemodel.net_layout_hints` and
+    wire importer and `.h5` / `.hdf5` paths through `io/hdf5_snapshot.py`,
+    with a generic net's `caffemodel.net_layout_hints` and
     `param_layouts()` where given; anything else is read as a `snapshot`
     directory."""
-    if path.endswith(".caffemodel"):
+    if path.endswith((".caffemodel", ".h5", ".hdf5")):
         from mscnn_torch.io import caffemodel as CM
+        from mscnn_torch.io import hdf5_snapshot as H5
         kw = {}
         if layout_hints:
             kw = {"fc_after_pool": layout_hints.get("fc_after_pool"),
                   "deconv_names": layout_hints.get("deconv_names",
                                                    CM.DECONV_NAMES)}
-        out, report = CM.load_caffemodel_params(path, template_params,
-                                                layouts=layouts, **kw)
+        load = CM.load_caffemodel_params if path.endswith(".caffemodel") \
+            else H5.load_hdf5_weights
+        out, report = load(path, template_params, layouts=layouts, **kw)
         _warn_mismatched(path, report)
         return out
-    if path.endswith((".h5", ".hdf5")):
-        raise NotImplementedError(f"{path}: {_HDF5}")
     return copy_trained_layers(template_params, _load(path)["params"])
 
 

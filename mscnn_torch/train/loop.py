@@ -16,7 +16,9 @@ state's device seeded from (seed, it) (`iteration_generator`), the
 counterpart of JAX's `fold_in(key, it)`, so a run resumed from a snapshot
 draws what the uninterrupted run drew. Snapshots go to the port's
 directory format by default; `snapshot_format: BINARYPROTO` writes the
-.caffemodel / .solverstate pair, HDF5 raises (io/checkpoint.py).
+.caffemodel / .solverstate pair, `HDF5` the .caffemodel.h5 /
+.solverstate.h5 pair (io/checkpoint.py; h5py, which raises ImportError
+where it is not installed).
 """
 
 from __future__ import annotations
@@ -85,15 +87,15 @@ def _snapshot(spec: LoopSpec, train_state, it) -> str:
     """Dispatch on snapshot_format: the port's train-state directory, or the
     reference's .caffemodel/.solverstate pair (Solver::Snapshot,
     solver.cpp:403-419)."""
-    if spec.snapshot_format == "hdf5":
-        return CKPT.snapshot_hdf5(spec.snapshot_prefix, train_state, it)
-    if spec.snapshot_format == "binaryproto":
+    if spec.snapshot_format in ("binaryproto", "hdf5"):
         # current_step = multistep lr stage index (sgd_solver.cpp's
         # this->current_step_), so the reference resumes the lr schedule
         cur = sum(1 for sv in spec.stepvalue if it >= int(sv))
         layouts = {n: (t, g) for n, t, g in spec.param_layouts} or None
-        return CKPT.snapshot_caffemodel(spec.snapshot_prefix, train_state, it,
-                                        current_step=cur, layouts=layouts)
+        writer = CKPT.snapshot_caffemodel \
+            if spec.snapshot_format == "binaryproto" else CKPT.snapshot_hdf5
+        return writer(spec.snapshot_prefix, train_state, it,
+                      current_step=cur, layouts=layouts)
     return CKPT.snapshot(spec.snapshot_prefix, train_state, it)
 
 

@@ -1,9 +1,9 @@
 """mscnn_torch/io/checkpoint.py against mscnn_tpu/io/checkpoint.py.
 
 snapshot -> restore is bit-exact (dtypes kept, the template's devices);
-`restore_params` dispatches on `.caffemodel` (JAX's file, read exactly;
-a mismatched layer warns and keeps the template) and otherwise reads the
-port's directory; `copy_trained_layers` has JAX's shape rules; and
+`restore_params` dispatches on `.caffemodel` and `.h5` (JAX's files,
+read exactly; a mismatched layer warns and keeps the template) and
+otherwise reads the port's directory; `copy_trained_layers` has JAX's shape rules; and
 `latest_snapshot` equals JAX's on the same directory, including its gap:
 `<prefix>_iter_N.caffemodel` files are not snapshots to it.
 """
@@ -18,6 +18,7 @@ import torch
 
 from mscnn_tpu.io import caffemodel as JCM
 from mscnn_tpu.io import checkpoint as JCK
+from mscnn_tpu.io import hdf5_snapshot as JH5
 from mscnn_torch.io import bridge
 from mscnn_torch.io import checkpoint as TCK
 
@@ -84,10 +85,18 @@ def test_restore_params(tmp_path):
     with pytest.warns(UserWarning, match="conv"):
         out = TCK.restore_params(cm, tmpl)
     assert torch.equal(out["conv"]["w"], torch.zeros(4, 3, 5, 5))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        TCK.restore_params(str(tmp_path / "w.caffemodel.h5"), tmpl)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        TCK.snapshot_hdf5(str(tmp_path / "h"), st)
+    # JAX's HDF5 weights of the same params read as exactly; the port's
+    # snapshot_hdf5 writes the pair
+    h5 = str(tmp_path / "j.caffemodel.h5")
+    JH5.save_hdf5_weights(jparams, h5)
+    tmpl = zeros(st["params"])
+    out = TCK.restore_params(h5, tmpl)
+    assert_same(out["conv"], st["params"]["conv"])
+    assert_same(out["fc"], st["params"]["fc"])
+    path = TCK.snapshot_hdf5(str(tmp_path / "h"), st)
+    assert path == str(tmp_path / "h_iter_3.caffemodel.h5")
+    assert os.path.exists(str(tmp_path / "h_iter_3.solverstate.h5"))
+    assert_same(TCK.restore_params(path, tmpl)["conv"], st["params"]["conv"])
 
 
 def test_copy_trained_layers_shape_rules():

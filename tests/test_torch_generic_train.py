@@ -193,8 +193,9 @@ def test_unported_and_refused_sources_raise(tmp_path):
     with pytest.raises(ValueError, match="is_color"):
         TG.setup(_net(tmp_path, "ImageData", gray), TSV.SolverSpec(),
                  device="cpu")
-    lmdb = 'data_param { source: "db" backend: LMDB batch_size: 2 }'
-    with pytest.raises(NotImplementedError, match="item 18"):
+    lmdb = 'transform_param { mean_file: "m.binaryproto" } ' \
+        'data_param { source: "db" backend: LMDB batch_size: 2 }'
+    with pytest.raises(ValueError, match="mean_file"):
         TG.setup(_net(tmp_path, "Data", lmdb), TSV.SolverSpec(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 20"):
         TG.setup(_net(tmp_path), TSV.SolverSpec(), mesh=object())

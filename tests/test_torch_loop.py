@@ -156,9 +156,13 @@ def test_snapshot_after_train_false_and_formats(tmp_path):
     from mscnn_torch.io import caffemodel as TCM
     assert TCM.parse_solverstate(path.replace(".caffemodel", ".solverstate"))[
         "current_step"] == 2
-    hdf5 = LP.loop_spec_from_solver_fields({"max_iter": 3, "snapshot_format": "HDF5"})
-    with pytest.raises(NotImplementedError, match="item 18"):
-        LP._snapshot(hdf5, state, 3)
+    hdf5 = LP.loop_spec_from_solver_fields(
+        {"max_iter": 3, "snapshot_format": "HDF5", "stepvalue": [1, 2],
+         "snapshot_prefix": str(tmp_path / "h5")})
+    assert LP._snapshot(hdf5, state, 3) == str(tmp_path / "h5_iter_3.caffemodel.h5")
+    import h5py
+    with h5py.File(str(tmp_path / "h5_iter_3.solverstate.h5"), "r") as f:
+        assert int(f["current_step"][0]) == 2 and int(f["iter"][0]) == 3
 
 
 def test_iteration_generator_is_a_function_of_seed_and_iter():

@@ -107,9 +107,17 @@ def test_write_records_root_folder_and_errors(images, tmp_path):
     with open(ims[1].path, "rb") as f:
         assert shard.read_bytes(1) == f.read()
     shard.close()
-    for enc in (".png", ".jpg"):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            TR.write_records(str(tmp_path / "e.rec"), ims, encode=enc)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        TR.write_records(str(tmp_path / "e.rec"), ims, encode=".jpg")
+    # encode=".png" re-encodes each image: the decode is the image itself
+    assert TR.write_records(str(tmp_path / "p.rec"), ims, encode=".png") == len(ims)
+    shard = TR.RecordShard(str(tmp_path / "p.rec"))
+    for i, im in enumerate(ims):
+        assert shard.read_bytes(i)[:8] == b"\x89PNG\r\n\x1a\n"
+        np.testing.assert_array_equal(shard.read_image(i), cv2.imread(im.path))
+    shard.close()
+    JR.write_records(str(tmp_path / "jp.rec"), ims, encode=".png")
+    assert (tmp_path / "p.rec").read_bytes() == (tmp_path / "jp.rec").read_bytes()
     bad = tmp_path / "bad.rec"
     bad.write_bytes(b"XXXX" + bytes(20))
     with pytest.raises(ValueError, match="bad magic"):
