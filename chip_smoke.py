@@ -238,8 +238,32 @@ Phases (any failure exits non-zero, before the result line):
                 `snapshot_format: HDF5` fails with the ImportError that names
                 h5py where h5py is not installed (and writes the .h5 pair
                 where it is), and in no other way; (f) none of K1-K4
-                launched, no jax, mscnn_tpu or cv2 module loaded. No jax or
-                mscnn_tpu module is loaded after any phase.
+                launched, no jax, mscnn_tpu or cv2 module loaded;
+ 20. tools  -- (a) data/jpeg_encode.py on the committed sources of
+                tests/assets/jpeg_encode/ (colour and gray, 1x1-37x29, 8
+                qualities) and on the eight 375x1242 scenes (decoded by the
+                port) at q90 and q95: the SHA-256 of cv2's bytes and of
+                cv2's decode (its manifest), encode and decode ms an image;
+                (b), (c), (e) every case of tests/assets/tools_ref/
+                make_fixtures.py through `mscnn_torch.cli`: `resize_images`
+                with and without the crop, `convert_imageset --encode .jpg`
+                of the scenes' window file to records, an LMDB and a
+                LevelDB (read back through the port's readers: each record
+                the scene's cv2 JPEG), `summary` on the card, `draw`,
+                `upgrade_net_proto` / `upgrade_solver_proto`, `vbb2bbgt`:
+                printed lines and file digests equal to the JAX CLI's (its
+                manifest); `plot_log` writes a PNG or raises the
+                ImportError naming matplotlib; (d) extract_features' forward
+                on the flagship (deploy, 768x2560, float32) over the eight
+                scenes with conv4_3, conv5_3 and the eight LFCN blobs:
+                decode / resize / forward ms an image and the peak memory;
+                the tiny config's blobs on the card equal the CPU's within
+                rtol 1e-5 / atol 1e-5 * max|ref|; `cli extract_features`
+                raises the ImportError naming h5py before it reads an image
+                (with h5py: its file equals the forward); (f) none of K1-K4
+                launched, no jax, mscnn_tpu or cv2 module loaded, the phase
+                within 60 s. No jax or mscnn_tpu module is loaded after any
+                phase.
 
 The lines before the last give the card's name and power limit
 (nvidia-smi) and one JSON object listing every kernel, each with its
@@ -2843,6 +2867,288 @@ def caffe_databases(dev, counts, zero_counts, gn):
     return out
 
 
+# -- phase 20: the tools: JPEG encoding, resize, extract_features, prototxt tools
+
+TOOLS_ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                            "assets")
+FLAGSHIP = "kitti_car/mscnn-8s-768-trainval"
+TOOLS_TOL = 1e-5    # extract_features' card-vs-CPU gate: rtol, atol * max|ref|
+
+
+def load_fixture_module(rel, name):
+    """A jax-free helper module of tests/assets, loaded from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(TOOLS_ASSETS, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tools(dev, counts, zero_counts, decode_ms=None):
+    """Phase 20 (module notes): the JPEG encoder against cv2's bytes, the
+    tools commands against the JAX CLI's outputs (the manifests), the
+    flagship's extract_features forward, and the card against the CPU on
+    the tiny config. No TPU kernel lies on this path. decode_ms: phase
+    17's JPEG decode ms, logged beside. Returns the phase's figures."""
+    import contextlib
+    import hashlib
+    import importlib.util
+    import io
+
+    import numpy as np
+    import torch
+
+    from mscnn_torch import cli
+    from mscnn_torch import tools as TL
+    from mscnn_torch.data import image_io
+    from mscnn_torch.data import jpeg
+    from mscnn_torch.data import jpeg_encode as JE
+    from mscnn_torch.data import records as R
+    from mscnn_torch.io import leveldb as LDB
+    from mscnn_torch.io import lmdb as L
+    from mscnn_torch.models import mscnn as M
+    from mscnn_torch.models import zoo
+
+    def sha(b):
+        return hashlib.sha256(b).hexdigest()
+
+    t_phase = time.perf_counter()
+    out = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    kitti = os.path.join(TOOLS_ASSETS, "jpeg", "kitti")
+    scenes = sorted(n for n in os.listdir(kitti) if n.endswith(".jpg"))
+    zero_counts()
+    try:
+        # -- (a) the encoder: cv2's bytes, and their decode --------------------
+        with open(os.path.join(TOOLS_ASSETS, "jpeg_encode", "manifest.json")) as f:
+            jm = json.load(f)
+        n_enc = 0
+        for name, by_q in sorted(jm["sources"].items()):
+            with open(os.path.join(TOOLS_ASSETS, "jpeg_encode", name), "rb") as f:
+                src = image_io.imdecode(f.read(), name, unchanged=True)
+            for q, want in by_q.items():
+                enc = JE.encode(src, int(q))
+                dec = jpeg.decode(enc, name, unchanged=True)
+                if (sha(enc), len(enc)) != (want["sha256"], want["len"]) or \
+                        sha(dec.tobytes()) != want["decode_sha256"]:
+                    fail(f"tools: {name} at quality {q} is not cv2's JPEG "
+                         f"({len(enc)} bytes against {want['len']})")
+                n_enc += 1
+        enc_ms, dec_ms, read_ms = [], [], []
+        decoded = {}
+        for name in scenes:
+            t0 = time.perf_counter()
+            img = image_io.imread(os.path.join(kitti, name))
+            read_ms.append((time.perf_counter() - t0) * 1e3)
+            decoded[name] = img
+            for q, want in sorted(jm["kitti"][name].items()):
+                t0 = time.perf_counter()
+                enc = JE.encode(img, int(q))
+                enc_ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                dec = jpeg.decode(enc, name, unchanged=True)
+                dec_ms.append((time.perf_counter() - t0) * 1e3)
+                if sha(enc) != want["sha256"] or sha(dec.tobytes()) != want["decode_sha256"]:
+                    fail(f"tools: kitti {name} at quality {q} is not cv2's JPEG")
+        mb = decoded[scenes[0]].nbytes / 1e6
+        out["encode_ms"] = statistics.median(enc_ms)
+        out["encode_mb_s"] = mb / out["encode_ms"] * 1e3
+        out["decode_ms"] = statistics.median(dec_ms)
+        out["read_ms"] = statistics.median(read_ms)
+        log(f"tools (a): {n_enc} fixture encodes (colour and gray, 1x1-37x29, "
+            f"quality 1-100) and {len(enc_ms)} of the 375x1242 scenes (q90, q95) "
+            f"are cv2's bytes (SHA-256) and decode to cv2's arrays; a scene "
+            f"encodes in {out['encode_ms']:.1f} ms (median, {min(enc_ms):.1f}-"
+            f"{max(enc_ms):.1f}; {out['encode_mb_s']:.1f} MB/s of BGR pixels), "
+            f"decodes in {out['decode_ms']:.1f} ms (imread {out['read_ms']:.1f}"
+            + (f"; phase 17: {decode_ms:.1f}" if decode_ms is not None else "") + ")")
+
+        # -- (b), (c), (e) the tools commands against the JAX CLI's outputs ---
+        mf = load_fixture_module(os.path.join("tools_ref", "make_fixtures.py"),
+                                 "tools_ref_fixtures")
+        with open(os.path.join(TOOLS_ASSETS, "tools_ref", "manifest.json")) as f:
+            tm = json.load(f)
+        case_s = {}
+        t_cases = time.perf_counter()
+        mf.write_vbbs(os.path.join(root, "vbb"))
+        for name, argv, outputs in mf.cases():
+            t0 = time.perf_counter()
+            got = mf.run_case(cli.main, root, argv, outputs)
+            case_s[name] = time.perf_counter() - t0
+            if got != tm[name]:
+                fail(f"tools: `cli {' '.join(argv[:1])}` ({name}) differs from the JAX "
+                     f"CLI's: {got['rc']}, {got['stdout'][:200]!r}, "
+                     f"{len(got['files'])} files against {len(tm[name]['files'])}")
+        out["cases_s"] = time.perf_counter() - t_cases
+        log(f"tools (b): resize_images with the crop (500x300) and without "
+            f"(640x192) over the 8 scenes: every file and line equal to the JAX "
+            f"CLI's ({case_s['resize_crop']:.2f} / {case_s['resize_nocrop']:.2f} s)")
+        # the databases read back through the port's readers: each record holds
+        # the scene's JPEG, cv2's bytes at the case's quality
+        shard = R.RecordShard(os.path.join(root, "kitti_jpg.rec"))
+        rec = [shard.read_bytes(i) for i in range(len(shard))]
+        ok = [im.shape == (375, 1242, 3) for im in map(shard.read_image, range(len(shard)))]
+        shard.close()
+        with LDB.LevelDBReader(os.path.join(root, "kitti_leveldb")) as db:
+            ldb = [L.decode_datum(v) for _, v in db.items()]
+        with L.LMDBReader(os.path.join(root, "kitti_lmdb")) as db:
+            lmdb = [L.decode_datum(v) for _, v in db.items()]
+        want95 = [jm["kitti"][n]["95"]["sha256"] for n in scenes]
+        want90 = [jm["kitti"][n]["90"]["sha256"] for n in scenes]
+        if [sha(b) for b in rec] != want95 or not all(ok) or \
+                [sha(d.data) for d in lmdb] != want95 or \
+                [sha(d.data) for d in ldb] != want90 or \
+                not all(d.encoded and d.array().shape == (3, 375, 1242) for d in lmdb + ldb):
+            fail("tools: the JPEG records, LMDB or LevelDB do not read back as the "
+                 "scenes' JPEGs")
+        log(f"tools (c): convert_imageset --encode .jpg of the kitti window file to "
+            f"records, an LMDB (q95) and a LevelDB (q90): files equal to the JAX CLI's "
+            f"({case_s['convert_records']:.2f} / {case_s['convert_lmdb']:.2f} / "
+            f"{case_s['convert_leveldb']:.2f} s); read back through the port's "
+            f"readers, each record is the scene's JPEG (the encoder manifest's "
+            f"SHA-256) and decodes to 375x1242")
+        log("tools (e): summary on the card (the V0 net, LeNet TEST), draw, "
+            "upgrade_net_proto (V0, V1), upgrade_solver_proto, vbb2bbgt (a tree of "
+            "two seeded .vbb, a stride): printed lines and files equal to the JAX "
+            f"CLI's ({sum(v for k, v in case_s.items() if not k.startswith(('resize', 'convert'))):.2f} s)")
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        log_path = os.path.join(root, "train.log")
+        mf.write_log(log_path)
+        png = os.path.join(root, "curves.png")
+        try:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["plot_log", "--log", log_path, "--out", png])
+            raised = None
+        except ImportError as e:
+            raised = str(e)
+        if has_mpl and (raised or rc != 0 or image_io.imread(png).ndim != 3):
+            fail(f"tools: plot_log with matplotlib installed: {raised or rc}")
+        if not has_mpl and (raised is None or "matplotlib" not in raised):
+            fail(f"tools: plot_log without matplotlib did not raise the ImportError "
+                 f"naming it ({raised!r})")
+        out["plot_log"] = "wrote the PNG" if has_mpl else f"ImportError: {raised}"
+        log(f"tools (e): plot_log -> {out['plot_log']}")
+
+        # -- (d) extract_features' forward on the flagship at full width -------
+        cfg = zoo.get(FLAGSHIP, deploy=True)
+        blobs = ["conv4_3", "conv5_3"] + [br.name for br in cfg.branches]
+        params = M.init_params(torch.Generator().manual_seed(SEED + 30), cfg, device=dev)
+        fwd = TL.feature_forward(params, cfg, blobs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        split = {"decode": [], "resize": [], "forward": []}
+        shapes = None
+        for i, name in enumerate(scenes):
+            t0 = time.perf_counter()
+            img = image_io.imread(os.path.join(kitti, name))
+            t1 = time.perf_counter()
+            x = TL.feature_input(img, cfg)
+            t2 = time.perf_counter()
+            feats = fwd(torch.from_numpy(x)[None].to(dev))
+            host = {k: v[0].float().cpu().numpy() for k, v in feats.items()}
+            t3 = time.perf_counter()
+            if i:          # the first image warms cuDNN up
+                for k, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+                    split[k].append(dt * 1e3)
+            if not all(np.isfinite(v).all() for v in host.values()):
+                fail(f"tools: extract_features' forward gave non-finite blobs on {name}")
+            shapes = {k: v.shape for k, v in host.items()}
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["extract_ms"] = {k: statistics.median(v) for k, v in split.items()}
+        if list(shapes) != sorted(blobs) or \
+                shapes["conv4_3"] != (cfg.input_hw[0] // 8, cfg.input_hw[1] // 8, 512):
+            fail(f"tools: extract_features' blobs {shapes}")
+        log(f"tools (d): extract_features' forward on {FLAGSHIP} (deploy, "
+            f"{cfg.input_hw[0]}x{cfg.input_hw[1]}, float32, TF32 off) over the 8 "
+            f"scenes, {len(blobs)} blobs ({', '.join(f'{k} {list(v)}' for k, v in shapes.items())}): "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in out["extract_ms"].items())
+            + f" an image (median of 7), peak {out['peak_gib']:.2f} GiB")
+        del params, fwd, feats
+        # the card against the CPU on the tiny config, two scenes
+        tcfg = zoo.tiny_test_config()
+        tp = M.init_params(torch.Generator().manual_seed(SEED + 31), tcfg, device="cpu")
+        tblobs = ["conv4_3", "conv5_3"] + [br.name for br in tcfg.branches]
+        f_cpu = TL.feature_forward(tp, tcfg, tblobs)
+        f_dev = TL.feature_forward({k: {n: t.to(dev) for n, t in p.items()}
+                                    for k, p in tp.items()}, tcfg, tblobs)
+        worst = 0.0
+        for name in scenes[:2]:
+            x = torch.from_numpy(TL.feature_input(decoded[name], tcfg))[None]
+            a, b = f_cpu(x), f_dev(x.to(dev))
+            for k in a:
+                ref, got = a[k].numpy(), b[k].cpu().numpy()
+                scale = np.abs(ref).max()
+                worst = max(worst, float(np.abs(got - ref).max() / scale))
+                if not np.allclose(got, ref, rtol=TOOLS_TOL, atol=TOOLS_TOL * scale):
+                    fail(f"tools: extract_features' {k} on the card differs from the "
+                         f"CPU's beyond rtol {TOOLS_TOL} / atol {TOOLS_TOL} * max|ref|")
+        out["tiny_err"] = worst
+        log(f"tools (d): the tiny config's {len(tblobs)} blobs on the card equal the "
+            f"CPU's within rtol {TOOLS_TOL} / atol {TOOLS_TOL} * max|ref| (max |err| "
+            f"{worst:.2e} of max|ref|), two scenes")
+        # cli extract_features: the ImportError naming h5py before any image is
+        # read, or (with h5py) the file, read back equal to the forward's blobs
+        reads = []
+        real_imread = image_io.imread
+
+        def counted(path):
+            reads.append(path)
+            return real_imread(path)
+
+        has_h5py = importlib.util.find_spec("h5py") is not None
+        h5 = os.path.join(root, "features.h5")
+        image_io.imread = counted
+        try:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["extract_features", "--zoo", "tiny-test", "--image-dir",
+                               kitti, "--blobs", ",".join(tblobs), "--iterations", "2",
+                               "-o", h5])
+            raised = None
+        except ImportError as e:
+            raised = str(e)
+        finally:
+            image_io.imread = real_imread
+        if not has_h5py and (raised is None or "h5py" not in raised or reads):
+            fail(f"tools: cli extract_features without h5py: {raised!r} after "
+                 f"{len(reads)} image reads")
+        if has_h5py:
+            import h5py
+            cp = M.init_params(torch.Generator().manual_seed(0), tcfg, device=dev)
+            fc = TL.feature_forward(cp, tcfg, tblobs)
+            with h5py.File(h5, "r") as f:
+                for i, name in enumerate(scenes[:2]):
+                    x = torch.from_numpy(TL.feature_input(decoded[name], tcfg))[None]
+                    want = {k: v[0].float().cpu().numpy() for k, v in fc(x.to(dev)).items()}
+                    if rc != 0 or list(f) != sorted(tblobs) or any(
+                            not np.allclose(f[k][i], want[k], rtol=TOOLS_TOL,
+                                            atol=TOOLS_TOL * np.abs(want[k]).max())
+                            for k in want):
+                        fail("tools: cli extract_features' file differs from the forward")
+        out["extract_cli"] = "wrote the HDF5 file" if has_h5py else f"ImportError: {raised}"
+        log(f"tools (d): cli extract_features -> {out['extract_cli']} "
+            f"({len(reads)} images read first)")
+
+        # -- (f) no kernel, no jax, mscnn_tpu or cv2 ---------------------------
+        out["launches"] = counts()
+        if any(out["launches"].values()):
+            fail(f"tools: a TPU-kernel port launched on a path without one: "
+                 f"{out['launches']}")
+        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "mscnn_tpu", "cv2")]
+        if loaded:
+            fail(f"tools: {sorted(loaded)[:5]} imported")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    if out["seconds"] > 60:
+        fail(f"tools: phase 20 took {out['seconds']:.1f} s (60 s at most)")
+    log(f"tools (f): no K1-K4 launch ({out['launches']}), no jax, mscnn_tpu or cv2 "
+        f"module; phase 20 took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3971,6 +4277,9 @@ def main():
     # -- 19. Caffe databases: convert_imageset, Data layers, compute_mean, HDF5
     cdb = caffe_databases(dev, counts, zero_counts, gn)
 
+    # -- 20. the tools: the JPEG encoder, resize_images, extract_features, ...
+    tl = tools(dev, counts, zero_counts, jp["decode_ms"])
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -4032,6 +4341,14 @@ def main():
         f"test {dl['test']}; crc32c {cdb['crc32c_mb_s']['lanes']:.1f} MB/s (the byte "
         f"loop {cdb['crc32c_mb_s']['byte_loop']:.2f}); phase 19 {cdb['seconds']:.1f} s")
 
+    ex = tl["extract_ms"]
+    log(f"tools on {card}: JPEG encode {tl['encode_ms']:.1f} ms a 375x1242 scene "
+        f"({tl['encode_mb_s']:.1f} MB/s), decode {tl['decode_ms']:.1f} ms; "
+        f"extract_features on the flagship: decode {ex['decode']:.1f}, resize "
+        f"{ex['resize']:.1f}, forward {ex['forward']:.1f} ms an image, peak "
+        f"{tl['peak_gib']:.2f} GiB; the commands {tl['cases_s']:.1f} s; phase 20 "
+        f"{tl['seconds']:.1f} s")
+
     def jpeg_launches(k):
         """The kernel's launches in each run of phase 17."""
         return {tag: v[k] for tag, v in jp["launches"].items()}
@@ -4066,6 +4383,7 @@ def main():
          "launches_jpeg_input": jpeg_launches("nms"),
          "launches_generic_nets": gn["launches"]["nms"],
          "launches_caffe_databases": cdb["launches"]["nms"],
+         "launches_tools": tl["launches"]["nms"],
          "op": "mscnn::nms_xywh", "op_overhead_us": ep["op_overhead_us"]["nms_xywh"],
          "train": {tag: {"shape": [BATCH, fcfg.proposal.max_nms_num,
                                    fcfg.proposal.max_out], "kept": v[4],
@@ -4091,6 +4409,7 @@ def main():
          "launches_jpeg_input": jpeg_launches("conv1_pool"),
          "launches_generic_nets": gn["launches"]["conv1_pool"],
          "launches_caffe_databases": cdb["launches"]["conv1_pool"],
+         "launches_tools": tl["launches"]["conv1_pool"],
          "op": "mscnn::conv1_pool", "op_overhead_us": ep["op_overhead_us"]["conv1_pool"],
          "train_entry_min_bit_equal_share": tr["k2_share"],
          "launches_train_pallas_tiny": k2_train_launches,
@@ -4116,6 +4435,7 @@ def main():
          "launches_jpeg_input": jpeg_launches("int8_gemm"),
          "launches_generic_nets": gn["launches"]["int8_gemm"],
          "launches_caffe_databases": cdb["launches"]["int8_gemm"],
+         "launches_tools": tl["launches"]["int8_gemm"],
          "op": "mscnn::int8_conv", "op_overhead_us": ep["op_overhead_us"]["int8_conv"],
          "per_step": "sum of the 17 launches of one int8 deploy step; no one "
                      "PyTorch call computes an int8 conv with its epilogue, "
@@ -4127,6 +4447,7 @@ def main():
          "launches": probe_launches["conv1_v5"], "max_abs_err": k3_max_err,
          "launches_generic_nets": gn["launches"]["conv1_v5"],
          "launches_caffe_databases": cdb["launches"]["conv1_v5"],
+         "launches_tools": tl["launches"]["conv1_v5"],
          "min_bit_equal_share": k3_min_share,
          "ms": k3["1x768x2560"]["kernel"][f"{default_mode}_{th0}x{tq0}"],
          "plain_ms": k3["1x768x2560"]["plain"][default_mode],

@@ -39,14 +39,21 @@ tests through the generic net builder (`_build_generic_training`,
 cli.py:255-335), with CUDA events on the card.
 
 The dataset tools `convert_imageset` (an image list or window file to a
-record shard, an LMDB or a LevelDB; a Caffe database to a record shard)
-and `compute_mean` are `cmd_convert_imageset` / `cmd_compute_mean`
-(cli.py:1169-1182, :1220-1232) over `tools.py`.
+record shard, an LMDB or a LevelDB, raw or re-encoded as PNG or JPEG; a
+Caffe database to a record shard), `compute_mean`, `resize_images` and
+`extract_features` are `cmd_convert_imageset` / `cmd_compute_mean` /
+`cmd_resize_images` / `cmd_extract_features` (cli.py:1169-1182,
+:1220-1232, :1053-1072, :1235-1266) over `tools.py`; `extract_features`
+runs the trunk and heads of --model / --zoo (a cascade's base) in
+float32 on the card and writes HDF5, so it needs h5py. The prototxt
+tools `summary` (shapes from the generic net builder's `Net.init` on
+--device), `draw` (Graphviz DOT, `utils/draw.py`), `upgrade_net_proto` /
+`upgrade_solver_proto` (`config/upgrade.py`) and `plot_log` (a PNG of a
+training log, `utils/parse_log.py`; it needs matplotlib) and the Caltech
+`vbb2bbgt` converter are cli.py:1075-1166 and :1184-1217.
 
-Not ported, each exiting or raising where the JAX CLI would take it:
-`--devices > 1` (item 20), and the tools commands `resize_images`,
-`summary`, `plot_log`, `upgrade_net_proto` / `upgrade_solver_proto`,
-`draw`, `vbb2bbgt` and `extract_features` (item 18's second part).
+Not ported, exiting or raising where the JAX CLI would take it:
+`--devices > 1` (item 20).
 """
 
 from __future__ import annotations
@@ -1074,6 +1081,195 @@ def cmd_compute_mean(args):
     return 0
 
 
+def cmd_resize_images(args):
+    """Batch-resize an image dir / list to a fixed geometry
+    (tools/extra/resize_and_crop_images.py parity)."""
+    import glob
+
+    from mscnn_torch import tools as TL
+
+    if os.path.isdir(args.source):
+        paths = sorted(sum((glob.glob(os.path.join(args.source, pat))
+                            for pat in ("*.png", "*.jpg", "*.jpeg")), []))
+    else:
+        with open(args.source) as f:
+            paths = [line.split()[0] for line in f if line.strip()]
+    n = TL.resize_and_crop_images(paths, args.output_dir,
+                                  width=args.width, height=args.height,
+                                  crop=not args.no_crop,
+                                  workers=args.workers)
+    print(f"Wrote {n}/{len(paths)} images to {args.output_dir}")
+    return 0
+
+
+def cmd_summary(args):
+    """Layer table of a net prototxt: name, type, output shape, param
+    count (tools/extra/summarize.py parity, plus shapes from the generic
+    net builder's shape inference, with the weights built on --device)."""
+    from mscnn_torch.config import prototxt as PB
+    from mscnn_torch.models.netbuilder import Net
+
+    net = Net(args.net, phase=args.phase)
+    dev = _device(args)
+    shapes, counts = {}, {}
+    try:
+        params = net.init(torch.Generator().manual_seed(0), device=dev)
+        shapes = net.shapes
+        counts = {name: sum(int(v.numel()) for v in p.values())
+                  for name, p in params.items()}
+    except Exception as e:  # still print the topology for exotic nets
+        print(f"(shape inference unavailable: {e})")
+    total = 0
+    print(f"{'layer':<24}{'type':<18}{'output shape':<22}{'params':>10}")
+    for layer in net.layers:
+        name = str(layer.get("name"))
+        tops = [str(t) for t in PB.as_list(layer.get("top"))]
+        shape = shapes.get(tops[0]) if tops else None
+        n = counts.get(name, 0)
+        total += n
+        print(f"{name:<24}{str(layer.get('type')):<18}"
+              f"{str(shape or ''):<22}{n:>10,}")
+    print(f"{'TOTAL':<64}{total:>10,}")
+    return 0
+
+
+def cmd_plot_log(args):
+    """Training curves from a Solve-loop log -> png
+    (tools/extra/plot_training_log.py.example parity). Needs matplotlib."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError("plot_log draws with the matplotlib module, which "
+                          "is not installed") from e
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from mscnn_torch.utils import parse_log as PL
+
+    rows = PL.parse_log_file(args.log)
+    if not rows:
+        print("no iterations found in log")
+        return 1
+    keys = sorted({k for r in rows for k in r}
+                  - {"iteration", "iters_per_sec"})
+    wanted = args.keys.split(",") if args.keys else ["loss"]
+    fig, ax = plt.subplots(figsize=(8, 5))
+    for key in wanted:
+        if key not in keys:
+            print(f"(no values for {key!r}; available: {', '.join(keys)})")
+            continue
+        pts = [(r["iteration"], r[key]) for r in rows if key in r]
+        ax.plot([p[0] for p in pts], [p[1] for p in pts], label=key)
+    ax.set_xlabel("iteration")
+    ax.legend()
+    ax.grid(True, alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(args.out, dpi=120)
+    plt.close(fig)
+    print(f"Wrote {args.out} ({len(rows)} points)")
+    return 0
+
+
+def cmd_upgrade_proto(args):
+    """Migrate a legacy V0/V1 net or solver prototxt to the modern schema
+    (tools/upgrade_net_proto_text.cpp / upgrade_solver_proto_text.cpp)."""
+    from mscnn_torch.config import prototxt as PB
+    from mscnn_torch.config import upgrade as UP
+
+    msg = PB.parse_prototxt_file(args.input)
+    out = UP.upgrade_solver(msg) if args.kind == "solver" \
+        else UP.upgrade_net(msg)
+    text = PB.emit_prototxt(out) + "\n"
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(text)
+        print(f"Wrote upgraded {args.kind} prototxt to {args.output}")
+    else:
+        print(text, end="")
+    return 0
+
+
+def cmd_draw(args):
+    """Net topology -> Graphviz DOT (python/caffe/draw.py equivalent;
+    render with `dot -Tpng out.dot` wherever graphviz is installed)."""
+    from mscnn_torch.config import prototxt as PB
+    from mscnn_torch.utils import draw as DR
+
+    net = PB.parse_prototxt_file(args.net)
+    DR.draw_net_to_file(net, args.out, rankdir=args.rankdir,
+                        phase=args.phase)
+    print(f"Wrote {args.out} ({len(PB.layers(net))} layers)")
+    return 0
+
+
+def cmd_vbb2bbgt(args):
+    """Convert Caltech .vbb video annotations to per-frame bbGt v3 txts at
+    the sampling stride, so `eval --dataset caltech` can score against the
+    original annotation release; the default stride / offset is the
+    devkit's 1 Hz extraction (every 30th frame, the first at index 29,
+    I00029.jpg)."""
+    import glob
+
+    from mscnn_torch.evaluation import caltech_eval as CE
+
+    if os.path.isdir(args.vbb):
+        vbbs = sorted(glob.glob(os.path.join(args.vbb, "**", "*.vbb"),
+                                recursive=True))
+    else:
+        vbbs = [args.vbb]
+    if not vbbs:
+        print(f"no .vbb files under {args.vbb}")
+        return 1
+    os.makedirs(args.output_dir, exist_ok=True)
+    n_files = 0
+    for vp in vbbs:
+        stem = os.path.splitext(os.path.basename(vp))[0]
+        parent = os.path.basename(os.path.dirname(os.path.abspath(vp)))
+        prefix = f"{parent}_{stem}" if parent.startswith("set") else stem
+        frames = CE.load_vbb(vp)
+        for f in range(args.offset, len(frames), args.stride):
+            CE.write_bbgt(
+                os.path.join(args.output_dir, f"{prefix}_I{f:05d}.txt"),
+                frames[f])
+            n_files += 1
+    print(f"Wrote {n_files} bbGt files from {len(vbbs)} vbb(s) "
+          f"to {args.output_dir}")
+    return 0
+
+
+def cmd_extract_features(args):
+    """Dump named activations over an image dir to HDF5
+    (tools/extract_features.cpp analog): the trunk and heads of --model /
+    --zoo (a cascade's base) in float32, on --device (the card by
+    default). Needs h5py."""
+    from mscnn_torch import tools as TL
+    from mscnn_torch.config import zoo_import as Z
+    from mscnn_torch.io import checkpoint as CKPT
+    from mscnn_torch.models import zoo
+
+    _no_devices(args)
+    dev = _device(args)
+    if args.model:
+        cfg = Z.deploy_model_from_prototxt(args.model)
+    else:
+        cfg = zoo.get(args.zoo or "kitti_car/mscnn-8s-768-trainval",
+                      deploy=True)
+    # feature extraction reads trunk and head blobs only; a cascade's
+    # base config and params carry them
+    cfg = getattr(cfg, "base", cfg)
+    params = _seed_params(cfg, None, dev)
+    if args.weights:
+        params = CKPT.restore_params(args.weights, params)
+    paths = _image_paths(args.image_dir)
+    if args.iterations:
+        paths = paths[: args.iterations]
+    shapes = TL.extract_features(params, cfg, paths,
+                                 args.blobs.split(","), args.output)
+    for name, shape in shapes.items():
+        print(f"{name}: {(len(paths),) + shape}")
+    return 0
+
+
 def _add_common(p):
     p.add_argument("--model", help="trainval prototxt (overrides solver's net:)")
     p.add_argument("--weights", help="snapshot to warm-start params from")
@@ -1285,9 +1481,7 @@ def main(argv=None):
     p_conv.add_argument("--shuffle", action="store_true")
     p_conv.add_argument("--seed", type=int, default=0)
     p_conv.add_argument("--encode", default=None,
-                        help="re-encode as .png (default: raw bytes; the "
-                             "JAX CLI's .jpg needs a JPEG encoder, which "
-                             "the port does not have yet)")
+                        help="re-encode as .png/.jpg (default: raw bytes)")
     p_conv.add_argument("--quality", type=int, default=95)
     p_conv.add_argument("-o", "--output", required=True)
     p_conv.set_defaults(fn=cmd_convert_imageset)
@@ -1300,6 +1494,74 @@ def main(argv=None):
     p_mean.add_argument("-o", "--output", default=None,
                         help="write mean as BlobProto binaryproto")
     p_mean.set_defaults(fn=cmd_compute_mean)
+
+    p_vbb = sub.add_parser(
+        "vbb2bbgt", help="convert Caltech .vbb annotations to per-frame "
+        "bbGt v3 txts (eval --dataset caltech input)")
+    p_vbb.add_argument("vbb", help=".vbb file or directory tree")
+    p_vbb.add_argument("--output-dir", required=True)
+    p_vbb.add_argument("--stride", type=int, default=30,
+                       help="frame sampling stride (devkit default 30)")
+    p_vbb.add_argument("--offset", type=int, default=29,
+                       help="first sampled frame index (default 29 = "
+                            "I00029, the devkit 1 Hz convention)")
+    p_vbb.set_defaults(fn=cmd_vbb2bbgt)
+
+    p_feat = sub.add_parser(
+        "extract_features", help="dump named activations to HDF5")
+    _add_common(p_feat)
+    p_feat.add_argument("--image-dir", required=True)
+    p_feat.add_argument("--blobs", default="conv4_3",
+                        help="comma-separated blob names")
+    p_feat.add_argument("-o", "--output", required=True)
+    p_feat.set_defaults(fn=cmd_extract_features)
+
+    p_rs = sub.add_parser(
+        "resize_images", help="batch resize/center-crop an image dir or "
+                              "list to fixed geometry")
+    p_rs.add_argument("source", help="image directory or list file")
+    p_rs.add_argument("--output-dir", required=True)
+    p_rs.add_argument("--width", type=int, required=True)
+    p_rs.add_argument("--height", type=int, required=True)
+    p_rs.add_argument("--no-crop", action="store_true",
+                      help="plain resize (do not preserve aspect + crop)")
+    p_rs.add_argument("--workers", type=int, default=4)
+    p_rs.set_defaults(fn=cmd_resize_images)
+
+    p_sum = sub.add_parser(
+        "summary", help="layer table of a net prototxt (name/type/shape/"
+                        "params)")
+    p_sum.add_argument("--net", required=True)
+    p_sum.add_argument("--phase", default="TRAIN",
+                       choices=["TRAIN", "TEST"])
+    _add_device(p_sum)
+    p_sum.set_defaults(fn=cmd_summary)
+
+    p_plot = sub.add_parser(
+        "plot_log", help="plot training curves from a solve log")
+    p_plot.add_argument("--log", required=True)
+    p_plot.add_argument("--out", required=True, help="output .png path")
+    p_plot.add_argument("--keys", default=None,
+                        help="comma list of metric keys (default: loss)")
+    p_plot.set_defaults(fn=cmd_plot_log)
+
+    for kind in ("net", "solver"):
+        p_up = sub.add_parser(
+            f"upgrade_{kind}_proto",
+            help=f"migrate a legacy {kind} prototxt to the modern schema")
+        p_up.add_argument("input")
+        p_up.add_argument("output", nargs="?", default=None,
+                          help="output path (default: stdout)")
+        p_up.set_defaults(fn=cmd_upgrade_proto, kind=kind)
+
+    p_draw = sub.add_parser(
+        "draw", help="render a net prototxt's topology to Graphviz DOT")
+    p_draw.add_argument("--net", required=True, help="net prototxt path")
+    p_draw.add_argument("--out", required=True, help="output .dot path")
+    p_draw.add_argument("--rankdir", default="LR",
+                        choices=["LR", "TB", "RL", "BT"])
+    p_draw.add_argument("--phase", default=None, choices=["TRAIN", "TEST"])
+    p_draw.set_defaults(fn=cmd_draw)
 
     p_dq = sub.add_parser("device_query", help="list the CUDA devices")
     p_dq.set_defaults(fn=cmd_device_query)

@@ -43,17 +43,22 @@ does (the JAX package's `convert_imageset --encode .png` and record
 re-encode): the Sub filter on every row, zlib level 1 with the Z_RLE
 strategy, libpng's window sizing and its CMF rewrite, IDAT chunks of 8,192
 bytes. Its decode is the source's pixels, and with this zlib its bytes
-are cv2's.
+are cv2's. `imencode(ext, img, quality)` and `imwrite(path, img)` pick the
+encoder by the extension, as `cv2.imencode` / `cv2.imwrite` do: PNG, JPEG
+(`data/jpeg_encode.py`, cv2's bytes at cv2's default quality 95), and
+binary PPM / PGM; any other extension raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
 import numpy as np
 
 from mscnn_torch.data import jpeg
+from mscnn_torch.data import jpeg_encode
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 PNG_MAX_SIDE = 1000000      # libpng's PNG_USER_WIDTH_MAX / PNG_USER_HEIGHT_MAX
@@ -414,6 +419,60 @@ def imencode_png(img: np.ndarray) -> bytes:
             for i in range(0, len(data), 8192)]
     out.append(_png_chunk(b"IEND", b""))
     return b"".join(out)
+
+
+JPEG_EXTS = (".jpg", ".jpeg")
+ENCODE_EXTS = (".png", ".ppm", ".pgm") + JPEG_EXTS
+
+
+def _encode_pnm(ext: str, img: np.ndarray) -> bytes:
+    """cv2's PxMEncoder in binary mode: P6 (RGB samples) from BGR for .ppm,
+    P5 from gray for .pgm, maxval 255."""
+    img = np.asarray(img)
+    gray = img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 1)
+    want_gray = ext == ".pgm"
+    if img.dtype != np.uint8 or gray != want_gray or \
+            (not gray and (img.ndim != 3 or img.shape[2] != 3)):
+        raise ValueError(f"{ext} takes uint8 {'gray' if want_gray else 'BGR'} "
+                         f"images, not {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    body = img.reshape(h, w) if gray else img[..., ::-1]
+    return (f"P{5 if gray else 6}\n{w} {h}\n255\n".encode()
+            + np.ascontiguousarray(body).tobytes())
+
+
+def imencode(ext: str, img: np.ndarray, quality: int = 95) -> bytes:
+    """`cv2.imencode(ext, img, [cv2.IMWRITE_JPEG_QUALITY, quality])`'s bytes,
+    the encoder picked by the extension (any case) as cv2 picks it: .png
+    (`imencode_png`), .jpg / .jpeg (`jpeg_encode.encode` at
+    `quality`), .ppm / .pgm (binary P6 / P5). Raises NotImplementedError
+    for any other extension and ValueError for an image the encoder does
+    not take (where cv2.imencode fails)."""
+    e = ext.lower()
+    if e == ".png":
+        return imencode_png(img)
+    if e in JPEG_EXTS:
+        return jpeg_encode.encode(img, quality)
+    if e in (".ppm", ".pgm"):
+        return _encode_pnm(e, img)
+    raise NotImplementedError(
+        f"cannot encode {ext!r}: this module writes "
+        f"{', '.join(ENCODE_EXTS)} (cv2 writes more formats)")
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """Write `img` to `path` in the format of its extension, as
+    `cv2.imwrite(path, img)` does (`imencode`, a JPEG at quality 95);
+    raises NotImplementedError naming the file and its extension where
+    there is no encoder for it."""
+    ext = os.path.splitext(path)[1]
+    if ext.lower() not in ENCODE_EXTS:
+        raise NotImplementedError(
+            f"could not write image {path}: no encoder for the extension "
+            f"{ext!r} (this module writes {', '.join(ENCODE_EXTS)})")
+    data = imencode(ext, img)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def imread(path: str) -> np.ndarray:

@@ -20,10 +20,8 @@ Wire layout (little-endian):
              "MSCX"
 
 Where the port differs: images decode with `data/image_io.py::imdecode`
-and `write_records(encode=".png")` re-encodes with `image_io.imencode_png`
-(cv2's PNG bytes, without cv2); `encode=".jpg"` raises NotImplementedError:
-the port has no JPEG encoder yet (ROADMAP item 18's second part). This
-module imports no torch.
+and `write_records(encode=...)` re-encodes with `image_io.imencode` (cv2's
+PNG and JPEG bytes, without cv2). This module imports no torch.
 """
 
 from __future__ import annotations
@@ -52,13 +50,14 @@ def is_record_shard(path: str) -> bool:
 
 
 def check_encode(encode: Optional[str], quality: int = 95) -> None:
-    """Refuse a re-encode the port cannot write: it has a PNG encoder
-    (`image_io.imencode_png`) and no other."""
-    if encode not in (None, ".png"):
+    """Refuse, before anything is written, a re-encode the port cannot
+    write: it encodes what `image_io.imencode` does (PNG, JPEG at
+    `quality`, PPM / PGM)."""
+    if encode is not None and encode.lower() not in image_io.ENCODE_EXTS:
         raise NotImplementedError(
-            f"encode={encode!r} (quality {quality}): the port encodes PNG "
-            f"only; a JPEG encoder is ROADMAP item 18's second part "
-            f"(encode=None stores the files' bytes as they are)")
+            f"encode={encode!r} (quality {quality}): the port encodes "
+            f"{', '.join(image_io.ENCODE_EXTS)} (encode=None stores the "
+            f"files' bytes as they are)")
 
 
 def _pack_meta(im: W.WindowImage) -> bytes:
@@ -99,11 +98,9 @@ def write_records(path: str, images: Sequence[W.WindowImage],
     Returns the record count.
 
     encode=None stores the original file bytes unchanged (lossless, no
-    decode); encode=".png" re-encodes each image as read in colour
-    (`image_io.imread`, cv2.imread's IMREAD_COLOR) with
-    `image_io.imencode_png`. The JAX package's encode=".jpg" (cv2 at JPEG
-    `quality`) raises NotImplementedError here (ROADMAP item 18's second
-    part)."""
+    decode); encode=".png" / ".jpg" re-encodes each image as read in colour
+    (`image_io.imread`, cv2.imread's IMREAD_COLOR) with `image_io.imencode`
+    (a JPEG at `quality`), as the JAX package does with cv2."""
     check_encode(encode, quality)
     offsets: List[int] = []
     with open(path, "wb") as f:
@@ -114,7 +111,8 @@ def write_records(path: str, images: Sequence[W.WindowImage],
                 with open(src, "rb") as imf:
                     img_bytes = imf.read()
             else:
-                img_bytes = image_io.imencode_png(image_io.imread(src))
+                img_bytes = image_io.imencode(encode, image_io.imread(src),
+                                              quality)
             meta = _pack_meta(im)
             offsets.append(f.tell())
             f.write(struct.pack("<I", len(meta)))

@@ -1,6 +1,7 @@
 """Dataset tools: the reference's tools/ binaries for Caffe's data path.
 
-Ports `mscnn_tpu/tools.py` (jax-free, so copied, not imported):
+Ports `mscnn_tpu/tools.py` (its dataset half is jax-free, so copied, not
+imported):
 
   * convert_imageset  (tools/convert_imageset.cpp:1-130) — pack an image
     list or a window file into one record shard (data/records.py), an LMDB
@@ -9,15 +10,21 @@ Ports `mscnn_tpu/tools.py` (jax-free, so copied, not imported):
   * compute_image_mean (tools/compute_image_mean.cpp:1-125) — the dataset
     mean: the per-channel BGR values the MS-CNN configs consume
     (transform_param.mean_value) and a reference-compatible BlobProto.
+  * extract_features  (tools/extract_features.cpp:1-182) — run the MS-CNN
+    trunk and heads over images and dump named blobs to HDF5.
+  * resize_and_crop_images (tools/extra/resize_and_crop_images.py) —
+    batch-resize images to a fixed geometry.
 
 Every file, key and record is the JAX function's, byte for byte, for the
-same inputs (`tests/test_torch_tools.py`). Images are read with
-`data/image_io.py` (cv2.imread's IMREAD_COLOR; an encoded Datum as
-IMREAD_UNCHANGED) and PNG-encoded with `image_io.imencode_png` (cv2's
-bytes); the JAX module does both with cv2. `encode=".jpg"` raises: the
-port has no JPEG encoder yet. `extract_features` (which runs the MS-CNN
-trunk into HDF5) and `resize_and_crop_images` are not ported (ROADMAP
-item 18's second part) and raise NotImplementedError.
+same inputs (`tests/test_torch_tools.py`, `tests/test_torch_tools_more.py`).
+Images are read with `data/image_io.py` (cv2.imread's IMREAD_COLOR; an
+encoded Datum as IMREAD_UNCHANGED), resized with `data/resize.py` (cv2's
+INTER_LINEAR) and encoded with `image_io.imencode` (cv2's PNG and JPEG
+bytes); the JAX module does all three with cv2. `extract_features` runs
+on the params' device (the card unless the caller built them elsewhere);
+its HDF5 output needs h5py, which the card's machine does not have: there
+it raises ImportError before an image is read. `feature_forward` is its
+forward alone and needs no h5py.
 """
 
 from __future__ import annotations
@@ -31,10 +38,8 @@ import numpy as np
 from mscnn_torch.data import image_io
 from mscnn_torch.data import records as R
 from mscnn_torch.data import window_file as W
+from mscnn_torch.data.resize import resize_bilinear_u8
 from mscnn_torch.io import lmdb as L
-
-_SECOND_PART = ("{} is not ported yet (ROADMAP Queue 1 item 18's second "
-                "part)")
 
 
 def _images_from_listfile(listfile: str,
@@ -75,7 +80,8 @@ def convert_imageset(output: str, *, window_file: Optional[str] = None,
     native sequential format), `backend="lmdb"`, or `backend="leveldb"`
     (Caffe-compatible Datum databases, what
     tools/convert_imageset.cpp:105-124 writes for either --backend).
-    encode: None (raw BGR Datums / the files' bytes) or ".png".
+    encode: None (raw BGR Datums / the files' bytes), ".png" or ".jpg"
+    (at JPEG `quality`).
     """
     srcs = (window_file, listfile, from_lmdb, from_leveldb)
     if sum(x is not None for x in srcs) != 1:
@@ -133,7 +139,8 @@ def _db_from_images(output: str, images: Sequence[W.WindowImage], *,
             label = int(im.gts[0, 0]) if len(im.gts) else 0
             arr = image_io.imread(im.path)
             data = (np.ascontiguousarray(arr.transpose(2, 0, 1)).tobytes()
-                    if encode is None else image_io.imencode_png(arr))
+                    if encode is None
+                    else image_io.imencode(encode, arr, quality))
             d = L.Datum(channels=arr.shape[2], height=arr.shape[0],
                         width=arr.shape[1], data=data, label=label,
                         encoded=encode is not None)
@@ -251,13 +258,114 @@ def compute_image_mean(source: str, *, root_folder: str = "",
     return bgr_mean, pixel_mean
 
 
-def extract_features(*args, **kwargs):
-    """tools/extract_features.cpp: the JAX package runs the MS-CNN trunk
-    and heads over images into HDF5 (mscnn_tpu/tools.py:278-325)."""
-    raise NotImplementedError(_SECOND_PART.format("extract_features"))
+def feature_forward(params, cfg, blob_names: Sequence[str]):
+    """The forward `extract_features` runs on each image: x float32
+    [1, H, W, 3] (BGR less the mean) on the params' device -> {name: blob}
+    for the trunk features and the LFCN head outputs (by branch name) in
+    `blob_names`, sorted by name as the JAX function's jitted dict comes
+    back. No gradient is kept."""
+    import torch
+
+    from mscnn_torch.models import mscnn as M
+
+    names = sorted(set(blob_names))
+
+    def forward(x):
+        with torch.no_grad():
+            feats = M.trunk(params, x, cfg)
+            named = dict(feats)
+            for br, out in zip(cfg.branches, M.heads(params, feats, cfg)):
+                named[br.name] = out
+            return {k: named[k] for k in names}
+    return forward
 
 
-def resize_and_crop_images(*args, **kwargs):
-    """tools/extra/resize_and_crop_images.py: needs a JPEG encoder for its
-    writes (mscnn_tpu/tools.py:328-364)."""
-    raise NotImplementedError(_SECOND_PART.format("resize_and_crop_images"))
+def feature_input(img: np.ndarray, cfg,
+                  mean_values=(104.0, 117.0, 123.0)) -> np.ndarray:
+    """A decoded BGR image -> the net's input [H, W, 3] float32: resized
+    to cfg.input_hw (cv2's INTER_LINEAR), less the BGR mean."""
+    net_h, net_w = cfg.input_hw
+    resized = resize_bilinear_u8(img, (net_w, net_h))
+    return resized.astype(np.float32) - np.asarray(mean_values, np.float32)
+
+
+def extract_features(params, cfg, image_paths: Sequence[str],
+                     blob_names: Sequence[str], output: str, *,
+                     mean_values=(104.0, 117.0, 123.0)) -> dict:
+    """Run the net over images and dump named activations to HDF5.
+
+    blob_names: trunk feature names (conv4_3, conv5_3, ...) and/or head
+    output names (the per-branch LFCN heads). One float32 HDF5 dataset per
+    blob, stacked over images ([N, H, W, C] NHWC), created at the first
+    image; one image a forward, on the params' device. Returns
+    {name: shape of one image's blob}. Raises ImportError naming h5py
+    before any image is read where h5py is not installed."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError("extract_features writes HDF5 and needs the h5py "
+                          "module, which is not installed") from e
+    import torch
+
+    from mscnn_torch.models import mscnn as M
+
+    forward = feature_forward(params, cfg, blob_names)
+    device = M.params_device(params)
+    shapes = {}
+    with h5py.File(output, "w") as f:
+        dsets = {}
+        for i, path in enumerate(image_paths):
+            x = feature_input(image_io.imread(path), cfg, mean_values)
+            out = forward(torch.from_numpy(x)[None].to(device))
+            for name, v in out.items():
+                v = v[0].float().cpu().numpy()
+                if name not in dsets:
+                    dsets[name] = f.create_dataset(
+                        name, shape=(len(image_paths),) + v.shape,
+                        dtype=np.float32)
+                    shapes[name] = v.shape
+                dsets[name][i] = v
+    return shapes
+
+
+def _resize_and_crop(img: np.ndarray, width: int, height: int,
+                     crop: bool) -> np.ndarray:
+    """One image of `resize_and_crop_images`: with crop, scaled to cover
+    width x height (aspect kept), then the centre cut; else resized."""
+    if not crop:
+        return resize_bilinear_u8(img, (width, height))
+    h, w = img.shape[:2]
+    s = max(width / w, height / h)
+    rw, rh = max(int(round(w * s)), width), max(int(round(h * s)), height)
+    img = resize_bilinear_u8(img, (rw, rh))
+    x0, y0 = (rw - width) // 2, (rh - height) // 2
+    return img[y0:y0 + height, x0:x0 + width]
+
+
+def resize_and_crop_images(paths: Sequence[str], output_dir: str, *,
+                           width: int, height: int, crop: bool = True,
+                           workers: int = 4) -> int:
+    """Batch-resize images to a fixed geometry
+    (tools/extra/resize_and_crop_images.py parity). With crop=True the
+    aspect ratio is preserved: scale so the image covers width x height,
+    then center-crop; otherwise plain resize. Each output keeps its
+    source's file name (and so its format, `image_io.imwrite`; a JPEG at
+    quality 95). A thread pool of `workers`, as the JAX function's. A file
+    that does not decode (where cv2.imread returns None) is skipped and
+    not counted; a JPEG mode the port does not decode raises. Returns the
+    number of images written."""
+    import concurrent.futures as cf
+
+    os.makedirs(output_dir, exist_ok=True)
+
+    def one(path):
+        try:
+            img = image_io.imread(path)
+        except (FileNotFoundError, ValueError):
+            return 0
+        image_io.imwrite(os.path.join(output_dir, os.path.basename(path)),
+                         _resize_and_crop(img, width, height, crop))
+        return 1
+
+    with cf.ThreadPoolExecutor(max_workers=max(workers, 1)) as pool:
+        return sum(pool.map(one, paths))

@@ -107,8 +107,12 @@ def test_write_records_root_folder_and_errors(images, tmp_path):
     with open(ims[1].path, "rb") as f:
         assert shard.read_bytes(1) == f.read()
     shard.close()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        TR.write_records(str(tmp_path / "e.rec"), ims, encode=".jpg")
+    with pytest.raises(NotImplementedError, match="the port encodes"):
+        TR.write_records(str(tmp_path / "e.rec"), ims, encode=".bmp")
+    # encode=".jpg" re-encodes each image as cv2 does, at the quality given
+    TR.write_records(str(tmp_path / "q.rec"), ims, encode=".jpg", quality=80)
+    JR.write_records(str(tmp_path / "jq.rec"), ims, encode=".jpg", quality=80)
+    assert (tmp_path / "q.rec").read_bytes() == (tmp_path / "jq.rec").read_bytes()
     # encode=".png" re-encodes each image: the decode is the image itself
     assert TR.write_records(str(tmp_path / "p.rec"), ims, encode=".png") == len(ims)
     shard = TR.RecordShard(str(tmp_path / "p.rec"))

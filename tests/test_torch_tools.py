@@ -8,7 +8,7 @@ shard is byte-equal too (the port's PNG encoder writes cv2's bytes with
 this zlib, and its decode is the source's pixels). `compute_image_mean`
 gives JAX's BGR triple exactly and its BlobProto bytes, per-pixel and
 per-channel, from a list, a window file and a shard; `cli compute_mean`
-prints JAX's lines. What the port does not encode or run raises.
+prints JAX's lines. What the port does not encode raises.
 """
 
 import contextlib
@@ -158,18 +158,17 @@ def test_png_encoder_writes_cv2_bytes_and_decodes_to_the_source(shape):
 
 def test_refusals(dataset, tmp_path):
     for backend in ("records", "lmdb", "leveldb"):
-        with pytest.raises(NotImplementedError, match="item 18"):
+        with pytest.raises(NotImplementedError, match="the port encodes"):
             TT.convert_imageset(str(tmp_path / "x"), listfile=dataset["list"],
-                                backend=backend, encode=".jpg")
+                                backend=backend, encode=".bmp")
     with pytest.raises(ValueError, match="exactly one"):
         TT.convert_imageset(str(tmp_path / "x"))
     with pytest.raises(ValueError, match="migration outputs records"):
         TT.convert_imageset(str(tmp_path / "x"), from_lmdb="db", backend="lmdb")
     with pytest.raises(ValueError, match="unknown backend"):
         TT.convert_imageset(str(tmp_path / "x"), listfile=dataset["list"], backend="hdf5")
-    for fn in (TT.extract_features, TT.resize_and_crop_images):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            fn()
+    with pytest.raises(NotImplementedError, match="x.bmp.*'.bmp'"):
+        image_io.imwrite(str(tmp_path / "x.bmp"), np.zeros((4, 4, 3), np.uint8))
     for bad in (np.zeros((4, 4), np.float32), np.zeros((4, 4, 2), np.uint8)):
         with pytest.raises(ValueError, match="imencode_png"):
             image_io.imencode_png(bad)
