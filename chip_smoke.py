@@ -262,8 +262,27 @@ Phases (any failure exits non-zero, before the result line):
                 raises the ImportError naming h5py before it reads an image
                 (with h5py: its file equals the forward); (f) none of K1-K4
                 launched, no jax, mscnn_tpu or cv2 module loaded, the phase
-                within 60 s. No jax or mscnn_tpu module is loaded after any
-                phase.
+                within 60 s;
+ 21. data parallel -- (a) the flagship stage-2 step (768x1024, batch 4,
+                bf16, K2 + K1, nonzero biases) through
+                `make_train_step(mesh=)` over NCCL at world size 1, 2 steps
+                bit-equal to the step without a mesh under sync debug mode
+                "error" (a K2 and a K1 launch a step, each held to its
+                plain version); the step's ms with and without the mesh, in
+                turns; the all-reduce's MB (every trainable float32
+                gradient) and ms; (b) two ranks (`chip_smoke.py --dp-rank
+                R`) sharing cuda:0 over gloo (NCCL refuses two ranks on one
+                card), batch 2 each, 2 steps: the ranks' params bit-equal,
+                and within 1e-2 of each leaf's move of one process that
+                applies the mean of the two micro-batches' gradients; K1
+                and K2 twice in each rank; (c) `make_forward(mesh=[cuda:0])`
+                bit-equal to `make_forward` on the flagship deploy graph in
+                bf16 and int8 + heads (K4), `detect_batch` over the mesh
+                equal to `detect_batch`, `cli detect --devices 2` on one
+                card exits with "mesh shape (2,) needs 2 devices, have 1",
+                `cli detect --devices 1` writes `detect`'s label files; (d)
+                no jax, mscnn_tpu or cv2 module in this process or either
+                rank. No jax or mscnn_tpu module is loaded after any phase.
 
 The lines before the last give the card's name and power limit
 (nvidia-smi) and one JSON object listing every kernel, each with its
@@ -3149,6 +3168,513 @@ def tools(dev, counts, zero_counts, decode_ms=None):
     return out
 
 
+# -- phase 21: data parallelism ----------------------------------------------
+
+DP_BATCH = 4        # the global batch of (a) and (b)
+DP_STEPS = 2
+DP_TOL = 1e-2       # (b): each moved leaf within 1e-2 of its move (+ 4 spacings)
+
+
+def dp_flagship(dev):
+    """Phase 21's training case (bench.py:87-134's spec): the flagship's
+    stage-2 step at 768x1024, bf16, the fused conv1 (K2) and K1, seeded
+    nonzero biases; (cfg, tspec, sspec, params, lr_mults, decay_mults, the
+    global batch)."""
+    import torch
+
+    from mscnn_torch.data import synthetic as TSY
+    from mscnn_torch.models import mscnn as M
+    from mscnn_torch.models import zoo
+    from mscnn_torch.train import solver as TS
+    from mscnn_torch.train import train_step as TT
+
+    cfg = dataclasses.replace(zoo.kitti_car_8s_768(deploy=False),
+                              compute_dtype="bfloat16", pallas_conv1=True)
+    th, tw = cfg.input_hw
+    tspec = TT.TrainSpec(stage=2)
+    sspec = TS.SolverSpec(type="sgd", base_lr=5e-5, lr_policy="step", gamma=0.1,
+                          stepsize=10000, momentum=0.9, weight_decay=5e-4)
+    params = nonzero_biases(M.init_params(torch.Generator().manual_seed(SEED), cfg,
+                                          device=dev), SEED + 7)
+    batch = TSY.make_batch(cfg, batch=DP_BATCH, seed=SEED, with_labels=False, device=dev)
+    batch["image"] = torch.randint(0, 256, (DP_BATCH, th, tw, 3), dtype=torch.uint8,
+                                   generator=torch.Generator().manual_seed(SEED + 21)
+                                   ).to(dev)
+    return (cfg, tspec, sspec, params, M.param_lr_multipliers(params, cfg),
+            M.param_decay_multipliers(params, cfg), batch)
+
+
+def dp_draws(cfg, tspec, batch_size, n_gt, dev, rank):
+    """Rank `rank`'s draws of each step (the loop's generators: JAX's
+    fold_in(key, rank))."""
+    from mscnn_torch.train import loop as LP
+    from mscnn_torch.train import train_step as TT
+
+    return [TT.sample_draws(LP.iteration_generator(SEED, s, dev, rank), cfg, tspec,
+                            batch_size, n_gt=n_gt) for s in range(DP_STEPS)]
+
+
+def reference_modules():
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "mscnn_tpu", "cv2"))
+
+
+def dp_rank_main(argv):
+    """Phase 21 (b)'s rank: `chip_smoke.py --dp-rank R --port P --out DIR`.
+    Two ranks share cuda:0 over gloo (NCCL refuses two ranks on one card),
+    batch 2 each, DP_STEPS steps of the flagship case; its start-up (the
+    interpreter, torch, the kernels' libraries, a CUDA context) runs while
+    the parent measures (a), the rest once DIR/go exists. Writes its
+    params, launches, step ms and loaded modules to DIR/rank{R}.pt."""
+    import torch
+
+    from mscnn_torch.ops.kernels import build
+    from mscnn_torch.ops.kernels import conv1_kernel as CK
+    from mscnn_torch.ops.kernels import conv1_v5_kernel as K3
+    from mscnn_torch.ops.kernels import int8_kernel as IK
+    from mscnn_torch.ops.kernels import nms_kernel as NK
+    from mscnn_torch.parallel import distributed as D
+    from mscnn_torch.parallel import make_mesh
+    from mscnn_torch.train import train_step as TT
+    from mscnn_torch.train import solver as TS
+
+    args = argparse.ArgumentParser()
+    args.add_argument("--dp-rank", type=int, required=True)
+    args.add_argument("--port", type=int, required=True)
+    args.add_argument("--out", required=True)
+    a = args.parse_args(argv)
+    build.build()                       # the parent built them: loads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.zeros((), device=dev)          # the CUDA context
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(a.out, "go")):
+        if time.perf_counter() - t0 > 240:
+            raise TimeoutError("phase 21 (b): no go from the parent in 240 s")
+        time.sleep(0.05)
+    D.initialize(f"127.0.0.1:{a.port}", 2, a.dp_rank, device=dev, backend="gloo")
+    try:
+        mesh = make_mesh((2,), ("data",), [dev, dev])
+        cfg, tspec, sspec, params, lm, dm, batch = dp_flagship(dev)
+        state = TT.replicate_state({"params": params,
+                                    "solver": TS.init_state(params, sspec)}, mesh)
+        local = TT.shard_batch(batch, mesh)
+        step = TT.make_train_step(cfg, tspec, sspec, lr_mults=lm, decay_mults=dm,
+                                  mesh=mesh)
+        draws = dp_draws(cfg, tspec, DP_BATCH // 2, batch["gt_boxes"].shape[1], dev,
+                         a.dp_rank)
+        NK.launches = CK.launches = IK.launches = K3.launches = 0
+        times, split = [], {}
+        for s in range(DP_STEPS):
+            evs = []
+
+            def mark(name):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                evs.append((name, ev))
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mark("start")
+            state, m = step(state, local, draws=draws[s], mark=mark)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            split = {name: a_.elapsed_time(b_) for (_, a_), (name, b_) in zip(evs, evs[1:])}
+        torch.save({"params": {n: {k: v.cpu() for k, v in p.items()}
+                               for n, p in state["params"].items()},
+                    "loss": float(m["loss"]),
+                    "launches": {"nms": NK.launches, "conv1_pool": CK.launches,
+                                 "int8_gemm": IK.launches, "conv1_v5": K3.launches},
+                    "ms": times, "split": split, "modules": reference_modules()},
+                   os.path.join(a.out, f"rank{a.dp_rank}.pt"))
+    finally:
+        D.shutdown()
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def leaf_errors(got, want, p0):
+    """(max over the moved leaves of |got - want| / max|want - p0|, whether
+    all are equal): DP_TOL's bound, plus 4 float32 spacings of max|want|."""
+    import torch
+    worst, equal = 0.0, True
+    for n, p in want.items():
+        for k, w in p.items():
+            g, w0 = got[n][k].to(w.device), p0[n][k]
+            equal = equal and torch.equal(g, w)
+            move = (w - w0).abs().max().item()
+            err = (g - w).abs().max().item()
+            if move == 0.0:
+                if err != 0.0:
+                    fail(f"data parallel (b): {n}.{k} moved by {err} where the "
+                         "one-process step left it")
+                continue
+            spacing = 4 * torch.finfo(torch.float32).eps * w.abs().max().item()
+            if err > DP_TOL * move + spacing:
+                fail(f"data parallel (b): {n}.{k} off the one-process mean of the "
+                     f"micro-batch gradients by {err} (move {move})")
+            worst = max(worst, err / move)
+    return worst, equal
+
+
+def clone_state(state):
+    """A copy of a train state {"params", "solver"} on its device."""
+    return {"params": {n: {k: v.clone() for k, v in p.items()}
+                       for n, p in state["params"].items()},
+            "solver": {k: ({n: {kk: vv.clone() for kk, vv in p.items()}
+                            for n, p in v.items()} if isinstance(v, dict) else v.clone())
+                       for k, v in state["solver"].items()}}
+
+
+def dp_world1(dev, counts, zero_counts, rec, out):
+    """Phase 21 (a): the flagship step through `make_train_step(mesh=)` over
+    NCCL at world size 1 against the step without a mesh (module notes);
+    folds its figures into out. Returns the case (cfg, tspec, sspec,
+    params, lr_mults, decay_mults, batch, n_gt) for (b)."""
+    import torch
+    import torch.distributed as dist
+
+    from mscnn_torch.parallel import distributed as D
+    from mscnn_torch.parallel import make_mesh
+    from mscnn_torch.train import solver as TS
+    from mscnn_torch.train import train_step as TT
+
+    cfg, tspec, sspec, params, lm, dm, batch = dp_flagship(dev)
+    n_gt = batch["gt_boxes"].shape[1]
+    draws = dp_draws(cfg, tspec, DP_BATCH, n_gt, dev, 0)
+    state0 = {"params": params, "solver": TS.init_state(params, sspec)}
+    D.initialize(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    if dist.get_backend() != "nccl":
+        fail(f"data parallel (a): the process group's backend is {dist.get_backend()}")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh1 = make_mesh((1,), ("data",), [dev])
+        plain = TT.make_train_step(cfg, tspec, sspec, lr_mults=lm, decay_mults=dm)
+        meshed = TT.make_train_step(cfg, tspec, sspec, lr_mults=lm, decay_mults=dm,
+                                    mesh=mesh1)
+        local = TT.shard_batch(batch, mesh1)
+        # warm-up: the NCCL communicator, cuDNN's plans (a throwaway state)
+        meshed(TT.replicate_state(state0, mesh1), local, draws=draws[0])
+        plain(clone_state(state0), batch, draws=draws[0])
+        torch.cuda.synchronize()
+        sink = {"nms": [], "conv1": [], "int8": []}
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ref = clone_state(state0)
+            for s in range(DP_STEPS):
+                ref, rm = plain(ref, batch, draws=draws[s])
+            st = TT.replicate_state(state0, mesh1)
+            rec(True, sink)
+            zero_counts()
+            for s in range(DP_STEPS):
+                st, sm = meshed(st, local, draws=draws[s])
+            launches_a = counts()
+            rec(False, sink)
+        except RuntimeError as e:
+            fail(f"data parallel (a): a step synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        out["launches"]["world 1 (NCCL), 2 steps"] = launches_a
+        if launches_a["nms"] != DP_STEPS or launches_a["conv1_pool"] != DP_STEPS:
+            fail(f"data parallel (a): launches {launches_a}, expected {DP_STEPS} K1 "
+                 f"and {DP_STEPS} K2")
+        held = hold_to_plain(sink, "data parallel (a)", out)
+        del sink
+        for n, p in ref["params"].items():
+            for k, v in p.items():
+                if not torch.equal(v, st["params"][n][k]):
+                    fail(f"data parallel (a): {n}.{k} differs from the step without "
+                         "a mesh")
+        for n, p in ref["solver"]["h1"].items():
+            for k, v in p.items():
+                if not torch.equal(v, st["solver"]["h1"][n][k]):
+                    fail(f"data parallel (a): the history of {n}.{k} differs")
+        if float(rm["loss"]) != float(sm["loss"]) or not math.isfinite(float(sm["loss"])):
+            fail(f"data parallel (a): loss {float(sm['loss'])} vs {float(rm['loss'])}")
+        log(f"data parallel (a): flagship stage-2 step, batch {DP_BATCH} at "
+            f"{cfg.input_hw[0]}x{cfg.input_hw[1]}, bf16, K2 + K1, nonzero biases, "
+            f"{DP_STEPS} steps through make_train_step(mesh=) over NCCL at world size 1 "
+            f"under sync debug mode 'error': params, history and loss "
+            f"({float(sm['loss']):.5f}) bit-equal to the step without a mesh; "
+            f"launches {launches_a}; {held}")
+        del ref, st
+        torch.use_deterministic_algorithms(False)
+        # step ms, in turns (plain, mesh, mesh, plain, ...): host clock, synchronised
+        ms = {"plain": [], "mesh": []}
+        sp, sm_ = clone_state(state0), TT.replicate_state(state0, mesh1)
+        for order in (("plain", "mesh"), ("mesh", "plain"), ("plain", "mesh")):
+            for tag in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if tag == "plain":
+                    sp, _ = plain(sp, batch, draws=draws[0])
+                else:
+                    sm_, _ = meshed(sm_, local, draws=draws[0])
+                torch.cuda.synchronize()
+                ms[tag].append((time.perf_counter() - t0) * 1e3)
+        del sp, sm_
+        grads = [torch.empty_like(v) for n, p in params.items() for k, v in p.items()
+                 if lm[n][k] != 0.0]
+        nbytes = sum(g.numel() * g.element_size() for g in grads)
+        frozen = sum(v.numel() for n, p in params.items() for k, v in p.items()
+                     if lm[n][k] == 0.0)
+        ar_ms = cuda_ms(lambda: D.all_reduce_mean_(grads), iters=5, warmup=2)
+        flat = torch.empty(nbytes // 4, device=dev)
+        nccl_ms = cuda_ms(lambda: dist.all_reduce(flat), iters=5, warmup=2)
+        del grads, flat
+        out["a"] = {"plain_ms": statistics.median(ms["plain"]),
+                    "mesh_ms": statistics.median(ms["mesh"]), "ms": ms,
+                    "all_reduce_mb": nbytes / 1e6, "all_reduce_ms": ar_ms,
+                    "nccl_ms": nccl_ms, "frozen_params": frozen}
+        log(f"data parallel (a): step {out['a']['mesh_ms']:.2f} ms with the mesh, "
+            f"{out['a']['plain_ms']:.2f} without (median of 3, in turns: "
+            f"{json.dumps({k: [round(v, 2) for v in vs] for k, vs in ms.items()})}); "
+            f"all-reduce {nbytes / 1e6:.1f} MB of float32 gradients "
+            f"({frozen} frozen parameters left out): {ar_ms:.3f} ms with the flat "
+            f"buffer's copies, the NCCL call alone {nccl_ms:.3f} ms (world size 1)")
+    finally:
+        D.shutdown()
+        torch.use_deterministic_algorithms(False)
+    del state0
+    torch.cuda.empty_cache()
+    return cfg, tspec, sspec, params, lm, dm, batch, n_gt
+
+
+def data_parallel(dev, counts, zero_counts, rec):
+    """Phase 21 (module notes): (a) the flagship step through
+    `make_train_step(mesh=)` over NCCL at world size 1, bit-equal to the
+    step without a mesh, no host sync; the all-reduce's bytes and ms; (b)
+    two gloo ranks sharing cuda:0 against one process applying the mean of
+    their micro-batches' gradients; (c) the deploy mesh forwards and
+    `cli detect --devices`; (d) no jax, mscnn_tpu or cv2 anywhere. rec(on,
+    sink) records the kernels' launches. Returns the phase's figures."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from mscnn_torch import cli
+    from mscnn_torch import inference as I
+    from mscnn_torch.models import mscnn as M
+    from mscnn_torch.models import zoo
+    from mscnn_torch.ops import quant as Q
+    from mscnn_torch.parallel import make_mesh
+    from mscnn_torch.train import solver as TS
+    from mscnn_torch.train import train_step as TT
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "nms_err": 0.0, "conv1_err": 0.0, "conv1_share": 1.0,
+           "int8_err": 0.0}
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # (b)'s ranks start first: their start-up overlaps (a); they go on at "go"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank",
+                               str(r), "--port", str(port), "--out", tmp],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+
+    try:
+        a_out = dp_world1(dev, counts, zero_counts, rec, out)
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    cfg, tspec, sspec, params, lm, dm, batch, n_gt = a_out
+    t_a = time.perf_counter() - t_phase
+
+    # -- (b) two gloo ranks on cuda:0 ----------------------------------------------
+    try:
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "go"), "w"):
+            pass
+        try:
+            logs = [p.communicate(timeout=240)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"data parallel (b): rank {r} exited {p.returncode}:\n{text[-3000:]}")
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+               for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, g in enumerate(got):
+        if g["modules"]:
+            fail(f"data parallel (b): rank {r} loaded {g['modules'][:5]}")
+        if g["launches"] != {"nms": DP_STEPS, "conv1_pool": DP_STEPS, "int8_gemm": 0,
+                             "conv1_v5": 0}:
+            fail(f"data parallel (b): rank {r} launched {g['launches']}")
+    for n, p in got[0]["params"].items():
+        for k, v in p.items():
+            if not torch.equal(v, got[1]["params"][n][k]):
+                fail(f"data parallel (b): the ranks' {n}.{k} differ")
+    # one process: the mean of the two micro-batches' gradients (iter_size 2
+    # sums them and the update divides by 2), each with its rank's draws
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        two = dataclasses.replace(sspec, iter_size=2)
+        one = TT.make_train_step(cfg, tspec, two, lr_mults=lm, decay_mults=dm)
+        half = DP_BATCH // 2
+        micro = TT.stack_microbatches([
+            {k: tuple(m[r * half:(r + 1) * half] for m in v) if isinstance(v, tuple)
+             else v[r * half:(r + 1) * half] for k, v in batch.items()} for r in range(2)])
+        rdraws = [dp_draws(cfg, tspec, half, n_gt, dev, r) for r in range(2)]
+        st = clone_state({"params": params, "solver": TS.init_state(params, two)})
+        for s in range(DP_STEPS):
+            st, om = one(st, micro, draws=[rdraws[0][s], rdraws[1][s]])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    worst, equal = leaf_errors(got[0]["params"], st["params"], params)
+    out["b"] = {"ms": [g["ms"] for g in got], "split": got[0]["split"],
+                "launches": [g["launches"] for g in got], "worst": worst,
+                "bit_equal": equal, "seconds": ranks_s,
+                "loss": [got[0]["loss"], float(om["loss"])]}
+    for r, g in enumerate(got):
+        out["launches"][f"gloo rank {r} of 2, 2 steps"] = g["launches"]
+    log(f"data parallel (b): two gloo ranks on cuda:0, batch {DP_BATCH // 2} each, "
+        f"{DP_STEPS} steps: ranks' params bit-identical; against one process applying "
+        f"the mean of the two micro-batches' gradients: "
+        + ("bit-equal" if equal else f"worst leaf {worst:.3g} of its move (gate "
+                                     f"{DP_TOL})")
+        + f"; launches {[g['launches'] for g in got]}; rank step ms "
+        f"{[[round(t, 1) for t in g['ms']] for g in got]}, rank 0's second step split "
+        f"{json.dumps({k: round(v, 2) for k, v in got[0]['split'].items()})}; the ranks' "
+        f"steps took {ranks_s:.1f} s after (a)'s {t_a:.1f} s")
+    del st, got, params, batch
+    torch.cuda.empty_cache()
+
+    # -- (c) the deploy mesh: forwards, detect_batch, int8, the CLI ----------------
+    dcfg = dataclasses.replace(zoo.kitti_car_8s_768(deploy=True, max_out=256),
+                               compute_dtype="bfloat16", pallas_conv1=True)
+    dp_ = M.cast_params(M.init_params(torch.Generator().manual_seed(SEED), dcfg,
+                                      device=dev), torch.bfloat16)
+    h, w = dcfg.input_hw
+    gen = torch.Generator().manual_seed(SEED + 31)
+    imgs = torch.randint(0, 256, (DP_BATCH, h, w, 3), dtype=torch.uint8, generator=gen)
+    x = imgs.to(dev).float() - torch.tensor(MEAN, device=dev)
+    mesh1 = make_mesh((1,), ("data",), [dev])
+    with torch.inference_mode():
+        want = I.make_forward(dp_, dcfg)(dp_, x)
+        sink = {"nms": [], "conv1": [], "int8": []}
+        rec(True, sink)
+        zero_counts()
+        got = I.make_forward(dp_, dcfg, mesh=mesh1)(dp_, x)
+        torch.cuda.synchronize()
+        launches_c = counts()
+        rec(False, sink)
+    same = same_outputs("data parallel (c) make_forward(mesh=)",
+                        {k: v for k, v in got.items() if k != "proposals"},
+                        {k: v for k, v in want.items() if k != "proposals"})
+    if same:
+        fail("data parallel (c): make_forward(mesh=[cuda:0]) is not bit-equal")
+    out["launches"]["make_forward(mesh=[cuda:0])"] = launches_c
+    bgr = [im.numpy() for im in imgs]
+    spec = I.DetectSpec()
+    one_dev = I.detect_batch(dp_, bgr, dcfg, spec)
+    fm = I.make_forward(dp_, dcfg, mesh=mesh1)
+    rec(True, sink)
+    zero_counts()
+    meshed = I.detect_batch(dp_, bgr, dcfg, spec, fwd=fm)
+    launches_d = counts()
+    rec(False, sink)
+    for a_, b_ in zip(meshed, one_dev):
+        for k in a_:
+            if not np.array_equal(a_[k], b_[k]):
+                fail(f"data parallel (c): detect_batch over the mesh: {k} differs")
+    out["launches"]["detect_batch over the mesh"] = launches_d
+    if launches_c["conv1_pool"] != 1 or launches_c["nms"] != 1 or \
+            launches_d["conv1_pool"] != 1 or launches_d["nms"] != 2:
+        fail(f"data parallel (c): launches {launches_c}, {launches_d}")
+    # int8 + heads (detect --int8 --int8-heads): one calibration image
+    cfg8 = dataclasses.replace(dcfg, pallas_conv1=False, int8_trunk=True,
+                               int8_roi_head=True)
+    p32 = M.init_params(torch.Generator().manual_seed(SEED), cfg8, device=dev)
+    cal = np.random.RandomState(1).randn(1, h, w, 3).astype(np.float32) * 40.0
+    q32, _, _ = calibrate_int8(Q, p32, cfg8, cal)
+    p8 = M.cast_params(q32, torch.bfloat16)
+    del p32, q32
+    with torch.inference_mode():
+        want8 = I.make_forward(p8, cfg8)(p8, x)
+        rec(True, sink)
+        zero_counts()
+        got8 = I.make_forward(p8, cfg8, mesh=mesh1)(p8, x)
+        torch.cuda.synchronize()
+        launches_8 = counts()
+        rec(False, sink)
+    if same_outputs("data parallel (c) int8", {k: v for k, v in got8.items()
+                                                if k != "proposals"},
+                    {k: v for k, v in want8.items() if k != "proposals"}):
+        fail("data parallel (c): the int8 mesh forward is not bit-equal")
+    out["launches"]["int8 make_forward(mesh=[cuda:0])"] = launches_8
+    if launches_8["int8_gemm"] < 15 or launches_8["nms"] != 1:
+        fail(f"data parallel (c): int8 launches {launches_8}")
+    held = hold_to_plain(sink, "data parallel (c)", out)
+    del sink, p8, want8, got8, want, got, x
+    log(f"data parallel (c): make_forward(mesh=[cuda:0]) bit-equal to make_forward on "
+        f"the flagship deploy graph (batch {DP_BATCH}, {h}x{w}, bf16, K2) and in "
+        f"int8 + heads; detect_batch over the mesh (a chunk's decode on its device) "
+        f"equal to detect_batch; launches {launches_c}, {launches_d}, {launches_8}; "
+        f"{held}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_cli_")
+    try:
+        img_dir, _, _ = write_kitti_pngs(root, 2, SEED + 41)
+        base = ["detect", "--zoo", "kitti_car/mscnn-8s-768-trainval", "--bf16",
+                "--image-dir", img_dir]
+        n_dev = torch.cuda.device_count()
+        if n_dev < 2:
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main(base + ["--devices", "2", "--output-dir",
+                                     os.path.join(root, "d2")])
+                fail("data parallel (c): cli detect --devices 2 ran on one card")
+            except SystemExit as e:
+                if str(e) != f"mesh shape (2,) needs 2 devices, have {n_dev}":
+                    fail(f"data parallel (c): cli detect --devices 2 said {e}")
+                said = str(e)
+            if os.path.exists(os.path.join(root, "d2")):
+                fail("data parallel (c): cli detect --devices 2 wrote labels")
+        else:
+            said = f"ran on {n_dev} cards"
+        for tag, extra in (("one", []), ("devices1", ["--devices", "1"])):
+            with contextlib.redirect_stdout(io.StringIO()):
+                if cli.main(base + extra + ["--output-dir", os.path.join(root, tag)]):
+                    fail(f"data parallel (c): cli detect {extra} failed")
+        files = sorted(os.listdir(os.path.join(root, "one")))
+        if not files or files != sorted(os.listdir(os.path.join(root, "devices1"))) or any(
+                open(os.path.join(root, "one", f)).read()
+                != open(os.path.join(root, "devices1", f)).read() for f in files):
+            fail("data parallel (c): cli detect --devices 1 wrote other labels")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"data parallel (c): cli detect --devices 2 on this machine: {said!r}; "
+        f"cli detect --devices 1 wrote the {len(files)} label files detect writes")
+
+    # -- (d) no jax, mscnn_tpu or cv2 ------------------------------------------------
+    if reference_modules():
+        fail(f"data parallel: {reference_modules()[:5]} imported")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"data parallel (d): no jax, mscnn_tpu or cv2 module in this process or "
+        f"either rank; phase 21 took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4280,6 +4806,13 @@ def main():
     # -- 20. the tools: the JPEG encoder, resize_images, extract_features, ...
     tl = tools(dev, counts, zero_counts, jp["decode_ms"])
 
+    # -- 21. data parallelism: the mesh step, two ranks, the deploy mesh ---------
+    dpr = data_parallel(dev, counts, zero_counts, rec_into)
+    nms_max_err = max(nms_max_err, dpr["nms_err"])
+    conv1_max_err = max(conv1_max_err, dpr["conv1_err"])
+    conv1_min_share = min(conv1_min_share, dpr["conv1_share"])
+    int8_max_err = max(int8_max_err, dpr["int8_err"])
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -4349,6 +4882,19 @@ def main():
         f"{tl['peak_gib']:.2f} GiB; the commands {tl['cases_s']:.1f} s; phase 20 "
         f"{tl['seconds']:.1f} s")
 
+    da, db = dpr["a"], dpr["b"]
+    log(f"data parallel on {card}: flagship step (batch {DP_BATCH}, bf16, K2 + K1) "
+        f"{da['mesh_ms']:.2f} ms through the mesh at world size 1 (NCCL), "
+        f"{da['plain_ms']:.2f} ms without; all-reduce {da['all_reduce_mb']:.1f} MB in "
+        f"{da['all_reduce_ms']:.3f} ms (NCCL alone {da['nccl_ms']:.3f}); two gloo ranks "
+        f"on one card: step ms {db['ms']}, rank 0's split {db['split']}; against one "
+        "process: " + ("bit-equal" if db["bit_equal"] else f"worst {db['worst']:.3g}")
+        + f"; phase 21 {dpr['seconds']:.1f} s")
+
+    def dp_launches(k):
+        """The kernel's launches in each run of phase 21."""
+        return {tag: v[k] for tag, v in dpr["launches"].items()}
+
     def jpeg_launches(k):
         """The kernel's launches in each run of phase 17."""
         return {tag: v[k] for tag, v in jp["launches"].items()}
@@ -4384,6 +4930,7 @@ def main():
          "launches_generic_nets": gn["launches"]["nms"],
          "launches_caffe_databases": cdb["launches"]["nms"],
          "launches_tools": tl["launches"]["nms"],
+         "launches_data_parallel": dp_launches("nms"),
          "op": "mscnn::nms_xywh", "op_overhead_us": ep["op_overhead_us"]["nms_xywh"],
          "train": {tag: {"shape": [BATCH, fcfg.proposal.max_nms_num,
                                    fcfg.proposal.max_out], "kept": v[4],
@@ -4410,6 +4957,7 @@ def main():
          "launches_generic_nets": gn["launches"]["conv1_pool"],
          "launches_caffe_databases": cdb["launches"]["conv1_pool"],
          "launches_tools": tl["launches"]["conv1_pool"],
+         "launches_data_parallel": dp_launches("conv1_pool"),
          "op": "mscnn::conv1_pool", "op_overhead_us": ep["op_overhead_us"]["conv1_pool"],
          "train_entry_min_bit_equal_share": tr["k2_share"],
          "launches_train_pallas_tiny": k2_train_launches,
@@ -4436,6 +4984,7 @@ def main():
          "launches_generic_nets": gn["launches"]["int8_gemm"],
          "launches_caffe_databases": cdb["launches"]["int8_gemm"],
          "launches_tools": tl["launches"]["int8_gemm"],
+         "launches_data_parallel": dp_launches("int8_gemm"),
          "op": "mscnn::int8_conv", "op_overhead_us": ep["op_overhead_us"]["int8_conv"],
          "per_step": "sum of the 17 launches of one int8 deploy step; no one "
                      "PyTorch call computes an int8 conv with its epilogue, "
@@ -4448,6 +4997,7 @@ def main():
          "launches_generic_nets": gn["launches"]["conv1_v5"],
          "launches_caffe_databases": cdb["launches"]["conv1_v5"],
          "launches_tools": tl["launches"]["conv1_v5"],
+         "launches_data_parallel": dp_launches("conv1_v5"),
          "min_bit_equal_share": k3_min_share,
          "ms": k3["1x768x2560"]["kernel"][f"{default_mode}_{th0}x{tq0}"],
          "plain_ms": k3["1x768x2560"]["plain"][default_mode],
@@ -4475,4 +5025,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank_main(sys.argv[1:])
+    else:
+        main()

@@ -52,8 +52,18 @@ tools `summary` (shapes from the generic net builder's `Net.init` on
 training log, `utils/parse_log.py`; it needs matplotlib) and the Caltech
 `vbb2bbgt` converter are cli.py:1075-1166 and :1184-1217.
 
-Not ported, exiting or raising where the JAX CLI would take it:
-`--devices > 1` (item 20).
+`--devices N` (data parallelism, ROADMAP item 20): `train`, `train2` and
+`test` spawn N ranks (`torch.multiprocessing`, spawn start method; one
+process a device, `_rank_main`) on cuda:0 .. cuda:N-1 over NCCL, or on
+the CPU over gloo with `--device cpu`; each rank reads its rows of every
+batch (`data/native_loader.py`'s `part`), steps on its micro-batch, and
+all-reduces its gradients (`train/train_step.py`); rank 0 prints and
+writes the snapshots. `detect` and `parity` run one process that drives
+the N devices (`inference.py::MeshForward`), as the JAX CLI's one
+controller drives its mesh. The batch must divide N (JAX's message), and N
+devices must exist ("mesh shape (N,) needs N devices, have M"). `time`,
+`compile` and `extract_features` take `--devices` as the JAX CLI's do,
+where it is ignored; the port refuses N > 1 there rather than ignore it.
 """
 
 from __future__ import annotations
@@ -133,11 +143,12 @@ def _build_generic_training(args, fields, net_path, sspec, lspec):
         raise SystemExit("--uint8-input is the ImageGtData loader path; "
                          "generic prototxt nets read their own data "
                          "layers (no silent fallback)")
+    mesh = _devices_mesh(args)
     state, step, batch_source, net = G.setup(
         net_path, sspec, phase=getattr(args, "phase", "TRAIN") or "TRAIN",
         seed=int(fields.get("random_seed", 0)), weights=args.weights or None,
-        batch_size=args.batch_size or None, device=_device(args))
-    if args.snapshot:
+        batch_size=args.batch_size or None, device=_device(args), mesh=mesh)
+    if args.snapshot:   # every rank reads the same snapshot
         state = CKPT.restore(args.snapshot, state)
     lspec = dataclasses.replace(lspec, param_layouts=tuple(
         (n, t, g) for n, (t, g) in net.param_layouts().items()))
@@ -164,10 +175,6 @@ def _build_training(args, solver_path):
         fields, snapshot_prefix=args.snapshot_prefix)
     net_path = args.model or os.path.join(
         os.path.dirname(solver_path), str(fields["net"]))
-    if args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1 is data parallelism, not ported yet (ROADMAP "
-            "Queue 1 item 20)")
     ccfg = None
     if Z.is_cascade_prototxt(net_path):
         ccfg, tspec, aug, dspec, source = Z.cascade_from_prototxt(net_path)
@@ -185,6 +192,8 @@ def _build_training(args, solver_path):
                                            lspec)
     if args.batch_size:
         dspec = dataclasses.replace(dspec, batch_size=args.batch_size)
+    _check_batch(dspec.batch_size, args.devices)
+    mesh = _devices_mesh(args)
     if args.bf16:
         cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
     dev = _device(args)
@@ -215,37 +224,161 @@ def _build_training(args, solver_path):
     if args.weights:   # warm start: the snapshot's layers by name
         params = CKPT.restore_params(args.weights, params)
     state = {"params": params, "solver": S.init_state(params, sspec)}
-    if args.snapshot:
+    if args.snapshot:   # every rank reads the same snapshot
         state = CKPT.restore(args.snapshot, state)
+    if mesh is not None:
+        state = T.replicate_state(state, mesh)
     step = T.make_train_step(cfg, tspec, sspec, lr_mults=lr_mults,
                              decay_mults=M.param_decay_multipliers(params, cfg),
-                             loss_function=loss_function)
+                             mesh=mesh, loss_function=loss_function)
 
-    # one worker a core the process may run on, no more than the loader's
-    # slots (queue_depth 3 batches): decoding and rendering bound the loop
-    workers = min(len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
-                  else os.cpu_count() or 1, 3 * dspec.batch_size)
+    # one worker a core the process may run on (shared by the host's ranks),
+    # no more than the loader's slots (queue_depth 3 batches of this rank's
+    # rows): decoding and rendering bound the loop
+    n = mesh.size if mesh is not None else 1
+    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") \
+        else os.cpu_count() or 1
+    workers = max(min(cores // n, 3 * dspec.batch_size // n), 1)
+    part = (args.rank, n) if mesh is not None else None
 
     def make_batch_source():
         return NL.make_loader(window_file, aug, dspec,
                               root_folder=args.root_folder, device=dev,
                               prefer_native=not getattr(args, "no_native",
                                                         False),
-                              num_workers=workers, queue_depth=3)
+                              num_workers=workers, queue_depth=3, part=part)
 
     return state, step, make_batch_source, lspec, cfg, tspec
+
+
+def _rank(args):
+    """This process's rank of a data-parallel run, None outside one."""
+    return getattr(args, "rank", None)
+
+
+def _check_batch(batch_size, n):
+    if n > 1 and batch_size % n:
+        raise SystemExit(f"batch_size {batch_size} not divisible by {n} devices")
+
+
+def _devices_mesh(args):
+    """The mesh of --devices N (N devices must exist; SystemExit with
+    make_mesh's message otherwise), or None for N = 1. A training mesh
+    takes its ranks' process group (`_spawn_ranks`)."""
+    from mscnn_torch.parallel import data_parallel_mesh
+
+    n = int(getattr(args, "devices", 1) or 1)
+    if n <= 1:
+        return None
+    if args.device is None:
+        _device(args)       # no card and no --device: raises, as everywhere
+    try:
+        return data_parallel_mesh(n, device=args.device)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
+def _precheck_batch(args, solver_path):
+    """The divisibility check of an MS-CNN solver's batch, in the parent
+    before any rank starts (a generic net's is its data layer's, which the
+    ranks check)."""
+    from mscnn_torch.config import prototxt as PB
+    from mscnn_torch.config import zoo_import as Z
+
+    fields = PB.parse_prototxt_file(solver_path)
+    net_path = args.model or os.path.join(os.path.dirname(solver_path),
+                                          str(fields["net"]))
+    try:
+        if Z.is_cascade_prototxt(net_path):
+            dspec = Z.cascade_from_prototxt(net_path)[3]
+        else:
+            dspec = Z.model_from_prototxt(
+                net_path, phase=getattr(args, "phase", "TRAIN"))[3]
+    except ValueError as e:
+        if "ImageGtData" not in str(e):
+            raise
+        return
+    _check_batch(args.batch_size or dspec.batch_size, args.devices)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_main(rank, cmd, argd, port, n, threads):
+    """One rank of `--devices N`: its device (cuda:rank, or the CPU), the
+    process group, then the command with args.rank set."""
+    from mscnn_torch.parallel import distributed as D
+
+    args = argparse.Namespace(**argd, rank=rank)
+    if args.device is not None and torch.device(args.device).type != "cuda":
+        args.device = str(torch.device(args.device))
+    else:
+        torch.cuda.set_device(rank)
+        args.device = f"cuda:{rank}"
+    if threads:
+        torch.set_num_threads(threads)
+    D.initialize(f"127.0.0.1:{port}", n, rank, device=args.device)
+    try:
+        rc = _COMMANDS[cmd](args)
+    finally:
+        D.shutdown()
+    if rc:
+        raise SystemExit(rc)
+
+
+def _spawn_ranks(args, cmd, solvers):
+    """Run command `cmd` in args.devices ranks (module notes) and wait for
+    them. SIGINT and SIGHUP sent to this process go on to every rank
+    (whose loop agrees on the iteration to act at). A rank's error raises
+    here."""
+    import signal
+
+    import torch.multiprocessing as mp
+
+    n = args.devices
+    mesh = _devices_mesh(args)
+    for solver in solvers:
+        _precheck_batch(args, solver)
+    threads = max(torch.get_num_threads() // n, 1) \
+        if mesh.device(0).type == "cpu" else 0
+    argd = {k: v for k, v in vars(args).items() if k != "fn"}
+    ctx = mp.start_processes(_rank_main, args=(cmd, argd, _free_port(), n, threads),
+                             nprocs=n, join=False, start_method="spawn")
+
+    def forward(sig, frame):
+        for proc in ctx.processes:
+            if proc.is_alive():
+                os.kill(proc.pid, sig)
+
+    prev = {sig: signal.signal(sig, forward)
+            for sig in (signal.SIGINT, signal.SIGHUP)}
+    try:
+        while not ctx.join(timeout=1.0):
+            pass
+    finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
+    return 0
 
 
 def cmd_train(args):
     from mscnn_torch.train import loop as LP
 
+    if args.devices > 1 and _rank(args) is None:
+        return _spawn_ranks(args, "train", [args.solver])
     state, step, make_batch_source, lspec, _, _ = \
         _build_training(args, args.solver)
     if args.iterations:
         lspec = dataclasses.replace(lspec, max_iter=args.iterations)
     with make_batch_source() as src:
-        LP.solve(step, state, src.get, lspec, seed=args.seed)
-    print("Optimization Done.")
+        LP.solve(step, state, src.get, lspec, seed=args.seed, rank=_rank(args))
+    if not _rank(args):
+        print("Optimization Done.")
     return 0
 
 
@@ -255,6 +388,8 @@ def cmd_train2(args):
     from mscnn_torch.config import prototxt as PB
     from mscnn_torch.io import checkpoint as CKPT
 
+    if args.devices > 1 and _rank(args) is None:
+        return _spawn_ranks(args, "train2", [args.solver1, args.solver2])
     a1 = argparse.Namespace(**vars(args))
     a1.solver = args.solver1
     a1.snapshot = None
@@ -275,10 +410,15 @@ def cmd_train2(args):
     return cmd_train(a2)
 
 
-def _no_devices(args):
-    if int(getattr(args, "devices", 1) or 1) > 1:
-        raise SystemExit("--devices > 1 is data-parallel serving, not ported yet "
-                         "(ROADMAP Queue 1 item 20)")
+def _no_devices(args, command):
+    """`command` takes --devices as the JAX CLI's does (mscnn_tpu/cli.py
+    `_add_common`), which ignores it there; the port refuses what JAX
+    silently ignores."""
+    n = int(getattr(args, "devices", 1) or 1)
+    if n > 1:
+        raise SystemExit(f"{command} --devices {n}: the JAX CLI's {command} "
+                         "takes --devices and ignores it; the port refuses it "
+                         "rather than ignore it (drop --devices)")
 
 
 def _seed_params(cfg, ccfg, dev):
@@ -335,21 +475,30 @@ def cmd_test(args):
     from mscnn_torch.train import loop as LP
     from mscnn_torch.train import train_step as T
 
+    if args.devices > 1 and _rank(args) is None:
+        return _spawn_ranks(args, "test", [args.solver])
     state, _, make_batch_source, lspec, cfg, tspec = \
         _build_training(args, args.solver)
     dev = _device(args)
+    mesh = _devices_mesh(args)
     if cfg is None:     # generic prototxt: the tspec slot holds the Net
         from mscnn_torch.train import generic as G
-        eval_step = G.make_eval_step(tspec)
+        eval_step = G.make_eval_step(tspec, mesh=mesh)
     else:
-        eval_step = T.make_eval_step(cfg, tspec)
+        eval_step = T.make_eval_step(cfg, tspec, mesh=mesh)
     n = args.iterations or lspec.test_iter or 50
+    sub = () if _rank(args) is None else (_rank(args),)
     with make_batch_source() as src:
         out = LP.test_eval(
             eval_step, state["params"], (src.get() for _ in range(n)),
-            lambda i: LP.iteration_generator(args.seed, i, dev))
-    print(json.dumps({k: round(v, 6) for k, v in out.items()}))
+            lambda i: LP.iteration_generator(args.seed, i, dev, *sub),
+            log=None if not _rank(args) else LP._silent)
+    if not _rank(args):
+        print(json.dumps({k: round(v, 6) for k, v in out.items()}))
     return 0
+
+
+_COMMANDS = {"train": cmd_train, "train2": cmd_train2, "test": cmd_test}
 
 
 def _sync(dev):
@@ -474,7 +623,7 @@ def cmd_time(args):
     if args.int8_heads and not args.int8:
         print("--int8-heads extends the int8 trunk; pass --int8 too")
         return 1
-    _no_devices(args)
+    _no_devices(args, "time")
     dev = _device(args)
     ccfg = None
     if args.model:
@@ -657,8 +806,11 @@ def cmd_detect(args):
     if args.int8_heads and not args.int8 and not args.compiled:
         print("--int8-heads extends the int8 trunk; pass --int8 too")
         return 1
-    _no_devices(args)
-    dev = _device(args)
+    if args.compiled and int(args.devices or 1) > 1:
+        print("--compiled artifacts are single-program exports; drop --devices")
+        return 1
+    mesh = _devices_mesh(args)
+    dev = _device(args) if mesh is None else mesh.device(0)
     compiled = None
     if args.compiled:
         # the artifact holds program + weights + DetectSpec; the model,
@@ -702,6 +854,17 @@ def cmd_detect(args):
             run_detect_batch = compiled.detect_many
         else:
             run_detect = compiled.detect
+    elif mesh is not None:
+        # data-parallel serving: one call over the mesh a group of N images
+        # (the tail padded with its last image, the extras dropped)
+        fwd = I.make_cascade_forward(params, ccfg, mesh=mesh) \
+            if ccfg is not None else I.make_forward(params, cfg, mesh=mesh)
+        group_size = mesh.size
+
+        def run_detect_batch(imgs):
+            imgs = imgs + [imgs[-1]] * (group_size - len(imgs))
+            return I.detect_batch(params, imgs, cfg, spec, fwd=fwd,
+                                  cascade=ccfg)
     elif ccfg is not None:
         def run_detect(img):
             return I.detect_cascade(params, img, ccfg, spec)
@@ -990,7 +1153,7 @@ def cmd_compile(args):
     if args.int8_heads and not args.int8:
         print("--int8-heads extends the int8 trunk; pass --int8 too")
         return 1
-    _no_devices(args)
+    _no_devices(args, "compile")
     platforms = args.platforms.split(",") if args.platforms else None
     if platforms and args.device is None:
         # the program is traced on the device type it names
@@ -1247,7 +1410,7 @@ def cmd_extract_features(args):
     from mscnn_torch.io import checkpoint as CKPT
     from mscnn_torch.models import zoo
 
-    _no_devices(args)
+    _no_devices(args, "extract_features")
     dev = _device(args)
     if args.model:
         cfg = Z.deploy_model_from_prototxt(args.model)
@@ -1278,7 +1441,10 @@ def _add_common(p):
     p.add_argument("--window-file", help="override the net's data source path")
     p.add_argument("--root-folder", default="", help="image path prefix")
     p.add_argument("--devices", type=int, default=1,
-                   help="data-parallel width (only 1 is ported)")
+                   help="data-parallel width: train / train2 / test run a "
+                        "rank a device, detect splits each batch over the "
+                        "devices (cuda:0 .. N-1, or N CPU ranks with "
+                        "--device cpu)")
     p.add_argument("--iterations", type=int, default=0)
     p.add_argument("--batch-size", type=int, default=0)
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")

@@ -29,6 +29,12 @@ pipeline's batches bit for bit:
     name, and the kernel frees it with its last mapping) of
     `queue_depth * batch_size` canvases.
 
+With `part=(r, n)` the loader is rank r of n data-parallel ranks: the
+parent still plans every sample of each batch (so the order, the draws and
+the epochs are the one-process loader's), but sends only rows [r * B / n,
+(r + 1) * B / n) to its workers and returns those rows, bit for bit as the
+one-process batch holds them (`pipeline.py`'s `part`).
+
 A worker's error comes out of `get()` as a RuntimeError naming the image;
 nothing falls back quietly. `close()` stops and reaps every worker. With
 `device`, the loader's batches go through the port's `Prefetcher` (pinned
@@ -82,11 +88,14 @@ class WorkerLoader:
 
     def __init__(self, window_file: str, aug: AugmentSpec, spec: DatasetSpec,
                  root_folder: str = "", num_workers: int = 2,
-                 queue_depth: int = 3):
+                 queue_depth: int = 3, part=None):
         if num_workers < 1 or queue_depth < 1:
             raise ValueError(f"num_workers {num_workers}, queue_depth "
                              f"{queue_depth}: both must be at least 1")
         self.aug, self.spec = aug, spec
+        self.rows = P.part_rows(spec.batch_size, part)
+        self._local = self.rows[1] - self.rows[0]
+        self._planned = 0
         self.procs, self._tasks, self._results = [], [], []
         self._fd = None
         self._mm = None
@@ -110,7 +119,7 @@ class WorkerLoader:
         self._hw = {}
         th, tw = aug.template_hw
         dtype = np.dtype(np.uint8 if aug.emit_uint8 else np.float32)
-        nslots = queue_depth * spec.batch_size
+        nslots = queue_depth * self._local
         nbytes = nslots * th * tw * 3 * dtype.itemsize
         self._fd = _slots_file(nbytes)
         self._mm = mmap.mmap(self._fd, nbytes)
@@ -184,8 +193,11 @@ class WorkerLoader:
         """Plan and dispatch samples, in order, while a slot is free. An
         image whose header cannot be read ends the stream there: its place
         in the order holds the error, which `get` raises when it reaches
-        that batch."""
+        that batch. Another rank's rows are planned and not sent."""
+        lo, hi = self.rows
         while self._free and self._fill_error is None:
+            row = self._planned % self.spec.batch_size
+            self._planned += 1
             idx = self._next_index()
             im = self.images[idx]
             try:
@@ -195,6 +207,8 @@ class WorkerLoader:
                 self._pending.append((None, None))
                 return
             ops, *boxes = A.plan(self.rng, hw, im.gts, im.ronis, self.aug)
+            if not lo <= row < hi:
+                continue
             slot = self._free.popleft()
             w = self._busy.index(min(self._busy))
             self._tasks[w].send((slot, idx, ops))
@@ -227,8 +241,7 @@ class WorkerLoader:
 
     def _next_batch(self) -> dict:
         t0 = time.perf_counter()
-        head = [p[0] for p in itertools.islice(self._pending,
-                                               self.spec.batch_size)]
+        head = [p[0] for p in itertools.islice(self._pending, self._local)]
         if None in head:
             raise RuntimeError(self._fill_error)
         while not all(s in self._done for s in head):
@@ -237,7 +250,7 @@ class WorkerLoader:
             self._collect(0.1)
         self.stats["wait_s"] += time.perf_counter() - t0
         samples, slots = [], []
-        for _ in range(self.spec.batch_size):
+        for _ in range(self._local):
             slot, (gts6, ronis4, region) = self._pending.popleft()
             _, err, secs = self._done.pop(slot)
             if err is not None:
@@ -249,7 +262,8 @@ class WorkerLoader:
             for k, v in zip(("read_s", "decode_s", "render_s"), secs):
                 self.stats[k] += v
         batch = P.assemble_batch(samples, self.spec.max_gts,
-                                 self.spec.max_ronis)   # copies the canvases
+                                 self.spec.max_ronis,
+                                 first=self.rows[0])   # copies the canvases
         del samples
         self._free.extend(slots)
         self._fill()
@@ -319,21 +333,25 @@ class _LoaderPrefetcher(P.Prefetcher):
 
 def make_loader(window_file: str, aug: AugmentSpec, spec: DatasetSpec,
                 root_folder: str = "", prefer_native: bool = True,
-                device=None, num_workers: int = 2, queue_depth: int = 3):
+                device=None, num_workers: int = 2, queue_depth: int = 3,
+                part=None):
     """Batch source over a window file or a record shard. prefer_native:
     the worker loader (`WorkerLoader`, as the JAX package prefers its C++
     loader), else the one-thread pipeline in the threaded Prefetcher.
     device: where `get` returns the batch's tensors (see
-    `pipeline.Prefetcher`); None returns numpy batches. Returns an object
-    with .get() -> batch dict and .close()."""
+    `pipeline.Prefetcher`); None returns numpy batches. part: (rank, n),
+    a data-parallel rank's rows of each batch. Returns an object with
+    .get() -> batch dict and .close()."""
     if prefer_native:
         loader = WorkerLoader(window_file, aug, spec, root_folder,
-                              num_workers=num_workers, queue_depth=queue_depth)
+                              num_workers=num_workers, queue_depth=queue_depth,
+                              part=part)
         if device is None:
             return loader
         return _LoaderPrefetcher(loader, depth=2, device=device)
     if R.is_record_shard(window_file):
-        ds = R.RecordShard(window_file).dataset(aug, spec)
+        ds = R.RecordShard(window_file).dataset(aug, spec, part=part)
     else:
-        ds = P.dataset_from_window_file(window_file, aug, spec, root_folder)
+        ds = P.dataset_from_window_file(window_file, aug, spec, root_folder,
+                                        part=part)
     return P.Prefetcher(ds, device=device)

@@ -21,6 +21,14 @@ Where the port differs from the JAX module:
     shard's `RecordShard.read_image`, `data/records.py`), as the JAX
     module's does; `data/native_loader.py::WorkerLoader` gives the same
     batches from worker processes.
+  * `MSCNNDataset(part=(r, n))` is rank r of n data-parallel ranks: it
+    draws every sample of each batch in the one-process order (`augment.
+    draw`, from the image's header size), so the order and the epochs stay
+    the one-process run's, and decodes and augments only rows [r * B / n,
+    (r + 1) * B / n) of it, which it returns bit for bit as the one-process
+    batch holds them (`assemble_batch(first=)` keeps the global image index
+    in gt_boxes' first column), where JAX's one process decodes the whole
+    batch and shards it.
   * The device transfer (`jax.device_put` there) is `Prefetcher(...,
     device=)`. On a card the prefetch thread copies each batch from
     pinned host memory with `non_blocking=True` on a copy stream of its
@@ -62,11 +70,30 @@ class DatasetSpec:
 load_image = image_io.imread
 
 
-def assemble_batch(samples, max_gts: int, max_ronis: int):
+def part_rows(batch_size: int, part) -> tuple:
+    """Rows [lo, hi) of a batch that rank r of n takes (part = (r, n);
+    None: the whole batch)."""
+    if part is None:
+        return 0, batch_size
+    r, n = part
+    if batch_size % n or not 0 <= r < n:
+        raise ValueError(f"batch_size {batch_size} not divisible by {n} "
+                         f"devices (rank {r})")
+    b = batch_size // n
+    return r * b, (r + 1) * b
+
+
+def header_shape(path: str):
+    """(height, width) of an image file, from its header."""
+    return image_io.shape(image_io.read_header_bytes(path), path)
+
+
+def assemble_batch(samples, max_gts: int, max_ronis: int, first: int = 0):
     """Stack per-image augment outputs into one fixed-shape batch dict.
 
     gt_boxes rows are (img_id, x1, y1, x2, y2, label, ignored) like the
-    reference's gt_boxes top (image_gt_data_layer.cpp:820-839).
+    reference's gt_boxes top (image_gt_data_layer.cpp:820-839); img_id
+    counts from `first` (a rank's first row of the global batch).
     """
     b = len(samples)
     images = np.stack([s[0] for s in samples])
@@ -78,7 +105,7 @@ def assemble_batch(samples, max_gts: int, max_ronis: int):
     for i, (_, gts6, rn, region) in enumerate(samples):
         g = min(gts6.shape[0], max_gts)
         if g:
-            gt_boxes[i, :g, 0] = i
+            gt_boxes[i, :g, 0] = first + i
             gt_boxes[i, :g, 1:5] = gts6[:g, 0:4]
             gt_boxes[i, :g, 5] = gts6[:g, 4]
             gt_boxes[i, :g, 6] = gts6[:g, 5]
@@ -103,14 +130,21 @@ class MSCNNDataset:
 
     def __init__(self, images: Sequence[W.WindowImage], aug: A.AugmentSpec,
                  spec: DatasetSpec, image_loader=load_image,
-                 index_loader=None):
+                 index_loader=None, part=None, shape_loader=None):
         """index_loader(i) -> image overrides path-based loading (used by
-        packed record shards, where bytes live at an offset, not a path)."""
+        packed record shards, where bytes live at an offset, not a path).
+        part: (rank, n), this dataset's rows of each batch (module notes);
+        shape_loader(i) -> (h, w) of image i without decoding it (default:
+        its file's header)."""
         self.images = list(images)
         self.aug = aug
         self.spec = spec
         self.loader = image_loader
         self.index_loader = index_loader
+        self.rows = part_rows(spec.batch_size, part)
+        self.shape_loader = shape_loader or (
+            lambda i: header_shape(self.images[i].path))
+        self.decoded = 0
         self.rng = np.random.RandomState(spec.seed)
         self.index_list = W.build_image_list(self.images, spec.fg_img_multiple)
         self._order = None
@@ -131,11 +165,26 @@ class MSCNNDataset:
         im = self.images[idx]
         img = (self.index_loader(idx) if self.index_loader is not None
                else self.loader(im.path))
+        self.decoded += 1
         return A.augment(self.rng, img, im.gts, im.ronis, self.aug)
 
+    def skip(self):
+        """Take the next sample's draws, as `sample` would, without
+        decoding its image (another rank's row)."""
+        idx = self._next_index()
+        im = self.images[idx]
+        A.draw(self.rng, self.shape_loader(idx), im.gts, im.ronis, self.aug)
+
     def next_batch(self) -> dict:
-        samples = [self.sample() for _ in range(self.spec.batch_size)]
-        return assemble_batch(samples, self.spec.max_gts, self.spec.max_ronis)
+        lo, hi = self.rows
+        samples = []
+        for j in range(self.spec.batch_size):
+            if lo <= j < hi:
+                samples.append(self.sample())
+            else:
+                self.skip()
+        return assemble_batch(samples, self.spec.max_gts, self.spec.max_ronis,
+                              first=lo)
 
     def __iter__(self) -> Iterator[dict]:
         while True:
@@ -232,6 +281,6 @@ class Prefetcher:
 
 def dataset_from_window_file(path: str, aug: A.AugmentSpec,
                              spec: DatasetSpec, root_folder: str = "",
-                             image_loader=load_image) -> MSCNNDataset:
+                             image_loader=load_image, part=None) -> MSCNNDataset:
     return MSCNNDataset(W.parse_window_file(path, root_folder), aug, spec,
-                        image_loader)
+                        image_loader, part=part)

@@ -177,10 +177,12 @@ class RecordShard:
     def close(self):
         self._f.close()
 
-    def dataset(self, aug, spec):
+    def dataset(self, aug, spec, part=None):
         """MSCNNDataset view over the shard (images decoded from the pack,
-        never from the filesystem)."""
+        never from the filesystem); part: a rank's rows (pipeline.py)."""
         from mscnn_torch.data import pipeline as P
 
-        return P.MSCNNDataset(self.images, aug, spec,
-                              index_loader=self.read_image)
+        return P.MSCNNDataset(
+            self.images, aug, spec, index_loader=self.read_image, part=part,
+            shape_loader=lambda i: image_io.shape(
+                self.read_bytes(i), f"record {i} of {self.path}"))

@@ -6,8 +6,19 @@ Ports `mscnn_tpu/inference.py`: `KITTI_CLASS_NAMES`, `DetectSpec`,
 `cascade_post_cfg`, `expand_cascade_bbox`, `make_cascade_forward`,
 `detect_cascade`), `write_detections_txt`, `write_kitti_labels`,
 `detections_to_xywh`, `detections_to_kitti` and `make_forward`
-(inference.py:26-406). The mesh-sharded forwards are ROADMAP item 20
-(`make_forward(mesh=)` and `make_cascade_forward(mesh=)` raise).
+(inference.py:26-406), with their mesh forms.
+
+Data-parallel serving (`make_forward(mesh=)`, `make_cascade_forward(
+mesh=)`): JAX's forward over a 1-D "data" mesh is one single-controller
+call whose batch is sharded and whose params are replicated; inference has
+no collective. Here one process drives the mesh's devices (`MeshForward`):
+each device holds a replica of the params, the batch is split into
+contiguous chunks, each chunk's forward is enqueued on its device (the
+launches are asynchronous, so the devices overlap), and the outputs are
+concatenated in order on the first device ("batch_idx" offset by each
+chunk's first image). The batch must divide the mesh. `detect_batch` with
+such a forward decodes each chunk on its device too (propose and
+postprocess per shard) before the outputs meet.
 
 `e2e_outputs` and `cascade_e2e_outputs` are the forward bodies that
 `io/aot.py` exports with `torch.export`: they set no grad mode and make no
@@ -222,18 +233,91 @@ def make_e2e_forward(params, cfg: M.MSCNNConfig,
     return fwd
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _gather(outs, first, b):
+    """Chunk outputs (dicts of batch-leading tensors) concatenated on
+    device `first`; "batch_idx" rows offset by each chunk's first image."""
+    def cat(key, parts):
+        if isinstance(parts[0], dict):
+            return {k: cat(k, [p[k] for p in parts]) for k in parts[0]}
+        parts = [p.to(first, non_blocking=True) for p in parts]
+        if key == "batch_idx":
+            parts = [p + i * b for i, p in enumerate(parts)]
+        return torch.cat(parts)
+
+    return cat(None, outs)
+
+
+class MeshForward:
+    """A deploy forward over the devices of a 1-D mesh (module notes):
+    `fwd(params, images)` as the one-device forward's call. params is the
+    tree the forward was made for (its replicas are reused) or another
+    (copied to each device at the call)."""
+
+    def __init__(self, body, params, mesh):
+        self.body, self.mesh = body, mesh
+        self._params, self._replicas = params, self.replicate(params)
+
+    def replicate(self, params) -> list:
+        out = []
+        for d in self.mesh.devices.flat:
+            if M.params_device(params) == d:
+                out.append(params)
+            else:
+                out.append(_tree_map(lambda t: t.to(d) if torch.is_tensor(t)
+                                     else t, params))
+        return out
+
+    def map(self, params, fn, *arrays):
+        """fn(replica, *chunks) on each device, chunks the contiguous
+        slices of each batch-leading array; the outputs gathered on the
+        first device."""
+        n = self.mesh.size
+        rows = arrays[0].shape[0]
+        if rows % n:
+            raise ValueError(f"a batch of {rows} images is not divisible by "
+                             f"{n} devices")
+        b = rows // n
+        reps = self._replicas if params is self._params else self.replicate(params)
+        outs = []
+        for i, d in enumerate(self.mesh.devices.flat):
+            chunk = [a[i * b:(i + 1) * b].to(d, non_blocking=True) for a in arrays]
+            with torch.inference_mode(), _on(d):
+                outs.append(fn(reps[i], *chunk))
+        return _gather(outs, self.mesh.device(0), b)
+
+    def __call__(self, params, images):
+        return self.map(params, self.body, images)
+
+
+def _on(device):
+    import contextlib
+
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def make_forward(params, cfg: M.MSCNNConfig, mesh=None):
     """The deploy forward for batch loops over many images: f(params,
     images [B, H, W, 3] mean-subtracted) -> `deploy_forward`'s outputs,
-    under inference mode (mscnn_tpu/inference.py::make_forward). mesh:
-    data-parallel serving, ROADMAP item 20; raises."""
+    under inference mode (mscnn_tpu/inference.py::make_forward). mesh: a
+    1-D device mesh (`parallel.make_mesh`), the batch split over its
+    devices (`MeshForward`)."""
+    def body(p, images):
+        return M.deploy_forward(p, images, cfg)
+
     if mesh is not None:
-        raise NotImplementedError(
-            "make_forward(mesh=...) is data parallelism, ROADMAP item 20")
+        return MeshForward(body, params, mesh)
 
     def fwd(p, images):
         with torch.inference_mode():
-            return M.deploy_forward(p, images, cfg)
+            return body(p, images)
 
     return fwd
 
@@ -309,7 +393,20 @@ def detect_batch(params, images_bgr: Sequence[np.ndarray],
     memory. Pass the CascadeConfig as `cascade` for staged models (then
     `cfg` must be `cascade.base`). fwd: a deploy forward to reuse across
     calls (`make_forward`, or `make_cascade_forward` with `cascade`):
-    f(params, mean-subtracted images) -> the deploy outputs."""
+    f(params, mean-subtracted images) -> the deploy outputs; a mesh
+    forward decodes each chunk on its device."""
+    if isinstance(fwd, MeshForward):
+        post = cfg if cascade is None else cascade_post_cfg(cascade)
+
+        def shard(p, img_u8, ratios, orig_wh):
+            outputs = fwd.body(p, _mean_sub(img_u8, mean_values))
+            if cascade is not None:
+                outputs = expand_cascade_bbox(outputs, cfg.num_classes)
+            return _decode(outputs, ratios, orig_wh, post, spec)
+
+        return _detect_with(params, images_bgr, cfg.input_hw,
+                            lambda *a: fwd.map(params, shard, *a))
+
     def run(img_u8, ratios, orig_wh):
         with torch.inference_mode():
             if fwd is None and cascade is None:
@@ -367,14 +464,17 @@ def expand_cascade_bbox(outputs, num_classes):
 def make_cascade_forward(params, ccfg, mesh=None):
     """Cascade deploy forward: f(params, images [B, H, W, 3] BGR
     mean-subtracted) -> `cascade_deploy_outputs` (the last stage's rois and
-    the scoring), under inference mode. mesh: ROADMAP item 20, raises."""
+    the scoring), under inference mode. mesh: the batch split over the
+    mesh's devices, as in `make_forward`."""
+    def body(p, images):
+        return cascade_deploy_outputs(p, images, ccfg)
+
     if mesh is not None:
-        raise NotImplementedError(
-            "make_cascade_forward(mesh=...) is data parallelism, ROADMAP item 20")
+        return MeshForward(body, params, mesh)
 
     def fwd(p, images):
         with torch.inference_mode():
-            return cascade_deploy_outputs(p, images, ccfg)
+            return body(p, images)
 
     return fwd
 

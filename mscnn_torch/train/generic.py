@@ -7,7 +7,8 @@ here: it becomes a `models/netbuilder.py::Net`, its data layer a host
 batch source, its `param` specs lr / decay multiplier trees, and one
 forward / backward / solver update a step that `train/loop.py::solve`
 drives as it drives the MS-CNN step: step(state, batch, *, draws=None,
-generator=None) -> (state, metrics), with no host sync inside.
+generator=None) -> (state, metrics), with no host sync inside; with a
+mesh, the data-parallel step of `train/train_step.py` (one rank a device).
 
 Batch sources: ImageData, HDF5Data (h5py, NCHW arrays to NHWC),
 DummyData, WindowData and `Data` over a Caffe LMDB or LevelDB
@@ -31,6 +32,7 @@ import torch
 from mscnn_torch.config import prototxt as PB
 from mscnn_torch.models import netbuilder as NB
 from mscnn_torch.train import solver as S
+from mscnn_torch.train import train_step as T
 from mscnn_torch.train.train_step import prune_frozen_params
 
 DATA_LAYER_TYPES = NB.DATA_LAYER_TYPES
@@ -263,13 +265,13 @@ def make_train_step(net: NB.Net, sspec: S.SolverSpec, *, lr_mults=None,
     metrics): forward through `net.apply` (losses in blobs["loss"]),
     autograd backward, the solver's update. lr_mult-0 leaves get no
     gradient (`train_step.prune_frozen_params`, net.cpp:191-247). draws /
-    generator: the Dropout / STOCHASTIC draws (`Net.apply`). A mesh is
-    data parallelism, ROADMAP Queue 1 item 20."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "generic.make_train_step(mesh=...) is data parallelism, ROADMAP "
-            "Queue 1 item 20")
+    generator: the Dropout / STOCHASTIC draws (`Net.apply`). mesh:
+    P2PSync-style data parallelism as in `train_step.make_train_step`: this
+    rank's micro-batch and draws, the gradients and metrics averaged over
+    the ranks, the same update on every rank."""
     acc_tops = _acc_tops(net)
+    if mesh is not None:
+        T.mesh_rank(mesh)
 
     def step(state, batch, *, draws=None, generator=None):
         params = state["params"]
@@ -284,10 +286,14 @@ def make_train_step(net: NB.Net, sspec: S.SolverSpec, *, lr_mults=None,
         grads = {n: {k: None for k in p} for n, p in params.items()}
         for (n, k), g in zip(names, got):
             grads[n][k] = g
+        metrics = {"loss": loss.detach()}
+        metrics.update({t: blobs[t].detach() for t in acc_tops if t in blobs})
+        if mesh is not None:
+            grads, metrics = T._mean_over_ranks(params, grads, metrics,
+                                                lr_mults)
         new_params, sstate, lr = S.apply_update(
             params, grads, state["solver"], sspec, lr_mults, decay_mults)
-        metrics = {"loss": loss.detach(), "lr": lr}
-        metrics.update({t: blobs[t].detach() for t in acc_tops if t in blobs})
+        metrics["lr"] = lr
         return {"params": new_params, "solver": sstate}, metrics
 
     return step
@@ -295,18 +301,19 @@ def make_train_step(net: NB.Net, sspec: S.SolverSpec, *, lr_mults=None,
 
 def make_eval_step(net: NB.Net, mesh=None):
     """(params, batch, *, draws=None, generator=None) -> {metric}: the
-    TEST-phase net's loss and Accuracy tops (caffe test)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "generic.make_eval_step(mesh=...) is data parallelism, ROADMAP "
-            "Queue 1 item 20")
+    TEST-phase net's loss and Accuracy tops (caffe test); with a mesh,
+    this rank's batch and the metrics averaged over the ranks."""
     acc_tops = _acc_tops(net)
+    if mesh is not None:
+        T.mesh_rank(mesh)
 
     @torch.no_grad()
     def eval_step(params, batch, *, draws=None, generator=None):
         blobs = net.apply(params, batch, train=False)
         out = {"loss": blobs["loss"]}
         out.update({t: blobs[t] for t in acc_tops if t in blobs})
+        if mesh is not None:
+            _, out = T._mean_over_ranks({}, {}, out, None)
         return out
 
     return eval_step
@@ -323,15 +330,15 @@ def setup(net_path: str, sspec: S.SolverSpec, *, phase: str = "TRAIN",
     net's structural layout hints) or snapshot directory. Params are drawn
     from a generator seeded `seed` and live on `device`, by default the
     card (raises without one); batch_source() returns the next batch on
-    that device."""
+    that device. With a mesh (a rank of data parallelism), the Net keeps
+    the global batch's shapes as JAX's does, the state is this rank's
+    replica of rank 0's, the step is the mesh step, and batch_source()
+    returns this rank's rows of the global batch; the data layer's batch
+    must divide the mesh (JAX's ValueError)."""
     from mscnn_torch.io import caffemodel as CM
     from mscnn_torch.io import checkpoint as CKPT
     from mscnn_torch.models.mscnn import default_device
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "generic.setup(mesh=...) is data parallelism, ROADMAP Queue 1 "
-            "item 20")
     dev = default_device() if device is None else torch.device(device)
     probe_net = NB.Net(net_path, phase=phase)
     layer = find_data_layer(probe_net)
@@ -343,6 +350,13 @@ def setup(net_path: str, sspec: S.SolverSpec, *, phase: str = "TRAIN",
     source = make_batch_source(probe_net, layer, seed=seed,
                                train=phase == "TRAIN", batch_size=batch_size)
     first = source()
+    if mesh is not None:
+        n_dev = mesh.size
+        bs = next(iter(first.values())).shape[0]
+        if bs % n_dev:
+            raise ValueError(f"data-layer batch_size {bs} not divisible "
+                             f"by {n_dev} devices")
+        dev = T.mesh_rank(mesh)[1]
     net = NB.Net(net_path, phase=phase,
                  input_shapes={k: tuple(v.shape) for k, v in first.items()})
     params = net.init(torch.Generator().manual_seed(seed), device=dev)
@@ -352,9 +366,16 @@ def setup(net_path: str, sspec: S.SolverSpec, *, phase: str = "TRAIN",
                                      layouts=net.param_layouts())
     lr_mults, decay_mults = param_multipliers(net, params)
     step = make_train_step(net, sspec, lr_mults=lr_mults,
-                           decay_mults=decay_mults)
+                           decay_mults=decay_mults, mesh=mesh)
     state = {"params": params, "solver": S.init_state(params, sspec)}
     pending = [first]
+    if mesh is not None:
+        state = T.replicate_state(state, mesh)
+
+        def batch_source():
+            return T.shard_batch(pending.pop() if pending else source(), mesh)
+
+        return state, step, batch_source, net
 
     def batch_source():
         b = pending.pop() if pending else source()

@@ -19,6 +19,15 @@ directory format by default; `snapshot_format: BINARYPROTO` writes the
 .caffemodel / .solverstate pair, `HDF5` the .caffemodel.h5 /
 .solverstate.h5 pair (io/checkpoint.py; h5py, which raises ImportError
 where it is not installed).
+
+Data parallelism (`rank=`, one process a device, `parallel/distributed.
+py`): rank r's generators take r as a further word (JAX's `fold_in(key,
+r)`); rank 0 alone prints and writes snapshots, in every format (the
+WorkerSolver no-op discipline, solver.hpp:140-157; the port has no orbax
+barrier), and every rank waits at a barrier after each snapshot; the
+SIGINT / SIGHUP actions any rank received are agreed on at the top of each
+iteration (a max over the ranks of two host flags), so every rank
+snapshots or stops at the same iteration.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch
 
 from mscnn_torch.config import prototxt as PB
 from mscnn_torch.io import checkpoint as CKPT
+from mscnn_torch.parallel import distributed as D
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,15 +88,38 @@ class SignalActions:
     def pop(self) -> Optional[str]:
         return self._got.pop(0) if self._got else None
 
+    def pop_agreed(self) -> Optional[str]:
+        """`pop` on every rank at once: "snapshot" if any rank has a
+        snapshot waiting, else "stop" if any has a stop waiting, else None;
+        a stop that waits behind a snapshot stays for the next call. One
+        rank: `pop`."""
+        if D.world_size() == 1:
+            return self.pop()
+        snap, stop = D.agree(["snapshot" in self._got, "stop" in self._got])
+        self._got = ["stop"] if snap and stop else []
+        return "snapshot" if snap else "stop" if stop else None
+
 
 def _logf(msg: str, log: Optional[Callable[[str], None]]):
     (log or print)(msg)
 
 
+def _silent(msg: str):
+    pass
+
+
 def _snapshot(spec: LoopSpec, train_state, it) -> str:
     """Dispatch on snapshot_format: the port's train-state directory, or the
     reference's .caffemodel/.solverstate pair (Solver::Snapshot,
-    solver.cpp:403-419)."""
+    solver.cpp:403-419). Of data-parallel ranks rank 0 writes, and all
+    wait for it; the others return ""."""
+    try:
+        return _write_snapshot(spec, train_state, it) if D.rank() == 0 else ""
+    finally:
+        D.barrier()
+
+
+def _write_snapshot(spec: LoopSpec, train_state, it) -> str:
     if spec.snapshot_format in ("binaryproto", "hdf5"):
         # current_step = multistep lr stage index (sgd_solver.cpp's
         # this->current_step_), so the reference resumes the lr schedule
@@ -133,16 +166,21 @@ def test_eval(eval_step, params, batches, generator_for, *, log=None):
 
 def solve(step_fn, train_state, batch_source, spec: LoopSpec, *,
           seed: int = 0, eval_step=None, test_batch_source=None,
-          hooks=(), log: Optional[Callable[[str], None]] = None):
+          hooks=(), log: Optional[Callable[[str], None]] = None,
+          rank: Optional[int] = None):
     """Run the training loop until max_iter (resumes from the state's iter).
 
     step_fn(state, batch, *, generator) -> (state, metrics), as
     `train_step.make_train_step`'s step; batch_source() -> batch (e.g.
     Prefetcher.get); hooks: callables (it, metrics) -> None run every
-    display interval with the metrics as floats. Returns the final train
-    state.
+    display interval with the metrics as floats. rank: this process's rank
+    of a data-parallel run (module notes), None without one. Returns the
+    final train state.
     """
     dev = train_state["solver"]["it"].device
+    sub = () if rank is None else (rank,)
+    if rank not in (None, 0):
+        log = _silent
     start_iter = int(train_state["solver"]["it"])
     loss_window: list = []
     t_last = time.perf_counter()
@@ -150,7 +188,7 @@ def solve(step_fn, train_state, batch_source, spec: LoopSpec, *,
 
     with SignalActions(spec) as sigs:
         while it < spec.max_iter:
-            action = sigs.pop()
+            action = sigs.pop_agreed()
             if action == "snapshot":
                 _snapshot(spec, train_state, it)
             elif action == "stop":
@@ -164,11 +202,12 @@ def solve(step_fn, train_state, batch_source, spec: LoopSpec, *,
                 _logf(f"Iteration {it}, Testing net", log)
                 test_eval(eval_step, train_state["params"], batches,
                           lambda i, t=it: iteration_generator(
-                              seed, t, dev, 1, i), log=log)
+                              seed, t, dev, 1, i, *sub), log=log)
 
             batch = batch_source()
             train_state, metrics = step_fn(
-                train_state, batch, generator=iteration_generator(seed, it, dev))
+                train_state, batch,
+                generator=iteration_generator(seed, it, dev, *sub))
 
             if spec.display and it % spec.display == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}

@@ -1,10 +1,11 @@
 """The MS-CNN training step on one device: forward, losses, backward, update.
 
-Ports `mscnn_tpu/train/train_step.py` (without its mesh): `TrainSpec`,
-`branch_loss_specs`, `proposal_target_spec`, `rasterize_batch`,
-`sync_input_norm`, `normalize_uint8_batch`, `_flatten_gts`, `loss_fn`,
-`prune_frozen_params`, `make_train_step` (with `iter_size`
-micro-batches), `make_eval_step` and `stack_microbatches`. One call is
+Ports `mscnn_tpu/train/train_step.py`: `TrainSpec`, `branch_loss_specs`,
+`proposal_target_spec`, `rasterize_batch`, `sync_input_norm`,
+`normalize_uint8_batch`, `_flatten_gts`, `loss_fn`, `prune_frozen_params`,
+`make_train_step` (with `iter_size` micro-batches and a mesh),
+`make_eval_step`, `stack_microbatches`, `replicate_state` and
+`shard_batch`. One call is
 the reference's Solver::Step (solver.cpp:194-274): trunk -> per-scale
 heads -> detection losses -> BoxOutput (K1 on the card, on detached
 outputs) -> ProposalTarget -> ROI head with dropout -> cls / bbox losses
@@ -23,6 +24,19 @@ the JAX function's own keys, so the two are comparable draw for draw.
 Frozen leaves (lr_mult 0) become `requires_grad=False` (the JAX package's
 stop_gradient): autograd builds no backward for them and the update counts
 their gradient as zero. A step on the card makes no host sync.
+
+Data parallelism (a `parallel.Mesh`): JAX's `shard_map` step runs one
+program over the mesh; the port runs one process (rank) a device of it,
+over the default `torch.distributed` group (`parallel/distributed.py`).
+Rank r takes its micro-batch (`shard_batch`: the r-th contiguous slice of
+the global batch, what JAX's sharding gives device r) and its own draws
+(the counterpart of `fold_in(key, r)`: `train/loop.py::iteration_generator`
+with the rank as a word), sums its gradients over its iter_size
+micro-batches, and averages them and the metrics over the ranks with one
+all-reduce of a flat buffer (JAX's `pmean`; the frozen leaves stay out of
+it: JAX's pmean of their zeros is zeros). Every rank then applies the same
+update to the same state, which `replicate_state` broadcast from rank 0,
+so the ranks stay bit-identical.
 """
 
 from __future__ import annotations
@@ -31,12 +45,14 @@ import dataclasses
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from mscnn_torch.data import rasterize as RZ
 from mscnn_torch.models import mscnn as M
 from mscnn_torch.ops import losses as L
 from mscnn_torch.ops import proposal_target as PT
+from mscnn_torch.parallel import distributed as D
 from mscnn_torch.train import solver as S
 
 
@@ -279,19 +295,20 @@ def loss_fn(params, batch, cfg: M.MSCNNConfig, tspec: TrainSpec, *,
     return total, metrics
 
 
+def _mult(lr_mults, name, k) -> float:
+    try:
+        return lr_mults[name][k]
+    except (KeyError, TypeError):
+        return 1.0
+
+
 def prune_frozen_params(params, lr_mults):
     """The params as leaves of a new autograd graph: every leaf whose
     lr_mult is 0 with `requires_grad=False` (Caffe's backward-need pruning,
     net.cpp:191-247; the JAX package's stop_gradient), every other one
     trainable. Leaves without a recorded mult stay trainable. The leaves
     share storage with `params`."""
-    def mult(name, k):
-        try:
-            return lr_mults[name][k]
-        except (KeyError, TypeError):
-            return 1.0
-
-    return {name: {k: v.detach().requires_grad_(mult(name, k) != 0.0)
+    return {name: {k: v.detach().requires_grad_(_mult(lr_mults, name, k) != 0.0)
                    for k, v in p.items()}
             for name, p in params.items()}
 
@@ -319,6 +336,34 @@ def _micro(batch, j):
             for k, v in batch.items()}
 
 
+def mesh_rank(mesh):
+    """(rank, device) of this process on `mesh`: rank r of the default
+    process group owns the mesh's r-th device. A mesh of more than one
+    device needs a group of as many ranks (`parallel.distributed.
+    initialize`); a one-device mesh runs without one."""
+    n = D.world_size()
+    if n != mesh.size and (n > 1 or mesh.size > 1):
+        raise ValueError(f"a mesh of {mesh.size} devices needs as many ranks; "
+                         f"the process group has {n} (parallel.distributed."
+                         "initialize)")
+    r = D.rank()
+    return r, mesh.device(r)
+
+
+def _mean_over_ranks(params, grads, metrics, lr_mults):
+    """JAX's pmean of the grads and metrics: every trainable leaf (a None
+    gradient as zeros) and the metrics stacked, averaged over the ranks by
+    one all-reduce a dtype. Returns (grads, metrics)."""
+    grads = {n: {k: (torch.zeros_like(params[n][k]) if g is None else g)
+                 if _mult(lr_mults, n, k) != 0.0 else None
+                 for k, g in p.items()} for n, p in grads.items()}
+    keys = sorted(metrics)
+    vec = torch.stack([metrics[k].float() for k in keys])
+    D.all_reduce_mean_([g for p in grads.values() for g in p.values()
+                        if g is not None] + [vec])
+    return grads, dict(zip(keys, vec.unbind()))
+
+
 def make_train_step(cfg: M.MSCNNConfig, tspec: TrainSpec, sspec: S.SolverSpec,
                     lr_mults=None, decay_mults=None, mesh=None,
                     loss_function=None):
@@ -326,18 +371,20 @@ def make_train_step(cfg: M.MSCNNConfig, tspec: TrainSpec, sspec: S.SolverSpec,
 
     Returns step(train_state, batch, *, draws=None, generator=None,
     mark=None) -> (train_state, metrics), train_state = {"params",
-    "solver"}; mark as in `loss_fn`, plus "backward" and "update". With
-    sspec.iter_size > 1 the batch carries a leading [iter_size] axis of
-    micro-batches (`stack_microbatches`) and draws is a list of one dict a
-    micro-batch; their gradients are summed and the update divides by
-    iter_size. loss_function overrides the objective (signature
-    (params, batch, cfg, tspec, *, draws, generator, mark) -> (loss,
-    metrics)). A mesh is ROADMAP Queue 1 item 20 (DDP).
+    "solver"}; mark as in `loss_fn`, plus "backward", "all_reduce" (with a
+    mesh) and "update". With sspec.iter_size > 1 the batch carries a
+    leading [iter_size] axis of micro-batches (`stack_microbatches`) and
+    draws is a list of one dict a micro-batch; their gradients are summed
+    and the update divides by iter_size. loss_function overrides the
+    objective (signature (params, batch, cfg, tspec, *, draws, generator,
+    mark) -> (loss, metrics)). mesh: data parallelism (module notes); the
+    step then takes this rank's batch (`shard_batch`), this rank's draws or
+    generator, and the state `replicate_state` placed, and returns the
+    update every rank computes and the metrics averaged over the ranks.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...) is data parallelism, ROADMAP item 20")
     user_objective = loss_function if loss_function is not None else loss_fn
+    if mesh is not None:
+        mesh_rank(mesh)
 
     def objective(params, batch, *, draws, generator, mark):
         return user_objective(params, normalize_uint8_batch(batch, tspec),
@@ -366,6 +413,10 @@ def make_train_step(cfg: M.MSCNNConfig, tspec: TrainSpec, sspec: S.SolverSpec,
         else:
             grads, metrics = _grads(objective, params, lr_mults, batch, draws,
                                     generator, mark)
+        if mesh is not None:
+            grads, metrics = _mean_over_ranks(params, grads, metrics, lr_mults)
+            if mark is not None:
+                mark("all_reduce")
         new_params, sstate, lr = S.apply_update(
             params, grads, train_state["solver"], sspec, lr_mults, decay_mults)
         metrics["lr"] = lr
@@ -380,16 +431,19 @@ def make_eval_step(cfg: M.MSCNNConfig, tspec: TrainSpec, mesh=None):
     """Forward-only metric step (the solver's Test() loop body). A metric
     of -1 marks a batch with no valid samples for it; Test-averaging skips
     those (solver.cpp:368-394). Returns step(params, batch, *, draws=None,
-    generator=None) -> metrics."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_eval_step(mesh=...) is data parallelism, ROADMAP item 20")
+    generator=None) -> metrics. mesh: this rank's batch and draws, the
+    metrics averaged over the ranks (-1 markers included, as JAX's pmean
+    averages them)."""
     eval_tspec = dataclasses.replace(tspec, with_metrics=True)
+    if mesh is not None:
+        mesh_rank(mesh)
 
     @torch.no_grad()
     def step(params, batch, *, draws=None, generator=None):
         _, metrics = loss_fn(params, normalize_uint8_batch(batch, tspec), cfg,
                              eval_tspec, draws=draws, generator=generator)
+        if mesh is not None:
+            _, metrics = _mean_over_ranks({}, {}, metrics, None)
         return metrics
 
     return step
@@ -406,3 +460,52 @@ def stack_microbatches(batches):
         else:
             out[k] = torch.stack([b[k] for b in batches])
     return out
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _leaves(tree) -> list:
+    out = []
+    _tree_map(lambda t: out.append(t) if torch.is_tensor(t) else None, tree)
+    return out
+
+
+def replicate_state(train_state, mesh):
+    """The train state on this rank's device of `mesh`, copied, and
+    overwritten with rank 0's (one broadcast a tensor), so that every rank
+    starts from the same state whatever its own init gave."""
+    _, dev = mesh_rank(mesh)
+    state = _tree_map(lambda t: t.to(dev, copy=True) if torch.is_tensor(t)
+                      else t, train_state)
+    D.broadcast_(_leaves(state))
+    return state
+
+
+def shard_batch(batch, mesh):
+    """This rank's part of a global batch: the r-th of mesh.size contiguous
+    slices of every leaf's leading axis (numpy or tensors; the label maps'
+    tuple leaf by leaf), on this rank's device. It is what JAX's sharding
+    over the data axis gives device r; with iter_size > 1 the leading axis
+    is the micro-batches' (rank r takes micro-batches r * iter_size ..
+    (r + 1) * iter_size - 1 of a [n * iter_size, b, ...] stack)."""
+    r, dev = mesh_rank(mesh)
+    n = mesh.size
+
+    def part(x):
+        if not torch.is_tensor(x):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        rows = x.shape[0]
+        if rows % n:
+            raise ValueError(f"a batch of {rows} rows is not divisible by "
+                             f"{n} devices")
+        b = rows // n
+        return x[r * b:(r + 1) * b].to(dev, non_blocking=True)
+
+    return {k: tuple(part(m) for m in v) if isinstance(v, tuple) else part(v)
+            for k, v in batch.items()}

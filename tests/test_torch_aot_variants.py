@@ -119,8 +119,9 @@ def test_platforms(tiny, tmp_path):
 def test_forward_keywords_give_one_result(tiny):
     """detect's e2e_fwd= (a make_e2e_forward end-to-end forward),
     detect_batch's fwd= (a make_forward deploy forward) and the defaults
-    give the same result bit for bit; the mesh form is ROADMAP item 20 and
-    raises; a constant is made once a device."""
+    give the same result bit for bit, and so does detect_batch's fwd= in
+    its mesh form (`make_forward(mesh=)` over a one-device CPU mesh); a
+    constant is made once a device."""
     _, cfg, _, params = tiny
     img = images(10, 1)[0]
     a = TI.detect(params, img, cfg, SPEC_T,
@@ -128,6 +129,8 @@ def test_forward_keywords_give_one_result(tiny):
     assert_equal(a, TI.detect(params, img, cfg, SPEC_T))
     assert_equal(a, TI.detect_batch(params, [img], cfg, SPEC_T,
                                     fwd=TI.make_forward(params, cfg))[0])
-    with pytest.raises(NotImplementedError, match="item 20"):
-        TI.make_forward(params, cfg, mesh=object())
+    from mscnn_torch.parallel import make_mesh
+    mesh = make_mesh((1,), ("data",), ["cpu"])
+    assert_equal(a, TI.detect_batch(params, [img], cfg, SPEC_T,
+                                    fwd=TI.make_forward(params, cfg, mesh=mesh))[0])
     assert TI.device_const((1.0, 2.0), "cpu") is TI.device_const([1, 2], "cpu")

@@ -272,7 +272,9 @@ def test_deploy_forward_matches_jax(deploy, ensemble_avg, monkeypatch):
 
 
 def test_detect_batch_cascade_matches_detect_cascade(rng):
-    """One batched call (cascade=) per image equals detect_cascade."""
+    """One batched call (cascade=) per image equals detect_cascade; the
+    mesh form (`make_cascade_forward(mesh=)`, a 1-D mesh of the CPU) gives
+    the batched call's result bit for bit."""
     ccj, cct = configs(ensemble_avg=True)
     pt = bridge.from_jax_params(jax_params(ccj, seed=2))
     spec = TI.DetectSpec(max_per_class=8)
@@ -285,8 +287,12 @@ def test_detect_batch_cascade_matches_detect_cascade(rng):
             np.testing.assert_allclose(b[k], s[k], rtol=1e-4, atol=1e-3, err_msg=k)
         assert b["boxes"].shape == (cct.base.num_classes - 1, 8, 4)
         assert b["proposals"].shape == (cct.base.proposal.max_out, 4)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        TI.make_cascade_forward(pt, cct, mesh=object())
+    from mscnn_torch.parallel import make_mesh
+    fwd = TI.make_cascade_forward(pt, cct, mesh=make_mesh((1,), ("data",), ["cpu"]))
+    meshed = TI.detect_batch(pt, imgs, cct.base, spec, cascade=cct, fwd=fwd)
+    for m, b in zip(meshed, batched):
+        for k, v in b.items():
+            np.testing.assert_array_equal(m[k], v, err_msg=k)
 
 
 def test_cascade_kitti_txt_golden(tmp_path):

@@ -12,7 +12,8 @@ BINARYPROTO leaves train2 no stage-1 snapshot, as in the JAX CLI (the
 one step of the step `_build_training` builds equals one step of
 `mscnn_tpu.cli`'s on the same params, batch and draws (the tolerances of
 tests/test_torch_cascade_train.py). The branches the port does not take
-raise and name their ROADMAP items.
+raise and name their ROADMAP items; `--devices 3` on a batch of 2 exits
+with JAX's divisibility message.
 """
 
 import argparse
@@ -115,8 +116,10 @@ def test_cli_branches_not_ported(data, tmp_path, monkeypatch):
     _, wf = data
     solver1, solver2, _, _ = write_train2(tmp_path, wf)
     base = ["train", "--solver", solver2, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 20"):
-        cli.main(base + ["--devices", "2"])
+    # --devices N trains in N ranks (tests/test_torch_dp_cli.py); the batch
+    # of 2 does not divide 3, which stops before any rank starts
+    with pytest.raises(SystemExit, match="batch_size 2 not divisible by 3 devices"):
+        cli.main(base + ["--devices", "3"])
     # a non-MS-CNN net goes to the generic builder (train/generic.py), which
     # refuses a net with no data layer, as JAX's does
     (tmp_path / "generic.prototxt").write_text(

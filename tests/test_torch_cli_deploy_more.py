@@ -11,8 +11,8 @@ uses (the tiny config at fc_dim 256, weights from one .caffemodel).
     utils/profiling.py::cost_flops) and `--int8`;
   * parity: its detections are `detect`'s, its AP is JAX's KITTI
     evaluator's on them;
-  * device_query; `time --layers` and `--devices 2` exit naming ROADMAP
-    items 17 and 20.
+  * device_query; `time --layers` exits naming ROADMAP item 17; `time`
+    and `compile` refuse `--devices 2`, which the JAX CLI's ignore.
 """
 
 import math
@@ -115,8 +115,9 @@ def test_parity_and_device_query(tiny, tmp_path):
 def test_unported_options_exit_naming_the_roadmap(tiny):
     rc, out = port("time", "--layers", "--zoo", "tiny-fc256")
     assert rc == 1 and "--layers needs --model" in out
-    with pytest.raises(SystemExit, match="item 20"):
-        port("detect", "--zoo", "tiny-fc256", "--image-dir", tiny["imgs"],
-             "--output-dir", tiny["root"] / "dev2", "--devices", 2)
-    with pytest.raises(SystemExit, match="item 20"):
-        port("compile", "--zoo", "tiny-fc256", "--devices", 2, "-o", tiny["root"] / "d2")
+    # detect --devices 2 is ported (tests/test_torch_dp_cli.py); time and
+    # compile take --devices as JAX's do, which ignores it, and refuse it
+    for cmd, extra in (("time", []), ("compile", ["-o", tiny["root"] / "d2"])):
+        with pytest.raises(SystemExit, match=f"the JAX CLI's {cmd} takes --devices "
+                           "and ignores it"):
+            port(cmd, "--zoo", "tiny-fc256", "--devices", 2, *extra)

@@ -197,10 +197,16 @@ def test_unported_and_refused_sources_raise(tmp_path):
         'data_param { source: "db" backend: LMDB batch_size: 2 }'
     with pytest.raises(ValueError, match="mean_file"):
         TG.setup(_net(tmp_path, "Data", lmdb), TSV.SolverSpec(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        TG.setup(_net(tmp_path), TSV.SolverSpec(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 20"):
-        TG.make_train_step(None, TSV.SolverSpec(), mesh=object())
+    # the mesh forms are ported (tests/test_torch_dp_step.py): the data
+    # layer's batch of 8 must divide the mesh (JAX's message), and a mesh
+    # of two devices needs a process group of two ranks
+    from mscnn_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="batch_size 8 not divisible by 3 devices"):
+        TG.setup(_net(tmp_path), TSV.SolverSpec(), device="cpu",
+                 mesh=make_mesh((3,), ("data",), ["cpu"] * 3))
+    with pytest.raises(ValueError, match="needs as many ranks"):
+        TG.make_train_step(TNB.Net(_net(tmp_path)), TSV.SolverSpec(),
+                           mesh=make_mesh((2,), ("data",), ["cpu"] * 2))
 
 
 def _lines(fn, argv):

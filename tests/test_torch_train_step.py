@@ -376,9 +376,36 @@ def test_normalize_uint8_batch_matches_jax():
         tt, input_mean=(1.0, 2.0, 3.0), input_scale=2.0)
 
 
-def test_mesh_is_not_ported():
-    cfg = TZ.tiny_test_config()
-    with pytest.raises(NotImplementedError, match="item 20"):
-        TT.make_train_step(cfg, TT.TrainSpec(), TS.SolverSpec(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 20"):
-        TT.make_eval_step(cfg, TT.TrainSpec(), mesh=object())
+def test_mesh_is_not_ported(stage1):
+    """The mesh forms are ported (tests/test_torch_dp_step.py holds two
+    ranks to JAX's mesh steps): on a one-device CPU mesh, with no process
+    group, the step and the eval step equal the steps without a mesh bit
+    for bit; a mesh of two devices needs a group of two ranks."""
+    from mscnn_torch.parallel import make_mesh
+
+    c = stage1
+    one = make_mesh((1,), ("data",), ["cpu"])
+    ss = TS.SolverSpec(**SOLVER)
+    outs = []
+    for mesh in (None, one):
+        step = TT.make_train_step(c["ct"], c["tt"], ss, lr_mults=c["lm_t"],
+                                  decay_mults=c["dm_t"], mesh=mesh)
+        state = {"params": c["pt"], "solver": TS.init_state(c["pt"], ss)}
+        if mesh is not None:
+            state = TT.replicate_state(state, mesh)
+        outs.append(step(state, c["tb"] if mesh is None else TT.shard_batch(c["tb"], mesh),
+                         draws=c["draws"]))
+        outs.append(TT.make_eval_step(c["ct"], c["tt"], mesh=mesh)(
+            c["pt"], c["tb"], draws=c["draws"]))
+    (s0, m0), e0, (s1, m1), e1 = outs
+    for name, p in s0["params"].items():
+        for k, v in p.items():
+            assert torch.equal(v, s1["params"][name][k]), (name, k)
+    assert m0.keys() == m1.keys() and e0.keys() == e1.keys()
+    for k in m0:
+        assert torch.equal(m0[k].float(), m1[k]), k
+    for k in e0:
+        assert torch.equal(e0[k].float(), e1[k]), k
+    two = make_mesh((2,), ("data",), ["cpu", "cpu"])
+    with pytest.raises(ValueError, match="needs as many ranks"):
+        TT.make_train_step(c["ct"], c["tt"], ss, mesh=two)
