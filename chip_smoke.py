@@ -282,7 +282,29 @@ Phases (any failure exits non-zero, before the result line):
                 card exits with "mesh shape (2,) needs 2 devices, have 1",
                 `cli detect --devices 1` writes `detect`'s label files; (d)
                 no jax, mscnn_tpu or cv2 module in this process or either
-                rank. No jax or mscnn_tpu module is loaded after any phase.
+                rank;
+ 22. data x space -- (a) phase 21's flagship step through
+                `parallel/spmd.py::make_train_step_spmd` on a (1, 1)
+                ("data", "space") mesh over NCCL at world size 1, 2 steps
+                bit-equal to the step without a mesh under sync debug mode
+                "error" (a K2 and a K1 launch a step, held to their plain
+                versions); (b) two ranks (`chip_smoke.py --spmd-rank R`)
+                of a (1, 2) mesh sharing cuda:0 over gloo, each the four
+                images' 384-row bands (K2 on the band and its halo rows),
+                2 steps with the global batch's draws: the ranks' params
+                and metrics bit-identical, K1 and K2 held to their plain
+                versions in each rank, the loss and metrics within 1e-2
+                and each param leaf within 3e-2 of its move of the
+                one-process step on the whole batch (the trunk's bf16
+                weight gradients are rounded a band at a time), each
+                rank's peak memory beside the one-process step's, the
+                halo, gather and all-reduce ms (CUDA-event marks); (e)
+                the flagship deploy forward (768x2560, batch 4, bf16)
+                with `--conv1 s2d` against the plain conv1: pool1 by
+                `conv1_compare`, conv4_3 within 2e-2 of max|ref|, ms of
+                each; (c) no jax, mscnn_tpu or cv2 module in this process
+                or either rank. No jax or mscnn_tpu module is loaded after
+                any phase.
 
 The lines before the last give the card's name and power limit
 (nvidia-smi) and one JSON object listing every kernel, each with its
@@ -3175,11 +3197,12 @@ DP_STEPS = 2
 DP_TOL = 1e-2       # (b): each moved leaf within 1e-2 of its move (+ 4 spacings)
 
 
-def dp_flagship(dev):
+def dp_flagship(dev, compute_dtype="bfloat16"):
     """Phase 21's training case (bench.py:87-134's spec): the flagship's
     stage-2 step at 768x1024, bf16, the fused conv1 (K2) and K1, seeded
     nonzero biases; (cfg, tspec, sspec, params, lr_mults, decay_mults, the
-    global batch)."""
+    global batch). compute_dtype "float32": the same step in float32 with
+    the plain conv1 (K2 is bf16)."""
     import torch
 
     from mscnn_torch.data import synthetic as TSY
@@ -3189,7 +3212,8 @@ def dp_flagship(dev):
     from mscnn_torch.train import train_step as TT
 
     cfg = dataclasses.replace(zoo.kitti_car_8s_768(deploy=False),
-                              compute_dtype="bfloat16", pallas_conv1=True)
+                              compute_dtype=compute_dtype,
+                              pallas_conv1=compute_dtype == "bfloat16")
     th, tw = cfg.input_hw
     tspec = TT.TrainSpec(stage=2)
     sspec = TS.SolverSpec(type="sgd", base_lr=5e-5, lr_policy="step", gamma=0.1,
@@ -3300,28 +3324,30 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def leaf_errors(got, want, p0):
+def leaf_errors(got, want, p0, tag="data parallel (b)", tol=DP_TOL):
     """(max over the moved leaves of |got - want| / max|want - p0|, whether
-    all are equal): DP_TOL's bound, plus 4 float32 spacings of max|want|."""
+    all are equal, the share of the values bit-equal): each leaf within tol
+    of its move, plus 4 float32 spacings of max|want|."""
     import torch
-    worst, equal = 0.0, True
+    worst, equal, same, total = 0.0, True, 0, 0
     for n, p in want.items():
         for k, w in p.items():
             g, w0 = got[n][k].to(w.device), p0[n][k]
             equal = equal and torch.equal(g, w)
+            same += int((g == w).sum().item())
+            total += w.numel()
             move = (w - w0).abs().max().item()
             err = (g - w).abs().max().item()
             if move == 0.0:
                 if err != 0.0:
-                    fail(f"data parallel (b): {n}.{k} moved by {err} where the "
-                         "one-process step left it")
+                    fail(f"{tag}: {n}.{k} moved by {err} where the one-process "
+                         "step left it")
                 continue
             spacing = 4 * torch.finfo(torch.float32).eps * w.abs().max().item()
-            if err > DP_TOL * move + spacing:
-                fail(f"data parallel (b): {n}.{k} off the one-process mean of the "
-                     f"micro-batch gradients by {err} (move {move})")
+            if err > tol * move + spacing:
+                fail(f"{tag}: {n}.{k} off the one-process step by {err} (move {move})")
             worst = max(worst, err / move)
-    return worst, equal
+    return worst, equal, same / max(total, 1)
 
 
 def clone_state(state):
@@ -3541,7 +3567,7 @@ def data_parallel(dev, counts, zero_counts, rec):
         torch.cuda.synchronize()
     finally:
         torch.use_deterministic_algorithms(False)
-    worst, equal = leaf_errors(got[0]["params"], st["params"], params)
+    worst, equal, _ = leaf_errors(got[0]["params"], st["params"], params)
     out["b"] = {"ms": [g["ms"] for g in got], "split": got[0]["split"],
                 "launches": [g["launches"] for g in got], "worst": worst,
                 "bit_equal": equal, "seconds": ranks_s,
@@ -3672,6 +3698,580 @@ def data_parallel(dev, counts, zero_counts, rec):
     out["seconds"] = time.perf_counter() - t_phase
     log(f"data parallel (d): no jax, mscnn_tpu or cv2 module in this process or "
         f"either rank; phase 21 took {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 22: the data x space step -------------------------------------------
+
+SPMD_TOL = 1e-2     # (b): the loss and metrics of each step, relative (+ 1e-6)
+# (b): each param leaf of the bf16 run within 3e-2 of its move. The
+# trunk's weight gradients are bf16: each rank's band sum is rounded to
+# bf16 before the ranks' float32 sum, where the one-process step rounds the
+# whole sum once (one bf16 step on the tiny config, CPU: 0.4-0.7% relative
+# L2 in the trunk's gradients, against 2e-6 in float32); phase 21's 1e-2
+# holds for micro-batches of the same shapes, bit-equal there
+SPMD_PARAM_TOL = 3e-2
+# (b)'s float32 run (the same step, plain conv1): the params within phase
+# 21's DP_TOL of their move, the loss and metrics within 1e-3 relative, so
+# that a halo gradient dropped or counted twice shows on the card
+SPMD_TOL32 = 1e-3
+MEM_TRACE_ENTRIES = 400_000
+
+
+def record_memory(on):
+    """Start (with Python stacks) or stop the CUDA caching allocator's
+    history of allocations and frees."""
+    import torch
+    if on:
+        torch.cuda.memory._record_memory_history(max_entries=MEM_TRACE_ENTRIES,
+                                                 stacks="python")
+    else:
+        torch.cuda.memory._record_memory_history(enabled=None)
+
+
+def memory_peak_sites(snap, device, top=8):
+    """Where the bytes live at the peak of a recorded history
+    (`torch.cuda.memory._snapshot()`): the trace's allocations and frees
+    replayed from the start of the recording; returns (the most bytes
+    allocated at once above the start, [(site, MB), ...] of the blocks live
+    at that moment, the largest first). A site is the innermost frame of
+    the repo that allocated the block (file:line function), or "no Python
+    frame" (the backward's own allocations, made on autograd's thread)."""
+    trace = snap["device_traces"][device]
+    if any(e["action"] == "oom" for e in trace):
+        fail("memory history: the recording saw an out-of-memory")
+    live, cur, peak, at = {}, 0, 0, -1
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            live[e["addr"]] = i
+            cur += e["size"]
+            if cur > peak:
+                peak, at = cur, i
+        elif e["action"] in ("free_requested", "free_completed") and e["addr"] in live:
+            del live[e["addr"]]
+            cur -= e["size"]
+    held = {}
+    for i, e in enumerate(trace[:at + 1]):
+        if e["action"] == "alloc":
+            held[e["addr"]] = e
+        elif e["action"] in ("free_requested", "free_completed"):
+            held.pop(e["addr"], None)
+    here = os.path.dirname(os.path.abspath(__file__))
+    sites = {}
+    for e in held.values():
+        site = "no Python frame"
+        for f in e.get("frames") or ():
+            fn = f.get("filename", "")
+            if fn.startswith(here) and "/torch/" not in fn:
+                site = f"{os.path.relpath(fn, here)}:{f['line']} {f['name']}"
+                break
+        sites[site] = sites.get(site, 0) + e["size"]
+    return peak, [(k, round(v / 1e6, 1)) for k, v in
+                  sorted(sites.items(), key=lambda kv: -kv[1])[:top]]
+
+
+def spmd_split(evs):
+    """[(name, CUDA event)] marks -> ms summed by the name that ends each
+    segment (the band's marks repeat: "trunk", "halo", "backward", ...)."""
+    out = {}
+    for (_, a), (name, b) in zip(evs, evs[1:]):
+        out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+    return out
+
+
+def spmd_rank_main(argv):
+    """Phase 22 (b)'s rank: `chip_smoke.py --spmd-rank R --port P --out DIR`.
+    Two ranks of a (1, 2) ("data", "space") mesh share cuda:0 over gloo,
+    each holding a 384-row band of the flagship batch's four 768x1024
+    images; SPMD steps of `parallel/spmd.py` with the global batch's draws.
+    Its start-up runs while the parent measures (a), the rest once DIR/go
+    exists. K2's and K1's launches of the last step are held to their
+    plain versions here; the first step records the allocator's history
+    (`memory_peak_sites`). Then the same two steps in float32 (plain
+    conv1). Writes its params, metrics, launches, step ms and split, peak
+    memory and where it sits, the band's bytes, the float32 run's params
+    and metrics and the loaded modules to DIR/rank{R}.pt."""
+    import torch
+
+    from mscnn_torch.ops import nms as nms_ops
+    from mscnn_torch.ops.kernels import build
+    from mscnn_torch.ops.kernels import conv1_kernel as CK
+    from mscnn_torch.ops.kernels import conv1_v5_kernel as K3
+    from mscnn_torch.ops.kernels import int8_kernel as IK
+    from mscnn_torch.ops.kernels import nms_kernel as NK
+    from mscnn_torch.parallel import distributed as D
+    from mscnn_torch.parallel import make_mesh
+    from mscnn_torch.parallel import spmd as SP
+    from mscnn_torch.train import solver as TS
+
+    args = argparse.ArgumentParser()
+    args.add_argument("--spmd-rank", type=int, required=True)
+    args.add_argument("--port", type=int, required=True)
+    args.add_argument("--out", required=True)
+    a = args.parse_args(argv)
+    build.build()                       # the parent built them: loads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.zeros((), device=dev)          # the CUDA context
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(a.out, "go")):
+        if time.perf_counter() - t0 > 240:
+            raise TimeoutError("phase 22 (b): no go from the parent in 240 s")
+        time.sleep(0.05)
+    D.initialize(f"127.0.0.1:{a.port}", 2, a.spmd_rank, device=dev, backend="gloo")
+    try:
+        mesh = make_mesh((1, 2), ("data", "space"), [dev, dev])
+        cfg, tspec, sspec, params, lm, dm, batch = dp_flagship(dev)
+        draws = dp_draws(cfg, tspec, DP_BATCH, batch["gt_boxes"].shape[1], dev, 0)
+        step = SP.make_train_step_spmd(cfg, tspec, sspec, mesh, lr_mults=lm,
+                                       decay_mults=dm)(batch)
+        state = SP.place_state({"params": params, "solver": TS.init_state(params, sspec)},
+                               mesh)
+        local = SP.place_batch(batch, mesh)
+        del batch, params
+        calls = {"nms": [], "conv1": []}
+        nms_cuda, conv1_cuda = NK.nms_xywh_cuda, CK.conv1_pool_cuda
+
+        def rec_nms(*args_, **kw):
+            out = nms_cuda(*args_, **kw)
+            calls["nms"].append(([t.clone() if torch.is_tensor(t) else t for t in args_], kw, out))
+            return out
+
+        def rec_conv1(*args_):
+            out = conv1_cuda(*args_)
+            calls["conv1"].append(([t.clone() for t in args_], out.clone()))
+            return out
+
+        NK.launches = CK.launches = IK.launches = K3.launches = 0
+        times, metrics, split, mem, sites = [], [], {}, {}, None
+        for s in range(DP_STEPS):
+            evs = []
+
+            def mark(name):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                evs.append((name, ev))
+
+            last = s == DP_STEPS - 1
+            if last:
+                NK.nms_xywh_cuda, CK.conv1_pool_cuda = rec_nms, rec_conv1
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if s == 0:
+                record_memory(True)
+            t0 = time.perf_counter()
+            mark("start")
+            state, m = step(state, local, draws=draws[s], mark=mark)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            NK.nms_xywh_cuda, CK.conv1_pool_cuda = nms_cuda, conv1_cuda
+            if s == 0:
+                sites = memory_peak_sites(torch.cuda.memory._snapshot(), dev.index)
+                sites = {"peak": sites[0], "sites": sites[1], "before": before,
+                         "max_allocated": torch.cuda.max_memory_allocated()}
+                record_memory(False)
+            mem = {"before": before, "peak": torch.cuda.max_memory_allocated()}
+            split = spmd_split(evs)
+            metrics.append({k: float(v) for k, v in m.items()})
+        launches = {"nms": NK.launches, "conv1_pool": CK.launches,
+                    "int8_gemm": IK.launches, "conv1_v5": K3.launches}
+        stats = step.last_stats
+        params_bf16 = {n: {k: v.cpu() for k, v in p.items()}
+                       for n, p in state["params"].items()}
+        del state, local, step
+        # the float32 run: the same two steps with the plain conv1
+        cfg32, _, _, params32, _, _, batch32 = dp_flagship(dev, "float32")
+        draws32 = dp_draws(cfg32, tspec, DP_BATCH, batch32["gt_boxes"].shape[1], dev, 0)
+        step32 = SP.make_train_step_spmd(cfg32, tspec, sspec, mesh, lr_mults=lm,
+                                         decay_mults=dm)(batch32)
+        state32 = SP.place_state({"params": params32,
+                                  "solver": TS.init_state(params32, sspec)}, mesh)
+        local32 = SP.place_batch(batch32, mesh)
+        del batch32, params32
+        metrics32 = []
+        for s in range(DP_STEPS):
+            state32, m = step32(state32, local32, draws=draws32[s])
+            metrics32.append({k: float(v) for k, v in m.items()})
+        held = {"nms": [], "conv1": []}
+        for args_, kw, got in calls["nms"]:
+            held["nms"].append(nms_equal(got, nms_ops.nms_xywh_plain(*args_, **kw)))
+        for args_, got in calls["conv1"]:
+            err, tol, eq, ulps, ok = conv1_compare(
+                got.float(), CK.conv1_pool_plain(*args_).float())
+            held["conv1"].append({"shape": list(args_[0].shape), "err": err, "share": eq,
+                                  "ok": ok})
+        torch.save({"params": params_bf16,
+                    "metrics": metrics, "launches": launches, "held": held,
+                    "ms": times, "split": split, "mem": mem, "mem_sites": sites,
+                    "stats": {"halo_bytes": stats.halo_bytes,
+                              "halo_calls": stats.halo_calls,
+                              "gather_bytes": stats.gather_bytes},
+                    "params32": {n: {k: v.cpu() for k, v in p.items()}
+                                 for n, p in state32["params"].items()},
+                    "metrics32": metrics32, "modules": reference_modules()},
+                   os.path.join(a.out, f"rank{a.spmd_rank}.pt"))
+    finally:
+        D.shutdown()
+
+
+def spmd_world1(dev, counts, zero_counts, rec, out):
+    """Phase 22 (a): the flagship step through `make_train_step_spmd` on a
+    (1, 1) mesh over NCCL at world size 1 against the step without a mesh;
+    folds its figures into out. Returns (the case, the one-process state
+    after DP_STEPS steps and its metrics), which (b) is held to."""
+    import torch
+    import torch.distributed as dist
+
+    from mscnn_torch.parallel import distributed as D
+    from mscnn_torch.parallel import make_mesh
+    from mscnn_torch.parallel import spmd as SP
+    from mscnn_torch.train import solver as TS
+    from mscnn_torch.train import train_step as TT
+
+    cfg, tspec, sspec, params, lm, dm, batch = dp_flagship(dev)
+    draws = dp_draws(cfg, tspec, DP_BATCH, batch["gt_boxes"].shape[1], dev, 0)
+    state0 = {"params": params, "solver": TS.init_state(params, sspec)}
+    D.initialize(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    if dist.get_backend() != "nccl":
+        fail(f"spmd (a): the process group's backend is {dist.get_backend()}")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh11 = make_mesh((1, 1), ("data", "space"), [dev])
+        plain = TT.make_train_step(cfg, tspec, sspec, lr_mults=lm, decay_mults=dm)
+        spmd = SP.make_train_step_spmd(cfg, tspec, sspec, mesh11, lr_mults=lm,
+                                       decay_mults=dm)(batch)
+        local = SP.place_batch(batch, mesh11)
+        # warm-up (a throwaway state): cuDNN's plans
+        spmd(SP.place_state(state0, mesh11), local, draws=draws[0])
+        torch.cuda.synchronize()
+        sink = {"nms": [], "conv1": [], "int8": []}
+        ref, rms = clone_state(state0), []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for s in range(DP_STEPS):
+                ref, rm = plain(ref, batch, draws=draws[s])
+                rms.append(rm)
+            st = SP.place_state(state0, mesh11)
+            rec(True, sink)
+            zero_counts()
+            for s in range(DP_STEPS):
+                st, sm = spmd(st, local, draws=draws[s])
+            launches_a = counts()
+            rec(False, sink)
+        except RuntimeError as e:
+            fail(f"spmd (a): a step synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        out["launches"]["(1, 1) NCCL world 1, 2 steps"] = launches_a
+        if launches_a["nms"] != DP_STEPS or launches_a["conv1_pool"] != DP_STEPS:
+            fail(f"spmd (a): launches {launches_a}, expected {DP_STEPS} K1 and "
+                 f"{DP_STEPS} K2")
+        held = hold_to_plain(sink, "spmd (a)", out)
+        del sink
+        for tree in ("params", "h1"):
+            want = ref["params"] if tree == "params" else ref["solver"]["h1"]
+            got = st["params"] if tree == "params" else st["solver"]["h1"]
+            for n, p in want.items():
+                for k, v in p.items():
+                    if not torch.equal(v, got[n][k]):
+                        fail(f"spmd (a): {tree} {n}.{k} differs from the step without "
+                             "a mesh")
+        if float(rm["loss"]) != float(sm["loss"]) or not math.isfinite(float(sm["loss"])):
+            fail(f"spmd (a): loss {float(sm['loss'])} vs {float(rm['loss'])}")
+        log(f"spmd (a): flagship stage-2 step, batch {DP_BATCH} at {cfg.input_hw[0]}x"
+            f"{cfg.input_hw[1]}, bf16, K2 + K1, nonzero biases, {DP_STEPS} steps through "
+            f"make_train_step_spmd on a (1, 1) mesh over NCCL at world size 1 under sync "
+            f"debug mode 'error': params, history and loss ({float(sm['loss']):.5f}) "
+            f"bit-equal to the step without a mesh; launches {launches_a}; {held}")
+        del st
+        torch.use_deterministic_algorithms(False)
+        # the one-process step's ms and memory, which (b)'s ranks are set beside
+        ms = []
+        for _ in range(3):
+            sp = clone_state(state0)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sp, _ = plain(sp, batch, draws=draws[0])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            mem = {"before": before, "peak": torch.cuda.max_memory_allocated()}
+            del sp
+        # one more, untimed, with the allocator's history: where its peak sits
+        sp = clone_state(state0)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        record_memory(True)
+        sp, _ = plain(sp, batch, draws=draws[0])
+        torch.cuda.synchronize()
+        peak, sites = memory_peak_sites(torch.cuda.memory._snapshot(),
+                                        torch.cuda.current_device())
+        record_memory(False)
+        del sp
+        out["a"] = {"plain_ms": statistics.median(ms), "ms": ms, "mem": mem,
+                    "mem_sites": {"peak": peak, "sites": sites, "before": before,
+                                  "max_allocated": torch.cuda.max_memory_allocated()}}
+    finally:
+        D.shutdown()
+        torch.use_deterministic_algorithms(False)
+    del state0
+    torch.cuda.empty_cache()
+    return (cfg, tspec, sspec, params, lm, dm, batch), ref, rms
+
+
+def spmd_reference32(dev):
+    """(b)'s float32 reference: the one-process step on the whole batch in
+    float32 (plain conv1), DP_STEPS steps; (params before, params after,
+    metrics of each step)."""
+    import torch
+
+    from mscnn_torch.train import solver as TS
+    from mscnn_torch.train import train_step as TT
+
+    cfg, tspec, sspec, params, lm, dm, batch = dp_flagship(dev, "float32")
+    draws = dp_draws(cfg, tspec, DP_BATCH, batch["gt_boxes"].shape[1], dev, 0)
+    plain = TT.make_train_step(cfg, tspec, sspec, lr_mults=lm, decay_mults=dm)
+    p0 = {n: {k: v.clone() for k, v in p.items()} for n, p in params.items()}
+    st, ms = {"params": params, "solver": TS.init_state(params, sspec)}, []
+    for s in range(DP_STEPS):
+        st, m = plain(st, batch, draws=draws[s])
+        ms.append({k: float(v) for k, v in m.items()})
+    del batch
+    torch.cuda.empty_cache()
+    return p0, st["params"], ms
+
+
+def gib(n):
+    return n / 2 ** 30
+
+
+def sites_text(ms):
+    """`memory_peak_sites`' figures as a log fragment."""
+    return (f"peak {gib(ms['peak']):.3f} GiB above the step's start (max allocated "
+            f"{gib(ms['max_allocated'] - ms['before']):.3f}); live there: "
+            + ", ".join(f"{site} {mb} MB" for site, mb in ms["sites"]))
+
+
+def s2d_deploy(dev, counts, zero_counts, out):
+    """Phase 22 (e): the flagship deploy forward (768x2560, batch 4, bf16,
+    nonzero biases) with `--conv1 s2d` against the plain conv1: pool1 by
+    `conv1_compare`'s gates, conv4_3 and the ROI head's outputs within
+    2e-2 of max|ref|, ms of each (median of 5, CUDA events)."""
+    import torch
+
+    from mscnn_torch.models import mscnn as M
+    from mscnn_torch.models import zoo
+
+    base = dataclasses.replace(zoo.kitti_car_8s_768(deploy=True, max_out=256),
+                               compute_dtype="bfloat16")
+    s2d = dataclasses.replace(base, s2d_conv1=True)
+    p = M.cast_params(nonzero_biases(M.init_params(torch.Generator().manual_seed(SEED),
+                                                   base, device=dev), SEED + 9),
+                      torch.bfloat16)
+    h, w = base.input_hw
+    gen = torch.Generator().manual_seed(SEED + 51)
+    x = (torch.randint(0, 256, (DP_BATCH, h, w, 3), dtype=torch.uint8, generator=gen)
+         .to(dev).float() - torch.tensor(MEAN, device=dev))
+    with torch.inference_mode():
+        fp, fs = M.trunk(p, x, base), M.trunk(p, x, s2d)
+        err, tol, eq, ulps, ok = conv1_compare(fs["pool1"].float(), fp["pool1"].float())
+        if not ok:
+            fail(f"spmd (e): the s2d pool1 != the plain conv1's (err {err}, share {eq})")
+        ref = fp["conv4_3"].float()
+        c43 = (fs["conv4_3"].float() - ref).abs().max().item() / ref.abs().max().item()
+        del fp, fs
+        zero_counts()
+        op, os_ = M.deploy_forward(p, x, base), M.deploy_forward(p, x, s2d)
+        torch.cuda.synchronize()
+        launches = counts()
+        for k in ("cls_pred", "bbox_pred"):
+            a, b = os_[k], op[k]
+            if a.shape != b.shape or not torch.isfinite(a).all():
+                fail(f"spmd (e): the s2d forward's {k} is not finite or of {tuple(b.shape)}")
+        if launches["nms"] != 2 or launches["conv1_pool"]:
+            fail(f"spmd (e): launches {launches}")
+        ms = {"plain": cuda_ms(lambda: M.deploy_forward(p, x, base)),
+              "s2d": cuda_ms(lambda: M.deploy_forward(p, x, s2d))}
+    out["launches"]["s2d deploy forward + plain"] = launches
+    out["s2d"] = {"pool1_err": err, "pool1_share": eq, "conv4_3_rel": c43, "ms": ms}
+    if c43 > 2e-2:
+        fail(f"spmd (e): the s2d trunk's conv4_3 is {c43} of max|ref| off the plain one")
+    log(f"spmd (e): flagship deploy forward, batch {DP_BATCH} at {h}x{w}, bf16, "
+        f"--conv1 s2d against the plain conv1: pool1 max err {err:.4g} (gate "
+        f"{min(tol, ulps):.4g}), bit-equal share {eq:.4f}; conv4_3 {c43:.3g} of max|ref|; "
+        f"forward {ms['s2d']:.3f} ms with s2d, {ms['plain']:.3f} ms plain (CUDA events, "
+        f"median of 5); launches {launches}")
+    del p, x
+
+
+def spmd_phase(dev, counts, zero_counts, rec):
+    """Phase 22 (module notes): (a) `make_train_step_spmd` on a (1, 1) mesh
+    bit-equal to the step without a mesh, no host sync; (b) two gloo ranks
+    of a (1, 2) mesh sharing cuda:0 against the one-process step on the
+    whole batch, with each rank's peak memory, the halo, gather and
+    all-reduce ms; (e) the s2d conv1 route in the deploy forward; (c) no
+    jax, mscnn_tpu or cv2 anywhere. Returns the phase's figures."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "nms_err": 0.0, "conv1_err": 0.0, "conv1_share": 1.0,
+           "int8_err": 0.0}
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # (b)'s ranks start first: their start-up overlaps (a); they go on at "go"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spmd_")
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--spmd-rank",
+                               str(r), "--port", str(port), "--out", tmp],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        case, ref, rms = spmd_world1(dev, counts, zero_counts, rec, out)
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    params = case[3]
+    try:
+        p0_32, ref32, rms32 = spmd_reference32(dev)
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    t_a = time.perf_counter() - t_phase
+
+    # -- (b) two gloo ranks of a (1, 2) mesh on cuda:0 -------------------------------
+    try:
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "go"), "w"):
+            pass
+        try:
+            logs = [p.communicate(timeout=240)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"spmd (b): rank {r} exited {p.returncode}:\n{text[-3000:]}")
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+               for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, g in enumerate(got):
+        if g["modules"]:
+            fail(f"spmd (b): rank {r} loaded {g['modules'][:5]}")
+        if g["launches"] != {"nms": DP_STEPS, "conv1_pool": DP_STEPS, "int8_gemm": 0,
+                             "conv1_v5": 0}:
+            fail(f"spmd (b): rank {r} launched {g['launches']}")
+        if not all(g["held"]["nms"]) or not all(c["ok"] for c in g["held"]["conv1"]) \
+                or len(g["held"]["nms"]) != 1 or len(g["held"]["conv1"]) != 1:
+            fail(f"spmd (b): rank {r}'s K1 / K2 launches against their plain versions: "
+                 f"{g['held']}")
+        out["launches"][f"(1, 2) gloo rank {r}, 2 steps"] = g["launches"]
+        out["conv1_err"] = max(out["conv1_err"], g["held"]["conv1"][0]["err"])
+        out["conv1_share"] = min(out["conv1_share"], g["held"]["conv1"][0]["share"])
+    for n, p in got[0]["params"].items():
+        for k, v in p.items():
+            if not torch.equal(v, got[1]["params"][n][k]):
+                fail(f"spmd (b): the ranks' {n}.{k} differ")
+    if got[0]["metrics"] != got[1]["metrics"]:
+        fail("spmd (b): the ranks' metrics differ")
+    worst_m = 0.0
+    for s, (gm, rm) in enumerate(zip(got[0]["metrics"], rms)):
+        for k, v in rm.items():
+            want = float(v)
+            if not math.isfinite(gm[k]) or abs(gm[k] - want) > SPMD_TOL * abs(want) + 1e-6:
+                fail(f"spmd (b): step {s} {k} {gm[k]} against the one-process {want}")
+            worst_m = max(worst_m, abs(gm[k] - want) / max(abs(want), 1e-30))
+    worst, equal, share = leaf_errors(got[0]["params"], ref["params"], params,
+                                      tag="spmd (b)", tol=SPMD_PARAM_TOL)
+    # the float32 run: the halo's forward and backward at phase 21's gate
+    for n, p in got[0]["params32"].items():
+        for k, v in p.items():
+            if not torch.equal(v, got[1]["params32"][n][k]):
+                fail(f"spmd (b) float32: the ranks' {n}.{k} differ")
+    worst_m32 = 0.0
+    for s, (gm, rm) in enumerate(zip(got[0]["metrics32"], rms32)):
+        for k, want in rm.items():
+            if not math.isfinite(gm[k]) or abs(gm[k] - want) > SPMD_TOL32 * abs(want) + 1e-6:
+                fail(f"spmd (b) float32: step {s} {k} {gm[k]} against the one-process {want}")
+            worst_m32 = max(worst_m32, abs(gm[k] - want) / max(abs(want), 1e-30))
+    worst32, equal32, share32 = leaf_errors(got[0]["params32"], ref32, p0_32,
+                                            tag="spmd (b) float32", tol=DP_TOL)
+    sa = out["a"]
+    out["b"] = {"ms": [g["ms"] for g in got], "split": [g["split"] for g in got],
+                "mem": [g["mem"] for g in got], "stats": got[0]["stats"],
+                "worst": worst, "bit_equal": equal, "bit_equal_share": share,
+                "worst_metric": worst_m, "seconds": ranks_s,
+                "float32": {"worst": worst32, "bit_equal_share": share32,
+                            "worst_metric": worst_m32,
+                            "loss": [got[0]["metrics32"][-1]["loss"], rms32[-1]["loss"]]},
+                "mem_sites": [g["mem_sites"] for g in got],
+                "loss": [got[0]["metrics"][-1]["loss"], float(rms[-1]["loss"])],
+                "k2_shape": got[0]["held"]["conv1"][0]["shape"]}
+    sb = out["b"]
+    mem_line = "; ".join(
+        f"rank {r} peak {gib(m['peak']):.3f} GiB ({gib(m['peak'] - m['before']):.3f} above "
+        f"its {gib(m['before']):.3f} before the step)" for r, m in enumerate(sb["mem"]))
+    sp = sb["split"][0]
+    log(f"spmd (b): two gloo ranks of a (1, 2) mesh on cuda:0, each the 4 images' "
+        f"384-row bands (K2 on {sb['k2_shape']}), {DP_STEPS} steps: ranks' params and "
+        f"metrics bit-identical; against the one-process step on the whole batch: "
+        + ("params bit-equal" if equal else
+           f"worst leaf {worst:.3g} of its move (gate {SPMD_PARAM_TOL}), {share:.6f} of the "
+           "values bit-equal")
+        + f", worst metric {worst_m:.3g} relative (gate {SPMD_TOL}); loss "
+        f"{sb['loss'][0]:.5f} / {sb['loss'][1]:.5f}; K1 and K2 held to their plain "
+        f"versions in each rank; launches {[g['launches'] for g in got]}")
+    s32 = sb["float32"]
+    log(f"spmd (b) float32: the same {DP_STEPS} steps in float32 (plain conv1) on both "
+        f"ranks: ranks bit-identical; against the one-process float32 step: worst leaf "
+        f"{s32['worst']:.3g} of its move (gate {DP_TOL}), {s32['bit_equal_share']:.6f} of "
+        f"the values bit-equal, worst metric {s32['worst_metric']:.3g} relative (gate "
+        f"{SPMD_TOL32}); loss {s32['loss'][0]:.6f} / {s32['loss'][1]:.6f}")
+    log(f"spmd (b) memory: {mem_line}; the one-process step peak "
+        f"{gib(sa['mem']['peak']):.3f} GiB ({gib(sa['mem']['peak'] - sa['mem']['before']):.3f}"
+        f" above its {gib(sa['mem']['before']):.3f})")
+    log(f"spmd (b) memory, the one-process step (allocator history, an untimed step): "
+        f"{sites_text(sa['mem_sites'])}")
+    for r, ms_ in enumerate(sb["mem_sites"]):
+        log(f"spmd (b) memory, rank {r} (allocator history, its first step): "
+            f"{sites_text(ms_)}")
+    log(f"spmd (b) time: rank step ms {[[round(t, 1) for t in g['ms']] for g in got]} "
+        f"(the one-process step {sa['plain_ms']:.1f} ms, median of 3); rank 0's second "
+        f"step: halo {sp.get('halo', 0.0):.2f} ms for {sb['stats']['halo_calls']} "
+        f"exchanges of {sb['stats']['halo_bytes'] / 1e6:.2f} MB, gather "
+        f"{sp.get('gather', 0.0):.2f} ms of {sb['stats']['gather_bytes'] / 1e6:.2f} MB, "
+        f"batch leaves {sp.get('batch', 0.0):.2f} ms, all-reduce "
+        f"{sp.get('all_reduce', 0.0):.2f} ms; split "
+        f"{json.dumps({k: round(v, 2) for k, v in sp.items()})}; the ranks' steps took "
+        f"{ranks_s:.1f} s after (a)'s {t_a:.1f} s")
+    del got, ref, params, case
+    torch.cuda.empty_cache()
+
+    # -- (e) the s2d conv1 route ------------------------------------------------------
+    s2d_deploy(dev, counts, zero_counts, out)
+
+    # -- (c) no jax, mscnn_tpu or cv2 -------------------------------------------------
+    if reference_modules():
+        fail(f"spmd: {reference_modules()[:5]} imported")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"spmd (c): no jax, mscnn_tpu or cv2 module in this process or either rank; "
+        f"phase 22 took {out['seconds']:.1f} s"
+        + (" (over its 60 s)" if out["seconds"] > 60 else ""))
     return out
 
 
@@ -4813,6 +5413,12 @@ def main():
     conv1_min_share = min(conv1_min_share, dpr["conv1_share"])
     int8_max_err = max(int8_max_err, dpr["int8_err"])
 
+    # -- 22. the data x space step: (1, 1) bit-equal, two ranks' bands, s2d ----
+    spr = spmd_phase(dev, counts, zero_counts, rec_into)
+    nms_max_err = max(nms_max_err, spr["nms_err"])
+    conv1_max_err = max(conv1_max_err, spr["conv1_err"])
+    conv1_min_share = min(conv1_min_share, spr["conv1_share"])
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -4891,6 +5497,21 @@ def main():
         "process: " + ("bit-equal" if db["bit_equal"] else f"worst {db['worst']:.3g}")
         + f"; phase 21 {dpr['seconds']:.1f} s")
 
+    sa, sb = spr["a"], spr["b"]
+    log(f"spmd on {card}: one-process flagship step {sa['plain_ms']:.1f} ms, peak "
+        f"{gib(sa['mem']['peak']):.3f} GiB; two gloo ranks of (1, 2): step ms "
+        f"{[[round(t, 1) for t in m] for m in sb['ms']]}, peak GiB "
+        f"{[round(gib(m['peak']), 3) for m in sb['mem']]}, halo "
+        f"{sb['split'][0].get('halo', 0.0):.2f} ms, gather "
+        f"{sb['split'][0].get('gather', 0.0):.2f} ms, all-reduce "
+        f"{sb['split'][0].get('all_reduce', 0.0):.2f} ms; s2d deploy forward "
+        f"{spr['s2d']['ms']['s2d']:.3f} ms against plain conv1 "
+        f"{spr['s2d']['ms']['plain']:.3f}; phase 22 {spr['seconds']:.1f} s")
+
+    def spmd_launches(k):
+        """The kernel's launches in each run of phase 22."""
+        return {tag: v[k] for tag, v in spr["launches"].items()}
+
     def dp_launches(k):
         """The kernel's launches in each run of phase 21."""
         return {tag: v[k] for tag, v in dpr["launches"].items()}
@@ -4931,6 +5552,7 @@ def main():
          "launches_caffe_databases": cdb["launches"]["nms"],
          "launches_tools": tl["launches"]["nms"],
          "launches_data_parallel": dp_launches("nms"),
+         "launches_spmd": spmd_launches("nms"),
          "op": "mscnn::nms_xywh", "op_overhead_us": ep["op_overhead_us"]["nms_xywh"],
          "train": {tag: {"shape": [BATCH, fcfg.proposal.max_nms_num,
                                    fcfg.proposal.max_out], "kept": v[4],
@@ -4958,6 +5580,7 @@ def main():
          "launches_caffe_databases": cdb["launches"]["conv1_pool"],
          "launches_tools": tl["launches"]["conv1_pool"],
          "launches_data_parallel": dp_launches("conv1_pool"),
+         "launches_spmd": spmd_launches("conv1_pool"),
          "op": "mscnn::conv1_pool", "op_overhead_us": ep["op_overhead_us"]["conv1_pool"],
          "train_entry_min_bit_equal_share": tr["k2_share"],
          "launches_train_pallas_tiny": k2_train_launches,
@@ -4985,6 +5608,7 @@ def main():
          "launches_caffe_databases": cdb["launches"]["int8_gemm"],
          "launches_tools": tl["launches"]["int8_gemm"],
          "launches_data_parallel": dp_launches("int8_gemm"),
+         "launches_spmd": spmd_launches("int8_gemm"),
          "op": "mscnn::int8_conv", "op_overhead_us": ep["op_overhead_us"]["int8_conv"],
          "per_step": "sum of the 17 launches of one int8 deploy step; no one "
                      "PyTorch call computes an int8 conv with its epilogue, "
@@ -4998,6 +5622,7 @@ def main():
          "launches_caffe_databases": cdb["launches"]["conv1_v5"],
          "launches_tools": tl["launches"]["conv1_v5"],
          "launches_data_parallel": dp_launches("conv1_v5"),
+         "launches_spmd": spmd_launches("conv1_v5"),
          "min_bit_equal_share": k3_min_share,
          "ms": k3["1x768x2560"]["kernel"][f"{default_mode}_{th0}x{tq0}"],
          "plain_ms": k3["1x768x2560"]["plain"][default_mode],
@@ -5027,5 +5652,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         dp_rank_main(sys.argv[1:])
+    elif sys.argv[1:2] == ["--spmd-rank"]:
+        spmd_rank_main(sys.argv[1:])
     else:
         main()

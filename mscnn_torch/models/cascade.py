@@ -235,7 +235,7 @@ def loss_fn(params, batch, ccfg: CascadeConfig, tspec, *, roi_batch: int = 256,
     (marks "rasterize", "forward_losses", "propose", "stage_<k>").
     Returns (loss, metrics), 0-d tensors."""
     cfg = ccfg.base
-    B = batch["image"].shape[0]
+    B = T.batch_size(batch)
     if draws is None:
         if generator is None:
             raise ValueError("loss_fn needs draws= or generator=")

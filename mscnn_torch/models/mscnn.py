@@ -10,9 +10,11 @@ and ROI head (`int8_trunk`, `int8_roi_head`: `_cb(..., int8=)`, the int8
 branches of `roi_head` and the `captures` that calibrate them; see
 `ops/quant.py`) and the training-time `roi_head` (dropout after fc6's
 ReLU, its keep mask passed in), and the ROIAlign pools
-(`cfg.roi_align`, the cascade's widerface variant). Not ported yet (it
-raises NotImplementedError where the JAX function would take it): the
-`s2d_conv1` rewrite.
+(`cfg.roi_align`, the cascade's widerface variant), and the
+space-to-depth conv1 block (`cfg.s2d_conv1`, `ops/s2d.py`), where the JAX
+trunk takes it (no fused kernel, even H and W). The trunk can run on a band
+of the images' rows (the band `parallel/halo.py::banding` activates), for
+the data x space step of `parallel/spmd.py`.
 
 Activations are NHWC at every function; params are {layer: {"w", "b"}}
 in the port's layouts (OIHW conv kernels, [out, in] dense weights; see
@@ -25,6 +27,7 @@ kernel for CUDA tensors (`ops/nms.py`). A layer with int8 leaves
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -35,7 +38,9 @@ from mscnn_torch.ops import conv as C
 from mscnn_torch.ops import nms as nms_ops
 from mscnn_torch.ops import quant as Q
 from mscnn_torch.ops import roi as roi_ops
+from mscnn_torch.ops import s2d
 from mscnn_torch.ops.kernels import conv1_kernel
+from mscnn_torch.parallel import halo
 from mscnn_torch.utils import fillers
 
 # VGG16 trunk: (name, out_channels); pools sit between the blocks.
@@ -341,34 +346,67 @@ def trunk(params, x, cfg: MSCNNConfig):
     """VGG16 trunk + the config's extra tail layers.
     x: [B, H, W, 3] (BGR, mean-subtracted). Returns the feature dict.
     In the int8 trunk each int8 conv also writes the int8 inputs of the
-    convs it feeds (`int8_feeds`), so only the first one quantizes."""
+    convs it feeds (`int8_feeds`), so only the first one quantizes.
+
+    Inside `parallel/halo.py::banding` (the data x space step), x is a
+    rank's images and rows: every conv and pool of the band's region runs
+    on the band with its halo exchanges, and the region's last conv
+    (conv4_3) is gathered whole, so that the features from there on are
+    the whole batch's (the ones before it are this rank's band). Outside
+    it the trunk is the whole-image trunk."""
+    band = halo.current()
     x = x.to(cfg.cdtype())
     feats = {}
-    feeds = int8_feeds(params, cfg)
+    # the int8 copies a producer writes are whole-map tensors: a band's
+    # layers quantize their own inputs (the same values)
+    feeds = int8_feeds(params, cfg) if band is None else {}
     xq = {}   # consumer -> its int8 input, written by its producer
 
-    def conv(lname, inp):
-        y, copies = _cb(params, lname, inp, int8=cfg.int8_trunk,
+    def conv(lname, inp, relu=True):
+        y, copies = _cb(params, lname, inp, relu=relu, int8=cfg.int8_trunk,
                         xq=xq.pop(lname, None), feeds=feeds.get(lname, ()))
         for (cons, _), q in zip(feeds.get(lname, ()), copies):
             xq[cons] = q
         return y
 
+    h, w = (band.plan.height if band is not None else x.shape[1]), x.shape[2]
     blocks = list(VGG_BLOCKS)
+    block = None
     if cfg.pallas_conv1:
-        x = conv1_kernel.conv1_pool_fused(
-            x, params["conv1_1"]["w"], params["conv1_1"]["b"],
-            params["conv1_2"]["w"], params["conv1_2"]["b"]).to(cfg.cdtype())
+        def block(t):
+            return conv1_kernel.conv1_pool_fused(
+                t, params["conv1_1"]["w"], params["conv1_1"]["b"],
+                params["conv1_2"]["w"], params["conv1_2"]["b"]).to(cfg.cdtype())
+    elif cfg.s2d_conv1 and h % 2 == 0 and w % 2 == 0:
+        def block(t):
+            return s2d.conv1_block_s2d(
+                t, params["conv1_1"]["w"], params["conv1_1"]["b"],
+                params["conv1_2"]["w"], params["conv1_2"]["b"])
+    level = 0   # the pools behind x
+    if block is not None:
+        x = block(x) if band is None else band.conv1_block(block, x)
         feats["pool1"] = x
         blocks = blocks[2:]  # conv1_1 / conv1_2 consumed
-    elif cfg.s2d_conv1 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
-        raise NotImplementedError("s2d_conv1 is not ported yet")
+        level = 1
+    haloed = False   # x carries the halo its conv reads (on a band)
     for lname, _ in blocks:
-        x = conv(lname, x)
-        feats[lname] = x
+        if band is None:
+            x = conv(lname, x)
+            feats[lname] = x
+        else:
+            keep = lname not in POOL_AFTER   # another conv reads x
+            x = band.conv(functools.partial(conv, lname, relu=False), x, level,
+                          haloed=haloed, keep_halo=keep)
+            haloed = keep
+            feats[lname] = band.crop(x, level) if keep else x
+            if lname == band.plan.region[-1]:
+                x = feats[lname] = band.gather(x, level)   # the region ends
+                band = None
         if lname in POOL_AFTER:
-            x = C.max_pool(x, 2, 2)
+            x = C.max_pool(x, 2, 2) if band is None else \
+                band.pool(x, level, C.max_pool)
             feats[POOL_AFTER[lname]] = x
+            level += 1
     for spec in cfg.extra_layers:
         if spec[0] == "conv":
             _, lname, source, _, _ = spec

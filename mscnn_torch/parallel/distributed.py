@@ -10,6 +10,7 @@ place of the other.
 
 The collectives the steps and the loop use are here too:
 `all_reduce_mean_` (the gradients and metrics, as JAX's `pmean`),
+`all_reduce_sum_` (the data x space step's, `parallel/spmd.py`),
 `broadcast_` (the initial state from rank 0), `agree` (a max over the
 ranks of a few host flags, on a gloo group, so that a signal seen by one
 rank acts on every rank at the same iteration) and `barrier`.
@@ -114,11 +115,9 @@ def shard_window_file(images: Sequence, process_id: Optional[int] = None,
     return [im for i, im in enumerate(images) if i % n == pid]
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Replace each tensor by its mean over the ranks, in place: one flat
-    buffer a dtype, summed by one all-reduce and divided by the world size
-    (JAX's pmean: psum / n). On NCCL the reduction is enqueued on the
-    current stream and makes no host sync."""
+def _all_reduce_(tensors: Sequence[torch.Tensor], divide: bool) -> None:
+    """Sum each tensor over the ranks in place, through one flat buffer a
+    dtype; with `divide`, then divide by the world size."""
     if not dist.is_initialized() or not tensors:
         return
     n = dist.get_world_size()
@@ -128,12 +127,27 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
     for group in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in group])
         dist.all_reduce(flat)
-        flat.div_(n)
+        if divide:
+            flat.div_(n)
         off = 0
         for t in group:
             k = t.numel()
             t.copy_(flat[off:off + k].view_as(t))
             off += k
+
+
+def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
+    """Replace each tensor by its mean over the ranks, in place: one flat
+    buffer a dtype, summed by one all-reduce and divided by the world size
+    (JAX's pmean: psum / n). On NCCL the reduction is enqueued on the
+    current stream and makes no host sync."""
+    _all_reduce_(tensors, divide=True)
+
+
+def all_reduce_sum_(tensors: Sequence[torch.Tensor]) -> None:
+    """Replace each tensor by its sum over the ranks, in place (JAX's psum;
+    one flat buffer a dtype, as `all_reduce_mean_`)."""
+    _all_reduce_(tensors, divide=False)
 
 
 def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:

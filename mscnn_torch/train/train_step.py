@@ -167,11 +167,12 @@ def sync_input_norm(tspec: TrainSpec, aug) -> TrainSpec:
                                input_scale=float(aug.scale))
 
 
-def normalize_uint8_batch(batch, tspec: TrainSpec):
+def normalize_uint8_batch(batch, tspec: TrainSpec, row0: int = 0):
     """Image normalisation for uint8 batches on their device: (img - mean)
     * scale inside the pasted copy region, zero outside it (the reference
     zero-fills the batch blob), so the result equals the float loader
-    path's. A float batch is returned as it is."""
+    path's. A float batch is returned as it is. row0: the image row the
+    batch's first row is (a band of the images, `parallel/spmd.py`)."""
     img = batch.get("image")
     if img is None or img.dtype != torch.uint8:
         return batch
@@ -182,7 +183,7 @@ def normalize_uint8_batch(batch, tspec: TrainSpec):
     x = (img.float() - mean) * tspec.input_scale
     cr = batch["copy_region"]          # [B, 4] = (src_x, src_y, w, h)
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
-    ys = torch.arange(h, dtype=torch.float32, device=dev)[None, :]
+    ys = torch.arange(row0, row0 + h, dtype=torch.float32, device=dev)[None, :]
     mx = (xs >= cr[:, 0:1]) & (xs < cr[:, 0:1] + cr[:, 2:3])
     my = (ys >= cr[:, 1:2]) & (ys < cr[:, 1:2] + cr[:, 3:4])
     mask = (my[:, :, None] & mx[:, None, :])[..., None]
@@ -195,6 +196,12 @@ def _flatten_gts(gt_boxes, gt_valid):
     img = (torch.arange(b * g, device=gt_boxes.device) // g).float()
     flat = torch.cat([img[:, None], gt_boxes.reshape(b * g, 7)[:, 1:]], -1)
     return flat, gt_valid.reshape(b * g)
+
+
+def batch_size(batch) -> int:
+    """The batch's images: the leading axis of its gt boxes (its "image"
+    may be a band of some of them, `parallel/spmd.py`)."""
+    return batch["gt_boxes"].shape[0]
 
 
 def loss_fn(params, batch, cfg: M.MSCNNConfig, tspec: TrainSpec, *,
@@ -216,7 +223,7 @@ def loss_fn(params, batch, cfg: M.MSCNNConfig, tspec: TrainSpec, *,
     "propose_sampling", "roi_head"), for a timing split. Returns (loss,
     metrics), 0-d tensors.
     """
-    B = batch["image"].shape[0]
+    B = batch_size(batch)
     if draws is None:
         if generator is None:
             raise ValueError("loss_fn needs draws= or generator=")

@@ -220,13 +220,19 @@ def test_writers_match_jax(tmp_path):
 
 
 def test_unported_branches_raise(setup):
-    # the int8 branches are ported (tests/test_torch_quant.py), and ROIAlign
-    # (the cascade's, held to JAX in tests/test_torch_cascade.py) runs
+    # every branch is ported now: the int8 ones (tests/test_torch_quant.py),
+    # ROIAlign (the cascade's, held to JAX in tests/test_torch_cascade.py)
+    # and the s2d conv1 (tests/test_torch_s2d.py), whose trunk is the plain
+    # trunk's up to float reassociation (JAX's tests/test_s2d.py bound)
     cfg = setup["cfg_t"]
     x = t(setup["x"])
-    for field in ("s2d_conv1",):
-        with pytest.raises(NotImplementedError):
-            TM.trunk(setup["pt"], x, dataclasses.replace(cfg, **{field: True}))
+    with torch.inference_mode():
+        fast = TM.trunk(setup["pt"], x, dataclasses.replace(cfg, s2d_conv1=True))
+    for k, want in setup["feats"].items():
+        if k in ("conv1_1", "conv1_2"):   # consumed inside the s2d block
+            assert k not in fast
+            continue
+        np.testing.assert_allclose(fast[k].numpy(), want, atol=3e-3, err_msg=k)
     out = setup["out"]
     acfg = dataclasses.replace(cfg, roi_align=True)
     grid = {k: v for k, v in setup["pt"].items() if not k.startswith(("roi_c1", "fc6"))}
