@@ -303,8 +303,25 @@ Phases (any failure exits non-zero, before the result line):
                 with `--conv1 s2d` against the plain conv1: pool1 by
                 `conv1_compare`, conv4_3 within 2e-2 of max|ref|, ms of
                 each; (c) no jax, mscnn_tpu or cv2 module in this process
-                or either rank. No jax or mscnn_tpu module is loaded after
-                any phase.
+                or either rank;
+ 23. examples -- every driver of mscnn_torch/examples/ that the JAX
+                package's examples/ has (the flagship stage splits in bf16,
+                once a conv1 route read from MSCNN_CONV1, and int8, the
+                batch and ROI-chunk sweeps, the ROI stage, its batch and
+                its gather variants, the training step and its parts, the
+                cascade's ROI chunks, the widerface stages and budget)
+                through `main([...])` at full width with --iters 1,
+                `synthetic_e2e` at 300 iterations and 8 scenes, and
+                `train_mscnn.sh` through bash on a tiny model directory
+                (`--device cuda --bf16 --conv1 auto --no-native`, each
+                `cli train` a child process): each run's launches read from that run
+                alone, every K1, K2 and K4 launch held at once to its plain
+                version on its own tensors, the drivers' own checks (the
+                pre-top-k propose, the merged heads, the ROI variants, the
+                per-image gathers and the chunked heads equal to
+                production's; finite APs; stage 2 warm-started from stage
+                1's last snapshot), under 240 s. No jax or mscnn_tpu module
+                is loaded after any phase.
 
 The lines before the last give the card's name and power limit
 (nvidia-smi) and one JSON object listing every kernel, each with its
@@ -332,6 +349,7 @@ import time
 
 BATCH = 4
 SEED = 0
+REPO = os.path.dirname(os.path.abspath(__file__))
 MEAN = (104.0, 117.0, 123.0)
 # examples/profile_int8_mxu.py:97-99 (name, M, K, F)
 K4_PROBES = (("im2col_conv2_1", 491520, 576, 128), ("tapdot_c64", 491520, 64, 128),
@@ -4275,6 +4293,325 @@ def spmd_phase(dev, counts, zero_counts, rec):
     return out
 
 
+# -- phase 23: the example drivers ---------------------------------------------
+
+# (driver, its environment, its arguments, the kernels its path launches:
+# each at least once, every other kernel never); profile_stages_8s768 runs
+# once a conv1 route, which it reads from MSCNN_CONV1 as the JAX script does
+EXAMPLE_RUNS = (
+    ("profile_stages_8s768", {}, ["--iters", "1"], ("nms", "conv1_pool")),
+    ("profile_stages_8s768", {"MSCNN_CONV1": "plain"}, ["--iters", "1"], ("nms",)),
+    ("profile_stages_8s768", {"MSCNN_CONV1": "s2d"}, ["--iters", "1"], ("nms",)),
+    ("profile_stages_int8", {}, ["--iters", "1"], ("nms", "int8_gemm")),
+    ("profile_int8", {}, ["--iters", "1"], ("nms", "conv1_pool", "int8_gemm")),
+    ("profile_batch_stages", {}, ["--iters", "1"], ("nms", "conv1_pool", "int8_gemm")),
+    ("profile_batch_scaling", {}, ["--iters", "1"], ("nms", "conv1_pool", "int8_gemm")),
+    ("profile_flagship_roi_chunk", {}, ["--iters", "1"], ("nms", "int8_gemm")),
+    ("profile_roi_stage", {}, ["--iters", "1"], ()),
+    ("profile_roi_batch", {}, ["--iters", "1"], ()),
+    ("profile_roi_variants", {}, ["--iters", "1"], ()),
+    ("profile_train_step", {}, ["--iters", "1"], ("nms",)),
+    ("profile_train_parts", {}, ["--iters", "1"], ("nms",)),
+    ("synthetic_e2e", {}, ["--iters", "300", "--eval-images", "8"],
+     ("nms", "int8_gemm")),
+    ("profile_cascade_roi_chunk", {}, ["--iters", "1"], ("nms",)),
+    ("profile_widerface_stages", {}, ["--iters", "1"], ("nms",)),
+    ("profile_widerface_budget", {}, ["--iters", "1"], ("nms",)),
+)
+EXAMPLES_MAX_S = 240.0
+KERNEL_KEYS = ("nms", "conv1_pool", "int8_gemm", "conv1_v5")
+
+
+class InlineHold:
+    """Wraps the CUDA launch functions of K1, K2 and K4 so that each launch
+    is held at once to its plain version on its own tensors
+    (`hold_to_plain`: K1 and K4 equal, K2 by `conv1_compare`) and nothing
+    is kept: a driver's loops launch the kernels hundreds of times at full
+    width. The errors fold into `out` as `hold_to_plain` folds them; the
+    kernels' launch counters still count each launch once (the plain
+    versions launch nothing)."""
+
+    def __init__(self, out):
+        from mscnn_torch.ops.kernels import conv1_kernel as CK
+        from mscnn_torch.ops.kernels import int8_kernel as IK
+        from mscnn_torch.ops.kernels import nms_kernel as NK
+        self.out, self.tag = out, ""
+        self.sites = ((NK, "nms_xywh_cuda", "nms"), (CK, "conv1_pool_cuda", "conv1"),
+                      (IK, "int8_conv_cuda", "int8"))
+        self.orig = {key: getattr(mod, name) for mod, name, key in self.sites}
+
+    def _wrap(self, key):
+        fn = self.orig[key]
+
+        def held(*a, **kw):
+            got = fn(*a, **kw)
+            sink = {"nms": [], "conv1": [], "int8": []}
+            sink[key].append((a, got) if key == "conv1" else (a, kw, got))
+            hold_to_plain(sink, self.tag, self.out)
+            return got
+        return held
+
+    def __call__(self, on, tag=""):
+        self.tag = tag
+        for mod, name, key in self.sites:
+            setattr(mod, name, self._wrap(key) if on else self.orig[key])
+
+
+def tiny_model_dir(root):
+    """A model directory for train_mscnn.sh: 4 seeded 64x96 PPM scenes with
+    a bright box each and their window file, and trainval_1st /
+    trainval_2nd / solver_1st / solver_2nd of zoo.tiny_test_config()
+    (config/zoo_export.py; batch 2, 2 iterations a stage, snapshot
+    prefixes s1 / s2 in the directory)."""
+    import numpy as np
+
+    from mscnn_torch.config import zoo_export as ZE
+    from mscnn_torch.data import window_file as W
+    from mscnn_torch.data.augment import AugmentSpec
+    from mscnn_torch.data.pipeline import DatasetSpec
+    from mscnn_torch.models import zoo
+    from mscnn_torch.train import loop as LP
+    from mscnn_torch.train.solver import SolverSpec
+    from mscnn_torch.train.train_step import TrainSpec
+
+    cfg = zoo.tiny_test_config()
+    h, w = cfg.input_hw
+    rng = np.random.RandomState(SEED)
+    images = []
+    for i in range(4):
+        img = rng.randint(0, 120, (h, w, 3)).astype(np.uint8)
+        img[20:44, 30:58] = 240
+        path = os.path.join(root, f"im_{i}.ppm")
+        write_ppm(path, img)
+        images.append(W.WindowImage(path, 3, h, w, np.array([[1, 0, 30, 20, 58, 44]],
+                                                            np.float32),
+                                    np.zeros((0, 4), np.float32)))
+    wf = os.path.join(root, "windows.txt")
+    W.write_window_file(wf, images)
+    aug = AugmentSpec(template_hw=cfg.input_hw)
+    sspec = SolverSpec(type="sgd", base_lr=5e-5, lr_policy="step", gamma=0.1,
+                       stepsize=100, max_iter=2, momentum=0.9, weight_decay=5e-4)
+    for stage, tag in ((1, "1st"), (2, "2nd")):
+        tspec = TrainSpec(stage=2) if stage == 2 else \
+            TrainSpec(stage=1, sample_mode="random", roi_bg_thr_hg=0.5)
+        net = os.path.join(root, f"trainval_{tag}.prototxt")
+        with open(net, "w") as f:
+            f.write(ZE.trainval_prototxt(cfg, tspec, aug, DatasetSpec(batch_size=2),
+                                         source=wf))
+        lspec = LP.LoopSpec(max_iter=2, display=1,
+                            snapshot_prefix=os.path.join(root, f"s{stage}"))
+        with open(os.path.join(root, f"solver_{tag}.prototxt"), "w") as f:
+            f.write(ZE.solver_prototxt(sspec, lspec, net=net, random_seed=7))
+
+
+def cli_child_main(argv):
+    """One `cli train` call of train_mscnn.sh, run as `chip_smoke.py
+    --cli-child OUT -m mscnn_torch.cli train ...` (MSCNN_PYTHON): the
+    kernels (built by the parent) launched through `InlineHold`, and a
+    JSON record of the call (its arguments, exit code, launches, errors,
+    whether jax, mscnn_tpu or cv2 was loaded) appended to OUT/calls.jsonl."""
+    out_dir = argv[1]
+    if argv[2:4] != ["-m", "mscnn_torch.cli"]:
+        fail(f"--cli-child runs `-m mscnn_torch.cli ...`, not {argv[2:]}")
+    import torch
+
+    from mscnn_torch import cli
+    from mscnn_torch.ops.kernels import build
+    from mscnn_torch.ops.kernels import conv1_kernel as CK
+    from mscnn_torch.ops.kernels import int8_kernel as IK
+    from mscnn_torch.ops.kernels import nms_kernel as NK
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    errs = {"nms_err": 0.0, "conv1_err": 0.0, "conv1_share": 1.0, "int8_err": 0.0}
+    hold = InlineHold(errs)
+    NK.launches = CK.launches = IK.launches = 0
+    hold(True, "examples: train_mscnn.sh")
+    try:
+        rc = cli.main(argv[4:])
+    finally:
+        hold(False)
+    torch.cuda.synchronize()
+    rec = {"argv": argv[4:], "rc": rc, "errs": errs,
+           "launches": {"nms": NK.launches, "conv1_pool": CK.launches,
+                        "int8_gemm": IK.launches},
+           "foreign": sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "mscnn_tpu", "cv2"))}
+    with open(os.path.join(out_dir, "calls.jsonl"), "a") as f:
+        f.write(json.dumps(rec) + "\n")
+    sys.exit(rc)
+
+
+def examples_phase(dev, counts, zero_counts):
+    """Phase 23: every example driver of `mscnn_torch/examples/` through its
+    `main([...])` at full width and a short run (EXAMPLE_RUNS), then
+    `train_mscnn.sh` through bash on a tiny model directory (`train_sh`).
+    Each run's launches are read from that run alone and every launch is
+    held to its plain version at once (`InlineHold`); the drivers' own
+    checks must hold. Returns the phase's figures."""
+    import importlib
+
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "results": {}, "seconds_by_run": {}, "nms_err": 0.0,
+           "conv1_err": 0.0, "conv1_share": 1.0, "int8_err": 0.0}
+    hold = InlineHold(out)
+    for name, env, argv, expect in EXAMPLE_RUNS:
+        mod = importlib.import_module(f"mscnn_torch.examples.{name}")
+        tag = " ".join([*(f"{k}={v}" for k, v in env.items()), name])
+        t0 = time.perf_counter()
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        zero_counts()
+        hold(True, f"examples: {tag}")
+        try:
+            res = mod.main(argv)
+        finally:
+            hold(False)
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        torch.cuda.synchronize()
+        got = counts()
+        out["seconds_by_run"][tag] = time.perf_counter() - t0
+        out["launches"][tag] = got
+        out["results"][tag] = res
+        check_launched(tag, got, expect)
+        bad = examples_check(name, res, env)
+        if bad:
+            fail(f"examples: {tag}: {bad}")
+        log(f"examples: {tag} {' '.join(argv)}: launches {got}, each held to its plain "
+            f"version; its checks hold; {out['seconds_by_run'][tag]:.1f} s")
+        del res
+        torch.cuda.empty_cache()
+
+    train_sh(out)
+    if jax_loaded() or "cv2" in sys.modules:
+        fail("the examples phase imported jax, mscnn_tpu or cv2")
+    out["seconds"] = time.perf_counter() - t_phase
+    if out["seconds"] > EXAMPLES_MAX_S:
+        fail(f"examples: phase 23 took {out['seconds']:.1f} s ({EXAMPLES_MAX_S:.0f} s "
+             "at most)")
+    log(f"examples: no jax, mscnn_tpu or cv2 module loaded; phase 23 took "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def check_launched(tag, got, expect):
+    """Fail unless the run launched each kernel in `expect` and no other."""
+    for k in KERNEL_KEYS:
+        if (got[k] > 0) != (k in expect):
+            fail(f"examples: {tag} launched {got}, expected exactly {list(expect)}")
+
+
+def train_sh(out):
+    """train_mscnn.sh through bash on `tiny_model_dir` with `--device cuda
+    --bf16 --conv1 auto --no-native` (the one-thread input pipeline: the
+    worker loader's processes would start for two iterations): each `cli
+    train` a child process
+    (`cli_child_main`) that holds its own launches; stage 2's `--weights`
+    must be stage 1's last snapshot. Folds the children's errors and
+    launches into `out`."""
+    from mscnn_torch.io import checkpoint as CKPT
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mscnn_train_sh_")
+    try:
+        tiny_model_dir(root)
+        script = os.path.join(REPO, "mscnn_torch", "examples", "train_mscnn.sh")
+        env = {**os.environ, "PYTHONPATH": REPO,
+               "MSCNN_PYTHON": f"{sys.executable} {os.path.abspath(__file__)} "
+                               f"--cli-child {root}"}
+        opts = ["--device", "cuda", "--bf16", "--conv1", "auto", "--no-native"]
+        run = subprocess.run(["bash", script, root, *opts], env=env, capture_output=True,
+                             text=True, timeout=300)
+        if run.returncode != 0:
+            fail(f"examples: train_mscnn.sh exited {run.returncode}: "
+                 f"{(run.stdout + run.stderr)[-2000:]}")
+        with open(os.path.join(root, "calls.jsonl")) as f:
+            calls = [json.loads(line) for line in f]
+        snap1 = CKPT.latest_snapshot(os.path.join(root, "s1"))
+        want = [["train", "--solver", "solver_1st.prototxt", *opts],
+                ["train", "--solver", "solver_2nd.prototxt", "--weights", snap1, *opts]]
+        if [c["argv"] for c in calls] != want or snap1 is None:
+            fail(f"examples: train_mscnn.sh ran {[c['argv'] for c in calls]}, expected "
+                 f"stage 2 warm-started from stage 1's last snapshot {snap1}")
+        for i, c in enumerate(calls):
+            if c["rc"] != 0 or c["foreign"]:
+                fail(f"examples: train_mscnn.sh call {i + 1}: rc {c['rc']}, loaded "
+                     f"{c['foreign']}")
+            for k in ("nms_err", "conv1_err", "int8_err"):
+                out[k] = max(out[k], c["errs"][k])
+            out["conv1_share"] = min(out["conv1_share"], c["errs"]["conv1_share"])
+        sh = {k: sum(c["launches"][k] for c in calls) for k in ("nms", "conv1_pool",
+                                                                "int8_gemm")}
+        sh["conv1_v5"] = 0
+        check_launched("train_mscnn.sh", sh, ("nms", "conv1_pool"))
+        out["launches"]["train_mscnn.sh"] = sh
+        out["launches_sh_calls"] = [c["launches"] for c in calls]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds_by_run"]["train_mscnn.sh"] = time.perf_counter() - t0
+    log(f"examples: train_mscnn.sh {' '.join(opts)}: stage 2 "
+        f"warm-started from {os.path.basename(snap1)}; launches a call "
+        f"{out['launches_sh_calls']}, each held to its plain version in its process; "
+        f"{out['seconds_by_run']['train_mscnn.sh']:.1f} s")
+
+
+def examples_check(name, res, env):
+    """The driver's own checks on its result: a message where one fails."""
+    def finite(*keys):
+        return all(isinstance(res.get(k), (int, float)) and math.isfinite(res[k])
+                   for k in keys)
+
+    if name == "profile_stages_8s768":
+        if res["conv1"] != env.get("MSCNN_CONV1", "pallas"):
+            return f"conv1 routed {res['conv1']!r} under {env}"
+        if not finite("full_ms", "full_mfu") or not 0 < res["full_mfu"] < 1:
+            return f"full_ms {res.get('full_ms')}, full_mfu {res.get('full_mfu')}"
+    elif name == "profile_widerface_stages":
+        if res["prebranch_equal"] is not True:
+            return "the pre-top-k propose differs from production's"
+    elif name == "profile_widerface_budget":
+        if res["merged_max_abs_diff_f32"] != 0.0:
+            return f"merged heads differ in float32 by {res['merged_max_abs_diff_f32']}"
+        err, ref, share = (res["merged_max_abs_diff"], res["merged_max_abs_ref"],
+                           res["merged_bit_equal_share"])
+        ulps = CONV1_MAX_ULPS * 2.0 ** (math.floor(math.log2(ref)) - 7) if ref > 0 else 0.0
+        if not (err <= 0.02 * ref and err <= ulps and share >= CONV1_MIN_SHARE):
+            return (f"merged heads differ in bf16 by {err} (max|ref| {ref}, bit-equal "
+                    f"share {share}): outside K2's gate")
+    elif name == "profile_roi_variants":
+        errs = {k: v for k, v in res.items() if k.endswith("_maxerr")}
+        if len(errs) != 3 or any(v != 0.0 for v in errs.values()):
+            return f"ROI variants differ from production: {errs}"
+    elif name == "profile_roi_batch":
+        if not all(v["per_image_bit_exact"] is True
+                   for k, v in res.items() if k.startswith("b")):
+            return "the per-image gathers differ from the batched ones"
+    elif name == "profile_roi_stage":
+        if res["fc_head_equal"] is not True:
+            return "the fc head on the pools differs from M.roi_head"
+    elif name == "profile_cascade_roi_chunk":
+        if not all(res["chunk_equal"].values()):
+            return f"a chunked cascade differs from the unsplit one: {res['chunk_equal']}"
+    elif name == "profile_flagship_roi_chunk":
+        if not all(r["equal_to_unsplit"] for r in res["runs"]):
+            return "a chunked ROI head differs from the unsplit one"
+    elif name == "synthetic_e2e":
+        aps = list(res["ap"].values()) + list(res["ap_int8"].values())
+        if len(aps) != 6 or not all(math.isfinite(a) for a in aps):
+            return f"AP not finite: {res['ap']}, int8 {res['ap_int8']}"
+    elif name == "profile_train_step":
+        if not finite("fwd_loss_ms", "fwd_bwd_ms", "full_step_ms", "pruning_saving_ms"):
+            return f"times not finite: {res}"
+    return None
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5419,6 +5756,13 @@ def main():
     conv1_max_err = max(conv1_max_err, spr["conv1_err"])
     conv1_min_share = min(conv1_min_share, spr["conv1_share"])
 
+    # -- 23. the example drivers and train_mscnn.sh ------------------------------
+    exr = examples_phase(dev, counts, zero_counts)
+    nms_max_err = max(nms_max_err, exr["nms_err"])
+    conv1_max_err = max(conv1_max_err, exr["conv1_err"])
+    conv1_min_share = min(conv1_min_share, exr["conv1_share"])
+    int8_max_err = max(int8_max_err, exr["int8_err"])
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -5508,6 +5852,26 @@ def main():
         f"{spr['s2d']['ms']['s2d']:.3f} ms against plain conv1 "
         f"{spr['s2d']['ms']['plain']:.3f}; phase 22 {spr['seconds']:.1f} s")
 
+    ex = exr["results"]
+    log(f"examples on {card}: stages 8s768 (b1, K2) trunk / heads / propose / full "
+        + " / ".join(f"{ex['profile_stages_8s768'][f'{k}_ms']:.2f}" for k in
+                     ("trunk", "heads", "propose", "full"))
+        + " ms (full: plain conv1 " + " / s2d ".join(
+            f"{ex[f'MSCNN_CONV1={r} profile_stages_8s768']['full_ms']:.2f}"
+            for r in ("plain", "s2d"))
+        + " ms); ROI stage deltas " + ", ".join(
+            f"{k} {ex['profile_roi_stage'][f'{k}_delta_ms']:.3f}" for k in
+            ("upsample", "table", "pools", "full_roi_head"))
+        + f" ms; train step pruning saving {ex['profile_train_step']['pruning_saving_ms']:.1f}"
+        f" ms; widerface propose delta {ex['profile_widerface_stages']['propose_delta']:.3f} "
+        f"ms; synthetic_e2e AP {ex['synthetic_e2e']['ap']} int8 "
+        f"{ex['synthetic_e2e']['ap_int8']} (each launch held inline: the times include "
+        f"the checks); phase 23 {exr['seconds']:.1f} s")
+
+    def examples_launches(k):
+        """The kernel's launches in each run of phase 23."""
+        return {tag: v[k] for tag, v in exr["launches"].items()}
+
     def spmd_launches(k):
         """The kernel's launches in each run of phase 22."""
         return {tag: v[k] for tag, v in spr["launches"].items()}
@@ -5553,6 +5917,7 @@ def main():
          "launches_tools": tl["launches"]["nms"],
          "launches_data_parallel": dp_launches("nms"),
          "launches_spmd": spmd_launches("nms"),
+         "launches_examples": examples_launches("nms"),
          "op": "mscnn::nms_xywh", "op_overhead_us": ep["op_overhead_us"]["nms_xywh"],
          "train": {tag: {"shape": [BATCH, fcfg.proposal.max_nms_num,
                                    fcfg.proposal.max_out], "kept": v[4],
@@ -5581,6 +5946,7 @@ def main():
          "launches_tools": tl["launches"]["conv1_pool"],
          "launches_data_parallel": dp_launches("conv1_pool"),
          "launches_spmd": spmd_launches("conv1_pool"),
+         "launches_examples": examples_launches("conv1_pool"),
          "op": "mscnn::conv1_pool", "op_overhead_us": ep["op_overhead_us"]["conv1_pool"],
          "train_entry_min_bit_equal_share": tr["k2_share"],
          "launches_train_pallas_tiny": k2_train_launches,
@@ -5609,6 +5975,7 @@ def main():
          "launches_tools": tl["launches"]["int8_gemm"],
          "launches_data_parallel": dp_launches("int8_gemm"),
          "launches_spmd": spmd_launches("int8_gemm"),
+         "launches_examples": examples_launches("int8_gemm"),
          "op": "mscnn::int8_conv", "op_overhead_us": ep["op_overhead_us"]["int8_conv"],
          "per_step": "sum of the 17 launches of one int8 deploy step; no one "
                      "PyTorch call computes an int8 conv with its epilogue, "
@@ -5623,6 +5990,7 @@ def main():
          "launches_tools": tl["launches"]["conv1_v5"],
          "launches_data_parallel": dp_launches("conv1_v5"),
          "launches_spmd": spmd_launches("conv1_v5"),
+         "launches_examples": examples_launches("conv1_v5"),
          "min_bit_equal_share": k3_min_share,
          "ms": k3["1x768x2560"]["kernel"][f"{default_mode}_{th0}x{tq0}"],
          "plain_ms": k3["1x768x2560"]["plain"][default_mode],
@@ -5654,5 +6022,7 @@ if __name__ == "__main__":
         dp_rank_main(sys.argv[1:])
     elif sys.argv[1:2] == ["--spmd-rank"]:
         spmd_rank_main(sys.argv[1:])
+    elif sys.argv[1:2] == ["--cli-child"]:
+        cli_child_main(sys.argv[1:])
     else:
         main()

@@ -1,3 +1,4 @@
-"""Profiling probes of the port: counterparts of the JAX package's
-`examples/profile_*.py` scripts, run with `python3 -m
-mscnn_torch.examples.<name>` on a machine with a card."""
+"""The port's example drivers: counterparts of the JAX package's
+`examples/*.py` (the profilers, the synthetic quality loops) and of
+`examples/train_mscnn.sh`, run with `python3 -m
+mscnn_torch.examples.<name>`; the profilers need a card."""

@@ -29,6 +29,7 @@ from mscnn_torch import inference as I
 from mscnn_torch.models import cascade as CC
 from mscnn_torch.models import mscnn as M
 from mscnn_torch.models import zoo
+from mscnn_torch.utils import profiling as PROF
 
 PARTS = ("trunk", "heads", "propose", "stage_1", "stage_2", "stage_3",
          "ensemble", "postprocess")
@@ -43,32 +44,18 @@ def stage_split(params, img_u8, ccfg, ratios, orig_wh, spec=I.DetectSpec(),
     the ensemble does not run), then "postprocess" (bbox expansion,
     decode, per-class NMS)."""
     cfg = ccfg.base
-    times = {k: [] for k in PARTS}
     mean = torch.tensor(mean_values, device=img_u8.device)
-    with torch.inference_mode():
-        for it in range(iters + 1):
-            events = [("start", torch.cuda.Event(enable_timing=True))]
-            events[0][1].record()
 
-            def mark(name):
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                events.append((name, ev))
+    def one_pass(sp):
+        out = I.cascade_deploy_outputs(params, img_u8.float() - mean, ccfg,
+                                       mark=sp.mark)
+        out = I.expand_cascade_bbox(out, cfg.num_classes)
+        per = I._per_image(out, img_u8.shape[0], cfg.proposal.max_out)
+        I.postprocess_batch(per, ratios, orig_wh, I.cascade_post_cfg(ccfg), spec)
+        sp.mark("postprocess")
 
-            out = I.cascade_deploy_outputs(params, img_u8.float() - mean, ccfg,
-                                           mark=mark)
-            out = I.expand_cascade_bbox(out, cfg.num_classes)
-            per = I._per_image(out, img_u8.shape[0], cfg.proposal.max_out)
-            I.postprocess_batch(per, ratios, orig_wh, I.cascade_post_cfg(ccfg), spec)
-            mark("postprocess")
-            events[-1][1].synchronize()
-            if it:   # the first pass is a warm-up
-                got = {k: 0.0 for k in PARTS}
-                for (_, a), (name, b) in zip(events, events[1:]):
-                    got[name] = a.elapsed_time(b)
-                for k in PARTS:
-                    times[k].append(got[k])
-    return {k: statistics.median(v) for k, v in times.items()}
+    got = PROF.median_split(one_pass, iters)
+    return {k: got.get(k, 0.0) for k in PARTS}
 
 
 def step_ms(params, img_u8, ccfg, ratios, orig_wh, iters=5):

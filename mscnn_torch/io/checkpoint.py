@@ -28,8 +28,6 @@ import os
 import warnings
 from typing import Optional
 
-import torch
-
 STATE_FILE = "state.pt"
 
 
@@ -43,6 +41,8 @@ def _iter_of(train_state, it):
 
 def snapshot(prefix: str, train_state, it: Optional[int] = None) -> str:
     """Write `<prefix>_iter_N/` (N from the solver state unless given)."""
+    import torch   # here: `latest_snapshot` alone loads no torch
+
     path = _path(prefix, _iter_of(train_state, it))
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, STATE_FILE + ".tmp")
@@ -95,6 +95,8 @@ def snapshot_hdf5(prefix: str, train_state, it: Optional[int] = None,
 
 
 def _load(path: str):
+    import torch
+
     return torch.load(os.path.join(os.path.abspath(path), STATE_FILE),
                       map_location="cpu", weights_only=True)
 

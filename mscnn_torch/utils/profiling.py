@@ -2,7 +2,9 @@
 
 Ports `mscnn_tpu/utils/profiling.py` name for name: `StepTimer`, `trace`,
 `annotate`, `debug_info`, `make_debug_hook`, `time_fn`, `chain_time`,
-`chain_time_full`, `PEAK_FLOPS`, `peak_flops`, `cost_flops`, `mfu`.
+`chain_time_full`, `PEAK_FLOPS`, `peak_flops`, `cost_flops`, `mfu`; and
+`Split` / `median_split`, CUDA events at named marks of one pass, for the
+per-part times of an eagerly run graph.
 
 Every time comes from the device the tensors live on: for CUDA tensors the
 clock is read after `torch.cuda.synchronize()` (or between CUDA events), so
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import statistics
 import time
 from typing import Callable, Dict, Optional
 
@@ -142,17 +145,64 @@ def make_debug_hook(log: Optional[Callable[[str], None]] = None,
 
 def time_fn(fn, *args, iters: int = 10, warmup: int = 1) -> Dict[str, float]:
     """`caffe time`-style measurement of one callable: `iters` calls queued
-    back to back, then one wait for the last result."""
-    for _ in range(warmup):
-        block_until_ready(fn(*args))
-    block_until_ready(args)
-    t0 = time.perf_counter()
+    back to back, then one wait for the last result. On the card (a CUDA
+    tensor among the arguments or in a warm-up result) the loop is timed
+    between CUDA events; on the CPU by the host clock."""
     out = None
-    for _ in range(iters):
-        out = fn(*args)
-    block_until_ready(out)
-    dt = (time.perf_counter() - t0) / iters
+    for _ in range(warmup):
+        out = block_until_ready(fn(*args))
+    block_until_ready(args)
+    if any(t.is_cuda for t in _tensors((args, out))):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn(*args)
+        end.record()
+        end.synchronize()
+        dt = start.elapsed_time(end) / 1e3 / iters
+    else:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn(*args)
+        block_until_ready(out)
+        dt = (time.perf_counter() - t0) / iters
     return {"mean_ms": dt * 1e3, "iters_per_sec": 1.0 / dt}
+
+
+class Split:
+    """CUDA events at named marks of one pass on the card; `ms()` gives
+    each part's ms (the time from the mark before it)."""
+
+    def __init__(self):
+        self.events = [("start", torch.cuda.Event(enable_timing=True))]
+        self.events[0][1].record()
+
+    def mark(self, name: str):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((name, ev))
+
+    def ms(self) -> Dict[str, float]:
+        self.events[-1][1].synchronize()
+        return {name: a.elapsed_time(b)
+                for (_, a), (name, b) in zip(self.events, self.events[1:])}
+
+
+def median_split(one_pass, iters: int) -> Dict[str, float]:
+    """Median ms of each part over `iters` passes of `one_pass(split)` (a
+    `Split` that the pass marks) after a warm-up pass, under inference
+    mode."""
+    times: Dict[str, list] = {}
+    with torch.inference_mode():
+        for it in range(iters + 1):
+            sp = Split()
+            one_pass(sp)
+            got = sp.ms()
+            if it:   # the first pass is a warm-up
+                for k, v in got.items():
+                    times.setdefault(k, []).append(v)
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def _first_leaf(y):

@@ -37,6 +37,7 @@ from mscnn_torch import inference as TI
 from mscnn_torch.io import aot as TA
 from mscnn_torch.io import bridge
 from mscnn_torch.models import zoo as TZ
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 KEYS = ("boxes", "scores", "valid", "proposals", "proposal_scores",
         "proposal_valid")
@@ -49,16 +50,6 @@ def nonzero_biases(pj, seed=1):
     return {n: {k: (jnp.asarray(rng.randn(*v.shape).astype(np.float32) * 0.05)
                     if k == "b" else v) for k, v in p.items()}
             for n, p in pj.items()}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for the module: the tier-1 run's six workers
-    share eight cores, and a full pool in each starves them all."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield 2
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -23,6 +23,7 @@ from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
 from mscnn_torch.ops import quant as TQ
 from test_torch_aot import SPEC_T, assert_equal, few_threads, images  # noqa: F401
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 @pytest.fixture(autouse=True)

@@ -18,6 +18,7 @@ from mscnn_tpu.ops import quant as JQ
 from mscnn_torch.io import bridge
 from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 def _small(zoo_mod):

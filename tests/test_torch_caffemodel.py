@@ -19,6 +19,7 @@ from mscnn_torch.io import bridge
 from mscnn_torch.io import caffemodel as TCM
 from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,7 @@ import pytest
 from mscnn_torch.evaluation import caltech_eval as TE
 from mscnn_tpu.evaluation import caltech_eval as JE
 from test_caltech_eval import _vbb_fixture
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 def assert_same(got, want):

@@ -48,6 +48,7 @@ from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
 from mscnn_torch.ops import boxes as TB
 from mscnn_torch.ops import roi as TR
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 ASSETS = os.path.join(os.path.dirname(__file__), "assets")
 RTOL, ATOL = 1e-4, 1e-4

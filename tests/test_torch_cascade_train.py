@@ -25,6 +25,7 @@ Tolerances:
 """
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +49,7 @@ from mscnn_torch.ops import quant as TQ
 from mscnn_torch.train import solver as TS
 from mscnn_torch.train import train_step as TT
 from test_torch_cascade import B, close, configs, f32, jax_params, t
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 # ---------------------------------------------------------------------------
@@ -145,11 +147,16 @@ def train_case():
         return JC.loss_fn(JT.prune_frozen_params(p, lm), jb, key, ccj, tj,
                           roi_batch=ROI_BATCH)
 
-    (loss, metrics), grads = jax.jit(jax.value_and_grad(objective, has_aux=True))(pj)
-    dm = JM.param_decay_multipliers(pj, ccj.base)
-    jp, js, _ = jax.jit(lambda p, g: JS.apply_update(
-        p, g, JS.init_state(p, sj), sj, lm, dm))(pj, grads)
-    state, smetrics = {"params": jp, "solver": js}, {"loss": loss}
+    def jax_reference():
+        (loss, metrics), grads = jax.jit(jax.value_and_grad(objective, has_aux=True))(pj)
+        dm = JM.param_decay_multipliers(pj, ccj.base)
+        jp, js, _ = jax.jit(lambda p, g: JS.apply_update(
+            p, g, JS.init_state(p, sj), sj, lm, dm))(pj, grads)
+        return loss, metrics, grads, {"params": jp, "solver": js}
+
+    # JAX traces and compiles its side on a thread while the port computes
+    pool = ThreadPoolExecutor(1)
+    jax_ref = pool.submit(jax_reference)
     draws = cascade_draws(key, cct, tt, B, jb["gt_boxes"].shape[1],
                              head_sizes(cct.base), ROI_BATCH)
     pt, tb = bridge.from_jax_params(pj), to_torch(jb)
@@ -161,6 +168,9 @@ def train_case():
     own = {(n, k): rel_l2(np.asarray(own[n][k], np.float64),
                           np.asarray(g, np.float64))
            for n, p in tg.items() for k, g in p.items() if np.any(g)}
+    loss, metrics, grads, state = jax_ref.result()
+    pool.shutdown()
+    smetrics = {"loss": loss}
     return dict(ccj=ccj, cct=cct, tt=tt, pj=pj, pt=pt, tb=tb, draws=draws,
                 tl=tl, tm=tm, tg=tg, own=own, loss=float(loss),
                 metrics=jax.tree.map(np.asarray, metrics),

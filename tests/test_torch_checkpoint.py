@@ -21,6 +21,7 @@ from mscnn_tpu.io import checkpoint as JCK
 from mscnn_tpu.io import hdf5_snapshot as JH5
 from mscnn_torch.io import bridge
 from mscnn_torch.io import checkpoint as TCK
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 def state(seed=0, it=3):

@@ -24,6 +24,7 @@ from mscnn_tpu import classify as JCL
 from mscnn_tpu import cli as JCLI
 from mscnn_tpu.io import caffemodel as JCM
 from mscnn_tpu.models.netbuilder import Net as JNet
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 NET = """
 name: "tinycls"

@@ -18,6 +18,7 @@ with JAX's divisibility message.
 
 import argparse
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 import torch
@@ -28,6 +29,7 @@ from mscnn_torch.config import zoo_import as TZI
 from mscnn_torch.io import checkpoint as TCK
 from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 FROZEN = ("conv1_1", "conv1_2", "conv2_1", "conv2_2")
 
@@ -149,68 +151,119 @@ def test_apply_conv1_resolution():
     assert s2d.s2d_conv1 and not s2d.pallas_conv1
 
 
-def test_cli_train_cascade_matches_jax_cli(data, tmp_path, capsys, monkeypatch):
-    """`cli train` on a cascade trainval (zoo_export's, from the tiny net:
-    3 stages, stage 1 sampling, stages 2-3 keep-all) runs and snapshots;
-    its `_build_training` makes the cascade JAX's CLI makes (config, specs,
-    param tree, lr multipliers), and one step of its step equals one of
-    JAX's on JAX's params, one batch of the window file and JAX's draws:
-    the loss and every metric within 1e-5 relative, every param within 1e-2
-    of its step (PR 7's step tolerance). A stage head whose roi_c1 or fc6
-    has a pre-activation within 1e-6 of zero (a ReLU decision the two
-    frameworks' summation orders may take apart; fc_dim is the prototxt's
-    4096, so ~10^5 decisions a step) moves that unit's gradient wholesale:
-    that head's roi_c1 / fc6 leaves are held to a relative L2 error of 2e-2
-    of the step instead, and the test names them."""
-    import jax
-    import numpy as np
-
+@pytest.fixture(scope="module")
+def cascade_cli(data, tmp_path_factory):
+    """A cascade trainval (zoo_export's, from the tiny net: 3 stages, stage
+    1 sampling, stages 2-3 keep-all), one batch of the window file and
+    both CLIs' `_build_training` on it, once for the module. fc_dim 256, which the prototxt names and the
+    fixture sets on both CLIs' imported configs (the importers take fc6's
+    width from the zoo default)."""
     from mscnn_tpu import cli as jcli
     from mscnn_tpu.config import zoo_import as JZI
-    from mscnn_tpu.models import cascade as JC
     from mscnn_torch.config import zoo_export as TZE
     from mscnn_torch.data import pipeline as TP
-    from mscnn_torch.io import bridge
     from mscnn_torch.models import cascade as TC
-    from mscnn_torch.train import train_step as TT
-    from test_torch_cascade_train import cascade_draws
 
     _, wf = data
-    solver1, solver2, _, _ = write_train2(tmp_path, wf)
-    cfg, tspec, aug, dspec, _ = TZI.model_from_prototxt(str(tmp_path / "trainval_2.prototxt"))
-    ccfg = TC.CascadeConfig(base=cfg)
-    net = tmp_path / "cascade.prototxt"
+    root = tmp_path_factory.mktemp("cascade_cli")
+    _, solver2, _, _ = write_train2(root, wf)
+    cfg, tspec, aug, dspec, _ = TZI.model_from_prototxt(str(root / "trainval_2.prototxt"))
+    ccfg = TC.CascadeConfig(base=dataclasses.replace(cfg, fc_dim=256))
+    net = root / "cascade.prototxt"
     net.write_text(TZE.cascade_trainval_prototxt(ccfg, tspec, aug, dspec, source=wf))
-    prefix = str(tmp_path / "casc")
-    argv = ["--model", str(net), "--iterations", "1", "--snapshot-prefix", prefix]
-    assert cli.main(["train", "--solver", solver2, "--device", "cpu"] + argv) == 0
-    assert "Optimization Done." in capsys.readouterr().out
-    snap = load_params(TCK.latest_snapshot(prefix))
-    assert {"roi_c1_2nd", "fc6_3rd", "bbox_pred_3rd"} <= set(snap)
+
+    def fc256(fn):
+        def imported(*a, **kw):
+            c, *rest = fn(*a, **kw)
+            return (dataclasses.replace(c, base=dataclasses.replace(c.base, fc_dim=256)),
+                    *rest)
+        return imported
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(TZI, "cascade_from_prototxt", fc256(TZI.cascade_from_prototxt))
+    mp.setattr(JZI, "cascade_from_prototxt", fc256(JZI.cascade_from_prototxt))
+    argv = ["--model", str(net), "--iterations", "1"]
 
     def parse(add_common, *extra):
         p = argparse.ArgumentParser()
         add_common(p)
         return p.parse_args(argv + list(extra))
 
-    tstate, tstep, _, _, tcfg, ttspec = cli._build_training(
-        parse(cli._add_common, "--device", "cpu"), solver2)
-    jstate, jstep, _, _, jcfg, jtspec, _ = jcli._build_training(
-        parse(jcli._add_common), solver2)
+    out = argparse.Namespace(
+        net=net, solver2=solver2, argv=argv, dspec=dspec,
+        batch=TP.dataset_from_window_file(wf, aug, dspec).next_batch(),
+        port=cli._build_training(parse(cli._add_common, "--device", "cpu"), solver2),
+        jax=jcli._build_training(parse(jcli._add_common), solver2))
+    yield out
+    mp.undo()
+
+
+def test_cli_train_cascade_runs_and_builds_as_jax_cli(cascade_cli, tmp_path, capsys):
+    """`cli train` on the cascade trainval runs and snapshots; its
+    `_build_training` makes the cascade JAX's CLI makes (config, specs,
+    param tree, lr multipliers)."""
+    import jax
+    import numpy as np
+
+    from mscnn_tpu.config import zoo_import as JZI
+    from mscnn_tpu.models import cascade as JC
+    from mscnn_torch.io import bridge
+    from mscnn_torch.models import cascade as TC
+
+    c = cascade_cli
+    prefix = str(tmp_path / "casc")
+    assert cli.main(["train", "--solver", c.solver2, "--device", "cpu", *c.argv,
+                     "--snapshot-prefix", prefix]) == 0
+    assert "Optimization Done." in capsys.readouterr().out
+    snap = load_params(TCK.latest_snapshot(prefix))
+    assert {"roi_c1_2nd", "fc6_3rd", "bbox_pred_3rd"} <= set(snap)
+
+    tstate, _, _, _, tcfg, ttspec = c.port
+    jstate, _, _, _, jcfg, jtspec, _ = c.jax
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert dataclasses.asdict(ttspec) == dataclasses.asdict(jtspec)
     pj = jax.tree.map(np.asarray, jstate["params"])
     assert jax.tree.structure(pj) == jax.tree.structure(bridge.to_jax_params(tstate["params"]))
-    tccfg = TZI.cascade_from_prototxt(str(net))[0]
-    jccfg = JZI.cascade_from_prototxt(str(net))[0]
+    tccfg = TZI.cascade_from_prototxt(str(c.net))[0]
+    jccfg = JZI.cascade_from_prototxt(str(c.net))[0]
     assert dataclasses.asdict(tccfg) == dataclasses.asdict(jccfg)
     assert TC.param_lr_multipliers(tstate["params"], tccfg) == \
         JC.param_lr_multipliers(pj, jccfg)
 
-    batch = TP.dataset_from_window_file(wf, aug, dspec).next_batch()
+
+def test_cli_train_cascade_matches_jax_cli(cascade_cli, monkeypatch):
+    """One step of the step the port's `_build_training` makes on the
+    cascade trainval equals one of JAX's CLI's on JAX's params, one batch
+    of the window file and JAX's draws: the loss and every metric within
+    1e-5 relative, every param within 1e-2 of its step (PR 7's step
+    tolerance). A stage head whose roi_c1 or fc6 has a pre-activation
+    within 1e-6 of zero (a ReLU decision the two frameworks' summation
+    orders may take apart; at fc_dim 256, ~10^4 decisions a step) moves
+    that unit's gradient wholesale: that head's roi_c1 / fc6 leaves are
+    held to a relative L2 error of 2e-2 of the step instead, and the test
+    names them."""
+    import jax
+    import numpy as np
+
+    from mscnn_torch.io import bridge
+    from mscnn_torch.train import train_step as TT
+    from test_torch_cascade_train import cascade_draws
+
+    c = cascade_cli
+    _, tstep, _, _, tcfg, ttspec = c.port
+    jstate, jstep = c.jax[:2]
+    tccfg = TZI.cascade_from_prototxt(str(c.net))[0]
+    batch, dspec = c.batch, c.dspec
+    pj = jax.tree.map(np.asarray, jstate["params"])
     key = jax.random.key(9)
-    jnew, jm = jax.jit(jstep)(jstate, jax.tree.map(jax.numpy.asarray, batch), key)
-    jnew = jax.tree.map(np.asarray, jnew)
+
+    def jax_step():
+        jnew, jm = jax.jit(jstep)(jstate, jax.tree.map(jax.numpy.asarray, batch), key)
+        return jax.tree.map(np.asarray, jnew), jm
+
+    # JAX traces and compiles its step on a thread while the port's step runs
+    pool = ThreadPoolExecutor(1)
+    jax_ref = pool.submit(jax_step)
     tb = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
     draws = cascade_draws(key, tccfg, ttspec, dspec.batch_size, batch["gt_boxes"].shape[1],
                              [h * w for h, w in (TT.head_hw(tcfg, br) for br in tcfg.branches)],
@@ -236,6 +289,8 @@ def test_cli_train_cascade_matches_jax_cli(data, tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(TCV, "dense", spy(TCV.dense))
     tnew, tm = tstep(bridge.from_jax_state(jax.tree.map(np.asarray, jstate)), tb,
                      draws=draws)
+    jnew, jm = jax_ref.result()
+    pool.shutdown()
     assert seen == {"roi_c1": 3, "fc6": 3}
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
     assert tm.keys() == jm.keys()

@@ -44,6 +44,7 @@ from mscnn_torch.models import cascade as TC
 from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
 from mscnn_torch.ops import quant as TQ
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 NAMES = "bg,car,van"
 
@@ -70,16 +71,6 @@ def port(*argv):
 
 def last_json(out):
     return json.loads(out.strip().splitlines()[-1])
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for the module: the tier-1 run's six workers
-    share eight cores, and a full pool in each starves them all."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield 2
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -129,9 +120,28 @@ def cascade_init():
                           TC.CascadeConfig(base=_tiny_t()), device="cpu")
 
 
+class Jobs(dict):
+    """The module's files and runs. `need(tag, ...)` runs a job the first
+    time a test asks for it and keeps it for the module: both CLIs' detect
+    for "kitti", "caltech", "widerface", "int8" and "cascade" ("t_<tag>" /
+    "j_<tag>" and their logs), the port's artifact at batch b and its
+    detect for "compiled<b>" (held to JAX's live kitti detect). So each
+    test's time is its own jobs'."""
+
+    def __init__(self, run, **kw):
+        super().__init__(**kw)
+        self._run = run
+
+    def need(self, *tags):
+        for tag in tags:
+            if f"t_{tag}" not in self:
+                self._run(tag)
+        return self
+
+
 @pytest.fixture(scope="module")
 def env(tmp_path_factory):
-    """The images, the weights and every detect run of both CLIs."""
+    """The images, the weights and the detect runs of both CLIs (`Jobs`)."""
     mp = pytest.MonkeyPatch()
     register_tiny(mp)
     root = tmp_path_factory.mktemp("cli_deploy")
@@ -161,7 +171,6 @@ def env(tmp_path_factory):
         "cascade": ["--zoo", "tiny-cascade", "--image-dir", imgs, "--class-names",
                     NAMES, "--weights", wc],
     }
-    out = {"root": root, "imgs": imgs, "w": w, "wc": wc, "logs": {}, "scales": []}
     jax_calibrate, own_calibrate = JQ.calibrate_trunk_scales, TQ.calibrate_trunk_scales
 
     def jax_run_scales(params, cfg, images, **kw):
@@ -179,10 +188,10 @@ def env(tmp_path_factory):
                               out["jax_scales"]))
         return out["jax_scales"]
 
-    for tag, argv in jobs.items():
+    def detect(tag):
         for side, cli in (("j", JCLI), ("t", TCLI)):
             d = root / f"{side}_{tag}"
-            argv_ = ["detect", "--output-dir", d] + argv
+            argv_ = ["detect", "--output-dir", d] + jobs[tag]
             with pytest.MonkeyPatch.context() as m:
                 if tag == "int8":
                     m.setattr(JQ, "calibrate_trunk_scales", jax_run_scales)
@@ -191,7 +200,9 @@ def env(tmp_path_factory):
             assert rc == 0, (tag, side, log)
             out[f"{side}_{tag}"] = d
             out["logs"][f"{side}_{tag}"] = log
-    for b in (1, 2):   # the port's artifacts, held to JAX's live detect
+
+    def compiled(b):   # the port's artifact, held to JAX's live detect
+        out.need("kitti")
         art = root / f"t_art{b}"
         rc, log = port("compile", "--zoo", "tiny-fc256", "--weights", w, "--batch", b,
                        "-o", art)
@@ -204,6 +215,9 @@ def env(tmp_path_factory):
         out[f"t_compiled{b}"], out[f"t_art{b}"], out[f"j_compiled{b}"] = \
             d, art, out["j_kitti"]
         out["logs"][f"t_compiled{b}"] = log
+
+    out = Jobs(lambda tag: compiled(int(tag[-1])) if tag.startswith("compiled")
+               else detect(tag), root=root, imgs=imgs, w=w, wc=wc, logs={}, scales=[])
     yield out
     mp.undo()
     shutil.rmtree(root, ignore_errors=True)   # ~1 GB of weights and artifacts
@@ -247,6 +261,7 @@ KITTI = dict(box_cols=(4, 5, 6, 7), score_col=15, score_scale=1000.0)
 
 @pytest.mark.parametrize("tag", ["kitti", "int8", "cascade", "compiled1", "compiled2"])
 def test_detect_kitti_matches_jax(env, tag):
+    env.need(tag)
     files = same_dirs(env[f"t_{tag}"], env[f"j_{tag}"], **KITTI)
     assert len(files) == 3
     assert sum(len(rows(env[f"t_{tag}"] / f)) for f in files) > 10
@@ -256,6 +271,7 @@ def test_detect_kitti_matches_jax(env, tag):
 
 
 def test_detect_caltech_and_widerface_match_jax(env):
+    env.need("caltech", "widerface")
     # caltech: imgIdx,x,y,w,h,score a line, one file a class
     files = same_dirs(env["t_caltech"], env["j_caltech"], box_cols=(1, 2, 3, 4),
                       score_col=5, score_scale=1.0)
@@ -267,6 +283,7 @@ def test_detect_caltech_and_widerface_match_jax(env):
 
 
 def test_compiled_artifact_meta_and_ignored_flags(env):
+    env.need("int8", "compiled1", "compiled2")
     with open(env["t_art2"] / "meta.json") as f:
         meta = json.load(f)
     assert meta["batch"] == 2 and meta["platforms"] == ["cpu"]
@@ -279,6 +296,7 @@ def test_compiled_artifact_meta_and_ignored_flags(env):
 def test_int8_calibration(env):
     """detect --int8 calibrated the trunk from the directory's images, and
     the port's own scales are within 1e-5 of JAX's on them."""
+    env.need("int8")
     (own, want), = env["scales"]
     assert sorted(own) == sorted(want) and len(want) == 15
     for k in want:
@@ -286,6 +304,7 @@ def test_int8_calibration(env):
 
 
 def test_eval_three_datasets_match_jax(env, tmp_path):
+    env.need("kitti", "caltech", "widerface")
     # kitti: the port's labels scored against JAX's as the ground truth
     gt = tmp_path / "gt"
     gt.mkdir()

@@ -28,6 +28,7 @@ import _torch_tiny_train as TT
 from test_torch_cli_deploy import (NAMES, cascade_init, few_threads,  # noqa: F401
                                    last_json, port, register_tiny, run, tiny_init,
                                    write_images, write_weights)
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ import torch
 from mscnn_tpu import cli as JCLI
 from mscnn_torch import cli as TCLI
 from mscnn_torch.data import image_io
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
                       "tools_ref")
@@ -41,16 +42,6 @@ with open(os.path.join(ASSETS, "manifest.json")) as _f:
     MANIFEST = json.load(_f)
 PORT_EXTRA = {"summary_v0": ["--device", "cpu"],
               "summary_lenet": ["--device", "cpu"]}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for the module: the tier-1 run's six workers
-    share eight cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield 2
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

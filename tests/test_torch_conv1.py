@@ -23,6 +23,7 @@ from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
 from mscnn_torch.ops import conv as C
 from mscnn_torch.ops.kernels import conv1_kernel as TK
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 TILE = dict(tile_h=8, tile_q=16)   # small tiles keep interpret mode fast
 

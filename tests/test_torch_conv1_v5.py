@@ -32,6 +32,7 @@ from mscnn_torch.examples import profile_conv1_pallas as PP
 from mscnn_torch.examples import profile_conv1_v5 as P5
 from mscnn_torch.io import bridge
 from mscnn_torch.ops.kernels import conv1_v5_kernel as K3
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TILE = dict(tile_h=8, tile_q=16)   # small tiles keep interpret mode fast

@@ -35,6 +35,7 @@ from mscnn_torch.io import bridge
 from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
 from mscnn_torch.ops import conv as TC
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 MIN_SHARE = 0.99
 MAX_ULPS = 2

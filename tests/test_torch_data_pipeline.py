@@ -25,6 +25,7 @@ from mscnn_torch.data import augment as TA
 from mscnn_torch.data import native_loader as TNL
 from mscnn_torch.data import pipeline as TP
 from mscnn_torch.data import window_file as TW
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 SIZES = [(64, 96), (40, 60), (80, 130), (64, 96), (33, 47), (72, 90)]
 

@@ -26,6 +26,7 @@ from mscnn_torch import inference as TI
 from mscnn_torch.io import bridge
 from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 ASSETS = os.path.join(os.path.dirname(__file__), "assets")
 RTOL, ATOL = 1e-4, 1e-4

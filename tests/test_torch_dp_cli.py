@@ -55,9 +55,10 @@ from mscnn_torch.io import checkpoint as TCK
 from mscnn_torch.models import mscnn as TM
 from mscnn_torch.parallel import make_mesh
 from test_torch_cli_deploy import (KITTI, NAMES, _tiny_j, _tiny_t, cascade_init,  # noqa: F401
-                                   few_threads, port, register_tiny, run, same_dirs,
+                                   port, register_tiny, run, same_dirs,
                                    tiny_init, write_images, write_weights)
 from test_torch_dp_step import finish, start
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FROZEN = ("conv1_1", "conv1_2", "conv2_1", "conv2_2")
@@ -97,14 +98,18 @@ def state_of(path):
     return torch.load(f"{path}/{TCK.STATE_FILE}", weights_only=True)
 
 
-def test_cli_train_devices2_matches_jax_and_resumes(tmp_path):
-    # two images, unshuffled and unmirrored: every batch is the same, so a
-    # resumed run (whose loader starts the stream again) sees the batches
-    # the unbroken run saw
-    wf = TT.write_dataset(tmp_path, n=2)
-    solver1, _, _, _ = TT.write_train2(tmp_path, wf,
-                                       solver_extra="snapshot: 1\n")
-    net = str(tmp_path / "trainval_1.prototxt")
+@pytest.fixture(scope="module")
+def dp_train(tmp_path_factory):
+    """The port's `cli train --devices 2` runs, once for the module: the
+    unbroken run and, as soon as its first snapshot is in place (the write
+    is a rename), a run resumed from it, beside each other. Two images,
+    unshuffled and unmirrored: every batch is the same, so the resumed run
+    (whose loader starts the stream again) sees the batches the unbroken
+    run saw."""
+    tmp = tmp_path_factory.mktemp("dp_train")
+    wf = TT.write_dataset(tmp, n=2)
+    solver1, _, _, _ = TT.write_train2(tmp, wf, solver_extra="snapshot: 1\n")
+    net = str(tmp / "trainval_1.prototxt")
     with open(net) as f:
         text = f.read()
     with open(net, "w") as f:
@@ -112,13 +117,11 @@ def test_cli_train_devices2_matches_jax_and_resumes(tmp_path):
                 .replace("shuffle: true", "shuffle: false"))
     cfg = TZI.model_from_prototxt(net)[0]
     w0 = TM.init_params(torch.Generator().manual_seed(4), cfg, device="cpu")
-    weights = write_weights(w0, tmp_path / "w.caffemodel")
+    weights = write_weights(w0, tmp / "w.caffemodel")
     base = ["train", "--solver", solver1, "--devices", 2, "--weights", weights,
             "--device", "cpu"]
-    full = port_cli(*base, "--snapshot-prefix", tmp_path / "dp")
-    # the resumed run starts as soon as the first snapshot is in place (the
-    # write is a rename), beside the rest of the unbroken run and JAX's
-    first = tmp_path / "dp_iter_1" / TCK.STATE_FILE
+    full = port_cli(*base, "--snapshot-prefix", tmp / "dp")
+    first = tmp / "dp_iter_1" / TCK.STATE_FILE
     resumed = {}
 
     def resume():
@@ -128,30 +131,55 @@ def test_cli_train_devices2_matches_jax_and_resumes(tmp_path):
             time.sleep(0.1)
         if first.exists():
             resumed["proc"] = port_cli(*base, "--snapshot", first.parent,
-                                       "--snapshot-prefix", tmp_path / "re")
+                                       "--snapshot-prefix", tmp / "re")
 
     starter = threading.Thread(target=resume)
     starter.start()
+    done = {}
 
-    # JAX's run meanwhile: BINARYPROTO snapshots, which the port's reader loads
+    def finished(what):
+        """The unbroken run's output ("full") or the resumed run's
+        ("resumed"), waited for once."""
+        if what not in done:
+            if what == "full":
+                done[what] = wait(full)
+            else:
+                starter.join(timeout=120)
+                assert "proc" in resumed, "the unbroken run wrote no first snapshot"
+                done[what] = wait(resumed["proc"])
+        return done[what]
+
+    try:
+        yield {"tmp": tmp, "cfg": cfg, "w0": w0, "weights": weights, "solver1": solver1,
+               "finished": finished}
+    finally:
+        starter.join(timeout=120)
+        for p in [full] + list(resumed.values()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def test_cli_train_devices2_matches_jax_and_resumes(dp_train, tmp_path):
+    """The port's unbroken run's final params equal JAX's `cli train
+    --devices 2` from the same .caffemodel within
+    tests/test_torch_train_step.py's bound (every moved leaf within 1e-2
+    of its move plus 4 float32 spacings; frozen leaves bit-unchanged). JAX's
+    CLI runs while the port's two runs do; the resumed one is held to the
+    unbroken one by the next test."""
+    # JAX's run: BINARYPROTO snapshots, which the port's reader loads
     jsolver = tmp_path / "solver_jax.prototxt"
-    jsolver.write_text(open(solver1).read().replace("snapshot: 1\n", "")
+    jsolver.write_text(open(dp_train["solver1"]).read().replace("snapshot: 1\n", "")
                        + "snapshot_format: BINARYPROTO\n")
     rc, _ = run(JCLI, "train", "--solver", jsolver, "--devices", 2, "--weights",
-                weights, "--no-native", "--snapshot-prefix", tmp_path / "jx")
+                dp_train["weights"], "--no-native", "--snapshot-prefix", tmp_path / "jx")
     assert rc == 0
-    out = wait(full)
-    starter.join(timeout=120)
-    assert "proc" in resumed, "the unbroken run wrote no first snapshot"
-    assert out.count("Optimization Done.") == 1
-    assert out.count("Snapshotting to") == 1          # rank 0's final line
-    assert sorted(p for p in os.listdir(tmp_path) if p.startswith("dp_")) == \
-        ["dp_iter_1", "dp_iter_2"]
-    got = state_of(tmp_path / "dp_iter_2")
-    assert int(got["solver"]["it"]) == 2
-
+    dp_train["finished"]("full")
+    got = state_of(dp_train["tmp"] / "dp_iter_2")
+    cfg = dp_train["cfg"]
     template = TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    ref0 = bridge.to_jax_params(w0)          # with write_weights' biases
+    ref0 = bridge.to_jax_params(dp_train["w0"])          # with write_weights' biases
     want = bridge.to_jax_params(TCM.load_caffemodel_params(
         str(tmp_path / "jx_iter_2.caffemodel"), template)[0])
     mine = bridge.to_jax_params(got["params"])
@@ -169,9 +197,21 @@ def test_cli_train_devices2_matches_jax_and_resumes(tmp_path):
                 np.abs(w).max()), (name, k, err)
     assert moved > 10
 
-    # resumed from the first snapshot on both ranks: the unbroken run's state
-    wait(resumed["proc"])
-    again = state_of(tmp_path / "re_iter_2")
+
+def test_cli_train_devices2_snapshots_once_and_resumes(dp_train):
+    """Each snapshot written once, by rank 0 (the loop scenario below shows
+    the other rank writes none), and the run resumed from the first
+    snapshot on both ranks ends bit-equal to the unbroken run. (After the
+    JAX comparison above, which runs JAX's CLI while these two run.)"""
+    tmp, out = dp_train["tmp"], dp_train["finished"]("full")
+    dp_train["finished"]("resumed")
+    assert out.count("Optimization Done.") == 1
+    assert out.count("Snapshotting to") == 1          # rank 0's final line
+    assert sorted(p for p in os.listdir(tmp) if p.startswith("dp_")) == \
+        ["dp_iter_1", "dp_iter_2"]
+    got = state_of(tmp / "dp_iter_2")
+    assert int(got["solver"]["it"]) == 2
+    again = state_of(tmp / "re_iter_2")
     for part in ("params", "solver"):
         jax.tree.map(lambda a, b: np.testing.assert_array_equal(a.numpy(), b.numpy()),
                      again[part], got[part])

@@ -21,6 +21,7 @@ from mscnn_torch.data import native_loader as NL
 from mscnn_torch.data import pipeline as TP
 from mscnn_torch.data import records as TR
 from test_torch_worker_loader import RICH, _aug, _equal, disk_dataset  # noqa: F401
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 def rows(batch, lo, hi):

@@ -65,6 +65,7 @@ from mscnn_torch.models import cascade as TC
 from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
 from mscnn_torch.train import train_step as TT
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 CHILD = os.path.join(os.path.dirname(__file__), "_torch_dp_child.py")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

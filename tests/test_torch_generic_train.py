@@ -41,6 +41,7 @@ from mscnn_tpu.io import caffemodel as JCM
 from mscnn_tpu.models import netbuilder as JNB
 from mscnn_tpu.train import generic as JG
 from mscnn_tpu.train import solver as JSV
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 RTOL, ATOL = 1e-4, 1e-5
 

@@ -30,6 +30,7 @@ from mscnn_torch.train import generic as TG
 from mscnn_torch.train import loop as LP
 from mscnn_torch.train import solver as TSV
 from test_torch_generic_train import DUMMY, NET
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 @pytest.fixture(scope="module")

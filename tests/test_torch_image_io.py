@@ -22,6 +22,7 @@ import pytest
 
 from mscnn_torch.data import image_io as IO
 from mscnn_torch.data import pipeline as TP
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 def _chunk(kind, body):

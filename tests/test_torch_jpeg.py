@@ -27,6 +27,7 @@ import pytest
 from mscnn_tpu.data import pipeline as JP
 from mscnn_torch.data import image_io as IO
 from mscnn_torch.data import jpeg as J
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 ASSETS = os.path.join(os.path.dirname(__file__), "assets", "jpeg")
 _spec = importlib.util.spec_from_file_location(

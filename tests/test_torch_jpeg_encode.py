@@ -22,6 +22,7 @@ import pytest
 from mscnn_torch.data import image_io
 from mscnn_torch.data import jpeg
 from mscnn_torch.data import jpeg_encode as JE
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
                     "jpeg_encode")

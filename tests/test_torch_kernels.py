@@ -33,6 +33,7 @@ from mscnn_torch.ops.kernels import conv1_kernel as CK
 from mscnn_torch.ops.kernels import conv1_v5_kernel as K3
 from mscnn_torch.ops.kernels import int8_kernel as IK
 from mscnn_torch.ops.kernels import nms_kernel as NK
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 @pytest.fixture

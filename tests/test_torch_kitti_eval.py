@@ -15,6 +15,7 @@ import pytest
 from mscnn_tpu.evaluation import kitti_eval as JKE
 from mscnn_torch.evaluation import kitti_eval as TKE
 from mscnn_torch.examples import synthetic_e2e_train2 as EX
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 TYPES = ("Car", "Car", "Van", "Pedestrian", "Pedestrian", "DontCare")
 

@@ -24,6 +24,7 @@ from mscnn_torch.ops import layers as TL
 from mscnn_torch.utils import fillers as TF
 from mscnn_tpu.ops import conv as JC
 from mscnn_tpu.utils import fillers as JF
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 R = np.random.RandomState
 

@@ -17,6 +17,7 @@ import pytest
 from _torch_net_check import check_both, run_both
 from mscnn_torch.models import netbuilder as TNB
 from mscnn_tpu.models import netbuilder as JNB
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -17,6 +17,7 @@ import pytest
 
 from mscnn_tpu.io import leveldb as JLDB
 from mscnn_torch.io import leveldb as TLDB
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 def _items(case):

@@ -30,6 +30,7 @@ from mscnn_torch.io import lmdb as TL
 from mscnn_torch.models import netbuilder as TNB
 from mscnn_torch.train import generic as TG
 from test_torch_generic_train import NET, SOLVER, _close_tree, _steps
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 ASSETS = os.path.join(os.path.dirname(__file__), "assets", "jpeg")
 

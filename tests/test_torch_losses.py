@@ -23,6 +23,7 @@ from mscnn_tpu.ops import boxes as JB
 from mscnn_tpu.ops import losses as JL
 from mscnn_torch.ops import boxes as TB
 from mscnn_torch.ops import losses as TL
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 DIR = pathlib.Path(__file__).parent / "assets" / "golden_ref"
 MANIFEST = json.loads((DIR / "manifest.json").read_text())

@@ -24,6 +24,7 @@ from mscnn_torch.io import caffemodel as TCM
 from mscnn_torch.models import netbuilder as TNB
 from mscnn_tpu.io import caffemodel as JCM
 from mscnn_tpu.models import netbuilder as JNB
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 R = np.random.RandomState
 

@@ -22,6 +22,7 @@ from mscnn_torch.config import prototxt as TPB
 from mscnn_torch.models import coord_map as TCM
 from mscnn_torch.models import netspec as TNS
 from mscnn_torch.utils import draw as TDR
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 JAX = types.SimpleNamespace(ns=JNS, cm=JCM, pb=JPB, dr=JDR)
 PORT = types.SimpleNamespace(ns=TNS, cm=TCM, pb=TPB, dr=TDR)

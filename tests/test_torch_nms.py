@@ -16,6 +16,7 @@ from mscnn_tpu.ops import nms as JN
 from mscnn_tpu.ops.pallas import nms_kernel as JK
 from mscnn_torch.ops import nms as TN
 from mscnn_torch.ops.kernels import nms_kernel as TK
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 def random_candidates(rng, n=300, img=200.0):

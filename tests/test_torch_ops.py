@@ -19,6 +19,7 @@ from mscnn_tpu.ops import roi as JR
 from mscnn_torch.ops import boxes as TB
 from mscnn_torch.ops import conv as TC
 from mscnn_torch.ops import roi as TR
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 DIR = pathlib.Path(__file__).parent / "assets" / "golden_ref"
 MANIFEST = json.loads((DIR / "manifest.json").read_text())

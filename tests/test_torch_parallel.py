@@ -18,6 +18,7 @@ from mscnn_tpu.parallel import mesh as JM
 from mscnn_torch.parallel import distributed as D
 from mscnn_torch.parallel import mesh as M
 from mscnn_torch.train import train_step as TT
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 CPU = torch.device("cpu")
 ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")

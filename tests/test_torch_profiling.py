@@ -17,6 +17,7 @@ from mscnn_tpu.models import zoo as JZ
 from mscnn_tpu.utils import profiling as JP
 from mscnn_torch.io import bridge
 from mscnn_torch.utils import profiling as P
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 def test_step_timer_stats():

@@ -21,6 +21,7 @@ import torch
 import _torch_jax_draws as JD
 from mscnn_tpu.ops import proposal_target as JP
 from mscnn_torch.ops import proposal_target as TP
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 DIR = pathlib.Path(__file__).parent / "assets" / "golden_ref"
 MANIFEST = json.loads((DIR / "manifest.json").read_text())

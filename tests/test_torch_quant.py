@@ -37,6 +37,7 @@ from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
 from mscnn_torch.ops import quant as TQ
 from mscnn_torch.ops.kernels import int8_kernel as K
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-4, 1e-4

@@ -36,6 +36,7 @@ import torch
 
 from mscnn_tpu.ops import quant as JQ
 from mscnn_torch.ops import quant as TQ
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 EPS = float(np.finfo(np.float32).eps)
 FLIP_GATE = 1e-5

@@ -24,6 +24,7 @@ from mscnn_tpu.models import zoo as JZ
 from mscnn_torch.data import rasterize as TR
 from mscnn_torch.data import synthetic as TS
 from mscnn_torch.models import zoo as TZ
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 DIR = pathlib.Path(__file__).parent / "assets" / "golden_ref_data"
 MANIFEST = json.loads((DIR / "manifest.json").read_text())

@@ -19,6 +19,7 @@ from mscnn_tpu.data import window_file as JW
 from mscnn_torch.data import augment as TA
 from mscnn_torch.data import pipeline as TP
 from mscnn_torch.data import records as TR
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 SIZES = [(48, 64), (37, 53), (70, 90), (40, 60)]
 

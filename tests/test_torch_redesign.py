@@ -31,6 +31,7 @@ from mscnn_torch.io import bridge
 from mscnn_torch.ops import nms as TN
 from mscnn_torch.ops.kernels import conv1_kernel as CK
 from mscnn_torch.ops.kernels import nms_kernel as NK
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 NEG_INF = np.float32(-1e30)
 

@@ -22,6 +22,7 @@ from mscnn_torch import inference as TI
 from mscnn_torch.data.resize import resize_bilinear_u8
 from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 def check(src_hw, dst_hw, channels=3, seed=0, binary=False):

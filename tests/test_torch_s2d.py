@@ -39,6 +39,7 @@ from mscnn_torch.models import zoo as TZ
 from mscnn_torch.ops import conv as C
 from mscnn_torch.ops import s2d as TS2D
 from test_torch_dp_step import nonzero_biases
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 def t(a):

@@ -26,6 +26,7 @@ from mscnn_torch.io import aot as TA
 from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
 from test_torch_aot import few_threads  # noqa: F401
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 SPEC = TI.DetectSpec(max_per_class=8)
 NAMES = ["bg", "car", "van"]

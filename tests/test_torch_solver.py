@@ -24,6 +24,7 @@ import torch
 from mscnn_tpu.train import solver as JS
 from mscnn_torch.io import bridge
 from mscnn_torch.train import solver as TS
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 RULES = ("sgd", "nesterov", "adagrad", "rmsprop", "adadelta", "adam")
 POLICIES = {

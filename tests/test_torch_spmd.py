@@ -40,11 +40,13 @@ within 2.1e-3 of a move and 6e-4 relative L2 of the one-process step
 """
 
 import dataclasses
+import functools
 import json
 import os
 import shutil
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -71,6 +73,7 @@ from mscnn_torch.train import solver as TS
 from mscnn_torch.train import train_step as TT
 from test_torch_dp_step import close_metrics, close_state, free_port, head_sizes, \
     nonzero_biases, np_tree, port_state_in_jax_layout
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 CHILD = os.path.join(os.path.dirname(__file__), "_torch_spmd_child.py")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -158,6 +161,9 @@ def cleanup(tmp):
 
 @pytest.fixture(scope="module")
 def mesh22(tmp_path_factory):
+    """The four ranks, started once for the module with both stages' cases,
+    and each stage's references, computed when its test first asks
+    (`want`), while the ranks run; `outs` waits for the ranks."""
     tmp = str(tmp_path_factory.mktemp("spmd22"))
     cj, ct = tiny()
     pj = nonzero_biases(TM.init_params(torch.Generator().manual_seed(5), ct,
@@ -185,48 +191,63 @@ def mesh22(tmp_path_factory):
     pt = bridge.from_jax_params(pj, ct)
     job = start(tmp, 4, {"params": {"tiny": numpy_tree(pt)}, "cases": inputs},
                 {"cases": cases})
-    try:
-        want = {}
-        # (i) stage 1: JAX's spmd step on a (2, 2) mesh
-        tj = JT.TrainSpec(**tspec_kw(1))
-        mesh = jax_make_mesh((2, 2), ("data", "space"), jax.devices()[:4])
-        key, batches = jobs["stage1"]
-        step = JSP.make_train_step_spmd(cj, tj, sj, mesh, lr_mults=lm, decay_mults=dm,
-                                        donate=False)(jax.tree.map(jnp.asarray, batches[0]))
-        state = JSP.place_state({"params": pj, "solver": JS.init_state(pj, sj)}, mesh)
+    done = {}
+
+    def jax_steps(stage):
+        """JAX's states and metrics: stage 1 through its spmd step on a
+        (2, 2) mesh, stage 2 through its unsharded step on the full batch."""
+        tj = JT.TrainSpec(**tspec_kw(stage))
+        key, batches = jobs[f"stage{stage}"]
+        state = {"params": pj, "solver": JS.init_state(pj, sj)}
+        if stage == 1:
+            mesh = jax_make_mesh((2, 2), ("data", "space"), jax.devices()[:4])
+            step = JSP.make_train_step_spmd(cj, tj, sj, mesh, lr_mults=lm, decay_mults=dm,
+                                            donate=False)(
+                jax.tree.map(jnp.asarray, batches[0]))
+            state = JSP.place_state(state, mesh)
+            place = functools.partial(JSP.place_batch, mesh=mesh)
+        else:
+            step = JT.make_train_step(cj, tj, sj, lr_mults=lm, decay_mults=dm,
+                                      donate=False)
+            place = lambda b: b   # noqa: E731
         out = []
         for s, b in enumerate(batches):
-            state, m = step(state, JSP.place_batch(jax.tree.map(jnp.asarray, b), mesh),
+            state, m = step(state, place(jax.tree.map(jnp.asarray, b)),
                             jax.random.fold_in(key, s))
             out.append((np_tree(state), np_tree(m)))
-        want["stage1"] = out
-        # (ii) stage 2: JAX's unsharded step on the full batch
-        tj = JT.TrainSpec(**tspec_kw(2))
-        key, batches = jobs["stage2"]
-        step = JT.make_train_step(cj, tj, sj, lr_mults=lm, decay_mults=dm, donate=False)
-        state = {"params": pj, "solver": JS.init_state(pj, sj)}
-        out = []
-        for s, b in enumerate(batches):
-            state, m = step(state, jax.tree.map(jnp.asarray, b), jax.random.fold_in(key, s))
-            out.append((np_tree(state), np_tree(m)))
-        want["stage2"] = out
-        # and the port's own step on the full batch (module notes)
-        for stage in (1, 2):
-            want[f"stage{stage}_port"] = one_process(
+        return out
+
+    def want(name):
+        if name not in done:
+            stage = int(name[5])
+            done[name] = one_process(
                 {"steps": STEPS}, ct, TT.TrainSpec(**tspec_kw(stage)), pt,
-                jobs[f"stage{stage}"][1], inputs[f"stage{stage}"]["draws"], None)
-        outs = finish(job)
-    finally:
-        cleanup(tmp)
+                jobs[f"stage{stage}"][1], inputs[f"stage{stage}"]["draws"], None) \
+                if name.endswith("_port") else jax_steps(stage)
+        return done[name]
+
+    def outs():
+        if "outs" not in done:
+            done["outs"] = finish(job)
+        return done["outs"]
+
     frozen = [n for n, p in lm.items() if all(v == 0.0 for v in p.values())]
-    return outs, want, pj, frozen
+    try:
+        yield types.SimpleNamespace(want=want, outs=outs, pj=pj, frozen=frozen)
+    finally:
+        for p in job[0]:   # ranks a failed test left running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        cleanup(tmp)
 
 
 @pytest.mark.parametrize("stage", [1, 2], ids=["stage1_vs_jax_spmd",
                                                "stage2_vs_jax_full_batch"])
 def test_mesh22_matches_jax(mesh22, stage):
-    outs, want, pj, frozen = mesh22
     name = f"stage{stage}"
+    want = {name: mesh22.want(name), f"{name}_port": mesh22.want(f"{name}_port")}
+    outs, pj, frozen = mesh22.outs(), mesh22.pj, mesh22.frozen
     ranks_identical(outs, name)
     got = outs[0][name]
     assert len(got["digest"]) == STEPS

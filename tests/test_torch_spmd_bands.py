@@ -45,6 +45,7 @@ from mscnn_torch.train import train_step as TT
 from test_torch_dp_step import close_metrics, close_state, nonzero_biases, rel_l2
 from test_torch_spmd import SOLVER, FC, cleanup, finish, numpy_tree, one_process, \
     ranks_identical, start, tiny, tspec_kw
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 def labels_for(ct, batch, h):

@@ -25,6 +25,7 @@ from mscnn_tpu.data import window_file as JW
 from mscnn_torch import cli as TCLI
 from mscnn_torch import tools as TT
 from mscnn_torch.data import image_io
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 @pytest.fixture(scope="module")

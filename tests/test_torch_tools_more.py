@@ -39,18 +39,9 @@ from mscnn_torch import tools as TT
 from mscnn_torch.io import bridge
 from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 BLOBS = ["conv5_3", "LFCN_1_5x5", "conv4_3", "LFCN_2_5x5", "pool1"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for the module: the tier-1 run's six workers
-    share eight cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield 2
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

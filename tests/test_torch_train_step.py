@@ -50,6 +50,7 @@ from mscnn_torch.models import mscnn as TM
 from mscnn_torch.models import zoo as TZ
 from mscnn_torch.train import solver as TS
 from mscnn_torch.train import train_step as TT
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 B = 2
 SOLVER = dict(type="sgd", base_lr=1e-3, lr_policy="fixed", momentum=0.9,

@@ -10,6 +10,7 @@ import pytest
 from mscnn_torch.evaluation import widerface_eval as TW
 from mscnn_tpu.evaluation import widerface_eval as JW
 from test_widerface_eval import _official_mat_fixture
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 def assert_same(got, want):

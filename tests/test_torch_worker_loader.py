@@ -28,6 +28,7 @@ from mscnn_torch.data import pipeline as TP
 from mscnn_torch.data import records as TR
 from mscnn_torch.data.augment import AugmentSpec
 from mscnn_torch.train import train_step as T
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 
 @pytest.fixture(scope="module")

@@ -32,6 +32,7 @@ from mscnn_torch.models import zoo as TZ
 from mscnn_torch.train import loop as TLP
 from mscnn_torch.train.solver import SolverSpec
 from mscnn_torch.train.train_step import TrainSpec
+from _torch_threads import few_threads  # noqa: F401  (autouse: one thread)
 
 TINY_DEPLOY = """
 name: "tiny_deploy"
