@@ -235,9 +235,8 @@ Phases (any failure exits non-zero, before the result line):
                 `cli train` (200 iterations: the loss must fall to half) and
                 `cli test`; the step ms, host batch ms and `cli` iteration
                 ms beside phase 18's ImageData figures; (e) a solver with
-                `snapshot_format: HDF5` fails with the ImportError that names
-                h5py where h5py is not installed (and writes the .h5 pair
-                where it is), and in no other way; (f) none of K1-K4
+                `snapshot_format: HDF5` writes the .h5 pair (io/hdf5.py;
+                phase 24 (c) resumes from such a pair); (f) none of K1-K4
                 launched, no jax, mscnn_tpu or cv2 module loaded;
  20. tools  -- (a) data/jpeg_encode.py on the committed sources of
                 tests/assets/jpeg_encode/ (colour and gray, 1x1-37x29, 8
@@ -259,8 +258,8 @@ Phases (any failure exits non-zero, before the result line):
                 decode / resize / forward ms an image and the peak memory;
                 the tiny config's blobs on the card equal the CPU's within
                 rtol 1e-5 / atol 1e-5 * max|ref|; `cli extract_features`
-                raises the ImportError naming h5py before it reads an image
-                (with h5py: its file equals the forward); (f) none of K1-K4
+                writes its file (io/hdf5.py), equal to the forward on two
+                scenes; (f) none of K1-K4
                 launched, no jax, mscnn_tpu or cv2 module loaded, the phase
                 within 60 s;
  21. data parallel -- (a) the flagship stage-2 step (768x1024, batch 4,
@@ -320,8 +319,30 @@ Phases (any failure exits non-zero, before the result line):
                 pre-top-k propose, the merged heads, the ROI variants, the
                 per-image gathers and the chunked heads equal to
                 production's; finite APs; stage 2 warm-started from stage
-                1's last snapshot), under 240 s. No jax or mscnn_tpu module
-                is loaded after any phase.
+                1's last snapshot), under 240 s;
+ 24. the MNIST example as written -- (a) `python -m
+                mscnn_torch.examples.mnist.make_data` at its defaults (4096
+                + 512 digits drawn by data/text.py, written by io/hdf5.py)
+                in a subprocess, timed: the files' labels equal a numpy
+                replay of its draws; io/hdf5.py's MB/s written and read on
+                the training split; (b) `cli train` on a copy of
+                mscnn_torch/examples/mnist/lenet_solver.prototxt (its
+                HDF5Data layers untouched, 200 iterations, a snapshot at
+                100 and 200, `snapshot_format: HDF5`, deterministic mode):
+                the loss must fall to half; `cli test` of the
+                .caffemodel.h5 (finite; it reads ip1 by the net's hints),
+                and the file read as written scoring above 0.8 on test.h5;
+                the step (out of deterministic mode), host batch and `cli`
+                iteration ms beside phases 18 and 19; (c) the run resumed from the
+                .caffemodel.h5 / .solverstate.h5 pair at 100 (the batches
+                it drew before skipped) bit-equal to the uninterrupted run
+                at 200; (d) `cli extract_features` on the flagship
+                (768x2560, float32, seeded weights) over two scenes into a
+                .h5, read back by io/hdf5.py equal to `feature_forward`
+                (rtol 1e-5 / atol 1e-5 * max|ref|); (e) none of K1-K4
+                launched, no jax, mscnn_tpu, cv2 or h5py module loaded,
+                the phase within 120 s. No jax or mscnn_tpu module is
+                loaded after any phase.
 
 The lines before the last give the card's name and power limit
 (nvidia-smi) and one JSON object listing every kernel, each with its
@@ -2725,7 +2746,6 @@ def caffe_databases(dev, counts, zero_counts, gn):
     `test` on `Data` layers, and snapshot_format HDF5. No TPU kernel lies
     on this path. gn: phase 18's figures. Returns the phase's figures."""
     import contextlib
-    import importlib.util
     import io
 
     import numpy as np
@@ -2895,20 +2915,13 @@ def caffe_databases(dev, counts, zero_counts, gn):
             f.write(PB.emit_prototxt(dict(fields, max_iter=2, snapshot=2, display=0,
                                           test_interval=0, snapshot_format="HDF5",
                                           snapshot_prefix=os.path.join(root, "h5"))))
-        has_h5py = importlib.util.find_spec("h5py") is not None
-        try:
-            rc, said, _ = run("train", "--solver", h5_solver)
-            raised = None
-        except ImportError as e:
-            raised = str(e)
-        wrote = os.path.exists(os.path.join(root, "h5_iter_2.caffemodel.h5"))
-        if has_h5py and (raised is not None or rc != 0 or not wrote):
-            fail(f"databases: an HDF5 snapshot with h5py installed: {raised or rc}")
-        if not has_h5py and (raised is None or "h5py" not in raised):
-            fail(f"databases: snapshot_format HDF5 without h5py did not raise the "
-                 f"ImportError naming h5py (raised {raised!r})")
-        out["hdf5"] = "wrote the .h5 pair" if has_h5py else f"ImportError: {raised}"
-        log(f"databases (e): snapshot_format HDF5 -> {out['hdf5']}")
+        rc, said, _ = run("train", "--solver", h5_solver)
+        pair = [os.path.join(root, f"h5_iter_2.{k}.h5") for k in ("caffemodel", "solverstate")]
+        if rc != 0 or not all(os.path.exists(q) for q in pair):
+            fail(f"databases: snapshot_format HDF5 exited {rc} without the .h5 pair")
+        out["hdf5"] = "wrote the .h5 pair (io/hdf5.py)"
+        log(f"databases (e): snapshot_format HDF5 -> {out['hdf5']}; phase 24 (c) "
+            f"resumes from such a pair")
 
         # -- (f) no kernel, no jax, mscnn_tpu or cv2 ---------------------------
         out["launches"] = counts()
@@ -2964,6 +2977,7 @@ def tools(dev, counts, zero_counts, decode_ms=None):
     from mscnn_torch.data import jpeg
     from mscnn_torch.data import jpeg_encode as JE
     from mscnn_torch.data import records as R
+    from mscnn_torch.io import hdf5
     from mscnn_torch.io import leveldb as LDB
     from mscnn_torch.io import lmdb as L
     from mscnn_torch.models import mscnn as M
@@ -3147,48 +3161,28 @@ def tools(dev, counts, zero_counts, decode_ms=None):
         log(f"tools (d): the tiny config's {len(tblobs)} blobs on the card equal the "
             f"CPU's within rtol {TOOLS_TOL} / atol {TOOLS_TOL} * max|ref| (max |err| "
             f"{worst:.2e} of max|ref|), two scenes")
-        # cli extract_features: the ImportError naming h5py before any image is
-        # read, or (with h5py) the file, read back equal to the forward's blobs
-        reads = []
-        real_imread = image_io.imread
-
-        def counted(path):
-            reads.append(path)
-            return real_imread(path)
-
-        has_h5py = importlib.util.find_spec("h5py") is not None
+        # cli extract_features: the file (io/hdf5.py), read back equal to the
+        # forward's blobs
         h5 = os.path.join(root, "features.h5")
-        image_io.imread = counted
-        try:
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                rc = cli.main(["extract_features", "--zoo", "tiny-test", "--image-dir",
-                               kitti, "--blobs", ",".join(tblobs), "--iterations", "2",
-                               "-o", h5])
-            raised = None
-        except ImportError as e:
-            raised = str(e)
-        finally:
-            image_io.imread = real_imread
-        if not has_h5py and (raised is None or "h5py" not in raised or reads):
-            fail(f"tools: cli extract_features without h5py: {raised!r} after "
-                 f"{len(reads)} image reads")
-        if has_h5py:
-            import h5py
-            cp = M.init_params(torch.Generator().manual_seed(0), tcfg, device=dev)
-            fc = TL.feature_forward(cp, tcfg, tblobs)
-            with h5py.File(h5, "r") as f:
-                for i, name in enumerate(scenes[:2]):
-                    x = torch.from_numpy(TL.feature_input(decoded[name], tcfg))[None]
-                    want = {k: v[0].float().cpu().numpy() for k, v in fc(x.to(dev)).items()}
-                    if rc != 0 or list(f) != sorted(tblobs) or any(
-                            not np.allclose(f[k][i], want[k], rtol=TOOLS_TOL,
-                                            atol=TOOLS_TOL * np.abs(want[k]).max())
-                            for k in want):
-                        fail("tools: cli extract_features' file differs from the forward")
-        out["extract_cli"] = "wrote the HDF5 file" if has_h5py else f"ImportError: {raised}"
-        log(f"tools (d): cli extract_features -> {out['extract_cli']} "
-            f"({len(reads)} images read first)")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["extract_features", "--zoo", "tiny-test", "--image-dir",
+                           kitti, "--blobs", ",".join(tblobs), "--iterations", "2",
+                           "-o", h5])
+        cp = M.init_params(torch.Generator().manual_seed(0), tcfg, device=dev)
+        fc = TL.feature_forward(cp, tcfg, tblobs)
+        with hdf5.File(h5, "r") as f:
+            for i, name in enumerate(scenes[:2]):
+                x = torch.from_numpy(TL.feature_input(decoded[name], tcfg))[None]
+                want = {k: v[0].float().cpu().numpy() for k, v in fc(x.to(dev)).items()}
+                if rc != 0 or f.keys() != sorted(tblobs) or any(
+                        not np.allclose(f[k][i], want[k], rtol=TOOLS_TOL,
+                                        atol=TOOLS_TOL * np.abs(want[k]).max())
+                        for k in want):
+                    fail("tools: cli extract_features' file differs from the forward")
+        out["extract_cli"] = "wrote the HDF5 file (io/hdf5.py)"
+        log(f"tools (d): cli extract_features -> {out['extract_cli']}, equal to the "
+            f"forward on two scenes")
 
         # -- (f) no kernel, no jax, mscnn_tpu or cv2 ---------------------------
         out["launches"] = counts()
@@ -4612,6 +4606,280 @@ def examples_check(name, res, env):
     return None
 
 
+# -- phase 24: the MNIST example as written ------------------------------------
+
+MNIST_DIR = os.path.join("mscnn_torch", "examples", "mnist")
+MNIST_SPLITS = (("train", 4096), ("test", 512))     # make_data's defaults
+MNIST_ITERS = 200
+MNIST_LIMIT_S = 120
+
+
+def mnist_replay_labels():
+    """make_data's labels from its draws alone (digit, scale, thickness,
+    dx, dy an image, from RandomState(0)), drawing nothing."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    out = {}
+    for split, n in MNIST_SPLITS:
+        labels = np.zeros(n, np.float32)
+        for i in range(n):
+            labels[i] = rng.randint(10)
+            rng.uniform(0.55, 0.85)
+            rng.randint(1, 3)
+            rng.randint(-3, 4)
+            rng.randint(-3, 4)
+        out[split] = labels
+    return out
+
+
+def mnist_example(dev, counts, zero_counts, gn, cdb):
+    """Phase 24 (module notes): make_data, LeNet through its own HDF5Data
+    layers, an HDF5 snapshot resumed, extract_features to HDF5 -- the MNIST
+    example as the repository writes it, on io/hdf5.py and data/text.py.
+    No TPU kernel lies on this path. gn, cdb: phases 18 and 19's figures.
+    Returns the phase's figures."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from mscnn_torch import cli
+    from mscnn_torch import tools as TL
+    from mscnn_torch.config import prototxt as PB
+    from mscnn_torch.data import image_io
+    from mscnn_torch.data import sources as SRC
+    from mscnn_torch.io import checkpoint as CKPT
+    from mscnn_torch.io import hdf5
+    from mscnn_torch.io import hdf5_snapshot as H5S
+    from mscnn_torch.models import zoo
+    from mscnn_torch.train import generic as G
+    from mscnn_torch.train import loop as LP
+    from mscnn_torch.train import solver as S
+
+    def run(*argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(argv))
+        return rc, buf.getvalue(), time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    out = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_mnist_")
+    zero_counts()
+    try:
+        # -- (a) make_data at its defaults, in a subprocess ------------------
+        t0 = time.perf_counter()
+        made = subprocess.run([sys.executable, "-m", "mscnn_torch.examples.mnist.make_data"],
+                              capture_output=True, text=True, timeout=120, cwd=REPO)
+        out["make_data_s"] = time.perf_counter() - t0
+        if made.returncode != 0:
+            fail(f"mnist: make_data exited {made.returncode}: {made.stderr[-2000:]}")
+        want = mnist_replay_labels()
+        arrays = {}
+        for split, n in MNIST_SPLITS:
+            h5 = os.path.join(REPO, MNIST_DIR, f"{split}.h5")
+            with open(os.path.join(REPO, MNIST_DIR, f"{split}.txt")) as f:
+                listed = f.read()
+            with hdf5.File(h5, "r") as f:
+                data, label = np.asarray(f["data"]), np.asarray(f["label"])
+                keys = f.keys()
+            if listed != h5 + "\n" or keys != ["data", "label"] or \
+                    data.shape != (n, 1, 28, 28) or data.dtype != np.float32 or \
+                    not np.array_equal(data * 256, np.rint(data * 256)) or \
+                    data.min() != 0 or data.max() > 255 / 256:
+                fail(f"mnist: make_data's {split}.h5 holds {keys} {data.shape} "
+                     f"{data.dtype} in [{data.min()}, {data.max()}]")
+            if not np.array_equal(label, want[split]):
+                fail(f"mnist: make_data's {split} labels differ from the draws' replay")
+            arrays[split] = {"data": data, "label": label}
+        # io/hdf5.py's rates on the training split (12.8 MB)
+        path = os.path.join(root, "rate.h5")
+        mb = sum(v.nbytes for v in arrays["train"].values()) / 1e6
+        t0 = time.perf_counter()
+        SRC.write_hdf5(path, arrays["train"])
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with hdf5.File(path, "r") as f:
+            back = {k: np.asarray(f[k]) for k in f.keys()}
+        read_s = time.perf_counter() - t0
+        if any(not np.array_equal(back[k], v) for k, v in arrays["train"].items()):
+            fail("mnist: io/hdf5.py read back other arrays than it wrote")
+        out["hdf5_mb_s"] = {"write": mb / write_s, "read": mb / read_s, "mb": mb}
+        log(f"mnist (a): make_data at its defaults (4096 + 512 images) in "
+            f"{out['make_data_s']:.2f} s (a subprocess, interpreter start included); "
+            f"labels equal the draws' replay; io/hdf5.py {mb:.1f} MB written at "
+            f"{mb / write_s:.0f} MB/s, read at {mb / read_s:.0f} MB/s")
+
+        # -- (b) cli train on the port's LeNet, its HDF5Data untouched --------
+        net_path = os.path.join(REPO, MNIST_DIR, "lenet.prototxt")
+        fields = PB.parse_prototxt_file(os.path.join(REPO, MNIST_DIR, "lenet_solver.prototxt"))
+        fields.update(net=net_path, max_iter=MNIST_ITERS, snapshot=MNIST_ITERS // 2,
+                      display=25, snapshot_format="HDF5",
+                      snapshot_prefix=os.path.join(root, "lenet"))
+        solver = os.path.join(root, "lenet_solver.prototxt")
+        with open(solver, "w") as f:
+            f.write(PB.emit_prototxt(fields))
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        try:
+            rc, said, train_s = run("train", "--solver", solver)
+            losses = [float(x) for x in re.findall(r"loss = ([-+0-9.e]+)", said)]
+            snaps = {it: os.path.join(root, f"lenet_iter_{it}")
+                     for it in (MNIST_ITERS // 2, MNIST_ITERS)}
+            pairs = [b + k for b in snaps.values()
+                     for k in (".caffemodel.h5", ".solverstate.h5")]
+            if rc != 0 or len(losses) != MNIST_ITERS // 25 or \
+                    not all(os.path.exists(q) for q in pairs):
+                fail(f"mnist: cli train exited {rc} with losses {losses}")
+            if not all(math.isfinite(v) for v in losses) or \
+                    not losses[-1] < 0.5 * losses[0]:
+                fail(f"mnist: LeNet's loss did not fall: {losses}")
+            rc, said, _ = run("test", "--solver", solver, "--weights",
+                              snaps[MNIST_ITERS] + ".caffemodel.h5", "--iterations", "4")
+            test = json.loads(said.strip().splitlines()[-1])
+            if rc != 0 or not all(math.isfinite(v) for v in test.values()):
+                fail(f"mnist: cli test exited {rc}: {test}")
+            # cli test warm-starts by the net's hints, the snapshot writes ip1 by
+            # the MS-CNN name rule (ROADMAP Queue 3, as JAX); read as written:
+            sspec = S.spec_from_prototxt_fields(fields)
+            tstate, _, tsource, tnet = G.setup(net_path, sspec, phase="TEST", device=dev)
+            written = CKPT.restore_params(snaps[MNIST_ITERS] + ".caffemodel.h5",
+                                          tstate["params"], layouts=tnet.param_layouts())
+            evaluate = G.make_eval_step(tnet)
+            acc = statistics.mean(float(evaluate(written, tsource())["accuracy"])
+                                  for _ in range(int(fields.get("test_iter", 8))))
+            if not acc > 0.8:
+                fail(f"mnist: the .caffemodel.h5 read as written scores {acc} on test.h5")
+            log(f"mnist (b): LeNet on its HDF5Data layers: cli train {MNIST_ITERS} "
+                f"iterations in {train_s:.1f} s (deterministic mode), loss "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}; cli test of the .caffemodel.h5 "
+                f"{test} (ip1 read by the net's hints); read as written, accuracy "
+                f"{acc:.4f} on test.h5")
+
+            # -- (c) resume from the .solverstate.h5 at MNIST_ITERS // 2 -------
+            half = MNIST_ITERS // 2
+            state, step, source, net = G.setup(
+                net_path, sspec, seed=int(fields.get("random_seed", 0)), device=dev)
+            layouts = net.param_layouts()
+            for _ in range(half):           # the batches the run drew before it
+                source()
+            params = CKPT.restore_params(snaps[half] + ".caffemodel.h5", state["params"],
+                                         layouts=layouts)
+            solver_state, it = H5S.load_hdf5_solverstate(
+                snaps[half] + ".solverstate.h5", state["solver"], layouts=layouts)
+            spec = LP.LoopSpec(max_iter=MNIST_ITERS, display=0, snapshot=0,
+                               snapshot_after_train=False)
+            resumed = LP.solve(step, {"params": params, "solver": solver_state},
+                               source, spec)
+            full = CKPT.restore_params(snaps[MNIST_ITERS] + ".caffemodel.h5",
+                                       state["params"], layouts=layouts)
+            full_solver, full_it = H5S.load_hdf5_solverstate(
+                snaps[MNIST_ITERS] + ".solverstate.h5", state["solver"], layouts=layouts)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        differ = [(n, k) for n in full for k in full[n]
+                  if not torch.equal(resumed["params"][n][k], full[n][k])]
+        differ += [("h1", n, k) for n in full_solver["h1"] for k in full_solver["h1"][n]
+                   if not torch.equal(resumed["solver"]["h1"][n][k],
+                                      full_solver["h1"][n][k])]
+        if it != half or full_it != MNIST_ITERS or \
+                int(resumed["solver"]["it"]) != MNIST_ITERS or differ:
+            fail(f"mnist: the run resumed from iteration {it} differs from the "
+                 f"uninterrupted one at {full_it}: {differ[:5]}")
+        out["resume"] = f"bit-equal at {MNIST_ITERS} from the .solverstate.h5 at {half}"
+        log(f"mnist (c): resumed from lenet_iter_{half}.solverstate.h5: params and "
+            f"history bit-equal to the uninterrupted run's at {MNIST_ITERS}")
+        # the step and the host batch, out of deterministic mode as in phases 18-19
+        state, step, source, net = G.setup(net_path, sspec, seed=3, device=dev)
+        t0 = time.perf_counter()
+        batches = [source() for _ in range(20)]
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) / 20 * 1e3
+        for b in batches[:5]:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(50):
+            state, _ = step(state, batches[i % 20])
+        torch.cuda.synchronize()
+        out["lenet"] = {"iter_ms": (time.perf_counter() - t0) / 50 * 1e3,
+                        "host_batch_ms": batch_ms,
+                        "cli_iter_ms": train_s / MNIST_ITERS * 1e3,
+                        "loss": [losses[0], losses[-1]], "test": test,
+                        "test_accuracy_as_written": acc}
+        g18, g19 = gn["lenet"], cdb["lenet"]
+        log(f"mnist (b): step {out['lenet']['iter_ms']:.3f} ms out of deterministic mode "
+            f"(ImageData, phase 18: "
+            f"{g18['iter_ms']:.3f}; Data, phase 19: {g19['iter_ms']:.3f}), host batch "
+            f"{batch_ms:.3f} ms ({g18['host_batch_ms']:.2f}; {g19['host_batch_ms']:.2f}), "
+            f"cli {out['lenet']['cli_iter_ms']:.2f} ms an iteration "
+            f"({g18['cli_iter_ms']:.2f}; {g19['cli_iter_ms']:.2f}; this run's in "
+            f"deterministic mode, its set-up and 4 HDF5 snapshots included)")
+
+        # -- (d) cli extract_features at the flagship's widths into a .h5 ---
+        cfg = zoo.get(FLAGSHIP, deploy=True)
+        blobs = ["conv4_3"] + [br.name for br in cfg.branches][:2]
+        imgs = os.path.join(root, "images")
+        os.mkdir(imgs)
+        kitti = os.path.join(TOOLS_ASSETS, "jpeg", "kitti")
+        for name in sorted(n for n in os.listdir(kitti) if n.endswith(".jpg"))[:2]:
+            shutil.copy(os.path.join(kitti, name), imgs)
+        h5 = os.path.join(root, "features.h5")
+        rc, said, feat_s = run("extract_features", "--zoo", FLAGSHIP, "--image-dir", imgs,
+                               "--blobs",
+                               ",".join(blobs), "-o", h5)
+        params = cli._seed_params(cfg, None, dev)
+        fwd = TL.feature_forward(params, cfg, blobs)
+        t0 = time.perf_counter()
+        with hdf5.File(h5, "r") as f:
+            got = {k: np.asarray(f[k]) for k in f.keys()}
+        feat_read_s = time.perf_counter() - t0
+        worst = 0.0
+        for i, name in enumerate(sorted(os.listdir(imgs))):
+            x = TL.feature_input(image_io.imread(os.path.join(imgs, name)), cfg)
+            with torch.no_grad():
+                want = {k: v[0].float().cpu().numpy()
+                        for k, v in fwd(torch.from_numpy(x)[None].to(dev)).items()}
+            for k, v in want.items():
+                if k not in got or got[k].shape[1:] != v.shape:
+                    fail(f"mnist: extract_features' {k} is missing or misshapen")
+                scale = float(np.abs(v).max())
+                worst = max(worst, float(np.abs(got[k][i] - v).max()) / scale)
+                if not np.allclose(got[k][i], v, rtol=TOOLS_TOL, atol=TOOLS_TOL * scale):
+                    fail(f"mnist: extract_features' {k} of {name} differs from "
+                         f"feature_forward's beyond rtol {TOOLS_TOL}")
+        feat_mb = sum(v.nbytes for v in got.values()) / 1e6
+        if rc != 0 or sorted(got) != sorted(blobs):
+            fail(f"mnist: cli extract_features exited {rc} with {sorted(got)}")
+        out["extract"] = {"seconds": feat_s, "mb": feat_mb, "read_mb_s": feat_mb / feat_read_s,
+                          "max_rel_err": worst}
+        log(f"mnist (d): cli extract_features on {FLAGSHIP} (768x2560, float32) over "
+            f"two scenes in {feat_s:.1f} s: {', '.join(f'{k} {list(v.shape)}' for k, v in got.items())}"
+            f" ({feat_mb:.1f} MB), read back by io/hdf5.py at {feat_mb / feat_read_s:.0f} "
+            f"MB/s equal to feature_forward (max |err| {worst:.2e} of max|ref|)")
+
+        # -- (e) no kernel, no jax, mscnn_tpu, cv2 or h5py ---------------------
+        out["launches"] = counts()
+        if any(out["launches"].values()):
+            fail(f"mnist: a TPU-kernel port launched on a path without one: "
+                 f"{out['launches']}")
+        loaded = [m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "mscnn_tpu", "cv2", "h5py")]
+        if loaded:
+            fail(f"mnist: {sorted(loaded)[:5]} imported")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    if out["seconds"] > MNIST_LIMIT_S:
+        fail(f"mnist: phase 24 took {out['seconds']:.1f} s ({MNIST_LIMIT_S} s at most)")
+    log(f"mnist (e): no K1-K4 launch ({out['launches']}), no jax, mscnn_tpu, cv2 or "
+        f"h5py module; phase 24 took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5763,6 +6031,9 @@ def main():
     conv1_min_share = min(conv1_min_share, exr["conv1_share"])
     int8_max_err = max(int8_max_err, exr["int8_err"])
 
+    # -- 24. the MNIST example as written: make_data, HDF5Data, HDF5 snapshots --
+    mn = mnist_example(dev, counts, zero_counts, gn, cdb)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -5868,6 +6139,18 @@ def main():
         f"{ex['synthetic_e2e']['ap_int8']} (each launch held inline: the times include "
         f"the checks); phase 23 {exr['seconds']:.1f} s")
 
+    ml = mn["lenet"]
+    log(f"mnist on {card}: make_data {mn['make_data_s']:.2f} s at its defaults; "
+        f"io/hdf5.py {mn['hdf5_mb_s']['write']:.0f} MB/s written, "
+        f"{mn['hdf5_mb_s']['read']:.0f} MB/s read ({mn['hdf5_mb_s']['mb']:.1f} MB), "
+        f"features {mn['extract']['read_mb_s']:.0f} MB/s read ({mn['extract']['mb']:.1f} "
+        f"MB); LeNet on HDF5Data: step {ml['iter_ms']:.3f} ms, host batch "
+        f"{ml['host_batch_ms']:.3f} ms, cli {ml['cli_iter_ms']:.2f} ms an iteration "
+        f"(ImageData {ln['iter_ms']:.3f} / {ln['host_batch_ms']:.2f} / "
+        f"{ln['cli_iter_ms']:.2f}; Data {dl['iter_ms']:.3f} / {dl['host_batch_ms']:.2f} / "
+        f"{dl['cli_iter_ms']:.2f}), loss {ml['loss'][0]:.4f} -> {ml['loss'][1]:.4f}, "
+        f"test {ml['test']}; resume {mn['resume']}; phase 24 {mn['seconds']:.1f} s")
+
     def examples_launches(k):
         """The kernel's launches in each run of phase 23."""
         return {tag: v[k] for tag, v in exr["launches"].items()}
@@ -5918,6 +6201,7 @@ def main():
          "launches_data_parallel": dp_launches("nms"),
          "launches_spmd": spmd_launches("nms"),
          "launches_examples": examples_launches("nms"),
+         "launches_mnist": mn["launches"]["nms"],
          "op": "mscnn::nms_xywh", "op_overhead_us": ep["op_overhead_us"]["nms_xywh"],
          "train": {tag: {"shape": [BATCH, fcfg.proposal.max_nms_num,
                                    fcfg.proposal.max_out], "kept": v[4],
@@ -5947,6 +6231,7 @@ def main():
          "launches_data_parallel": dp_launches("conv1_pool"),
          "launches_spmd": spmd_launches("conv1_pool"),
          "launches_examples": examples_launches("conv1_pool"),
+         "launches_mnist": mn["launches"]["conv1_pool"],
          "op": "mscnn::conv1_pool", "op_overhead_us": ep["op_overhead_us"]["conv1_pool"],
          "train_entry_min_bit_equal_share": tr["k2_share"],
          "launches_train_pallas_tiny": k2_train_launches,
@@ -5976,6 +6261,7 @@ def main():
          "launches_data_parallel": dp_launches("int8_gemm"),
          "launches_spmd": spmd_launches("int8_gemm"),
          "launches_examples": examples_launches("int8_gemm"),
+         "launches_mnist": mn["launches"]["int8_gemm"],
          "op": "mscnn::int8_conv", "op_overhead_us": ep["op_overhead_us"]["int8_conv"],
          "per_step": "sum of the 17 launches of one int8 deploy step; no one "
                      "PyTorch call computes an int8 conv with its epilogue, "
@@ -5991,6 +6277,7 @@ def main():
          "launches_data_parallel": dp_launches("conv1_v5"),
          "launches_spmd": spmd_launches("conv1_v5"),
          "launches_examples": examples_launches("conv1_v5"),
+         "launches_mnist": mn["launches"]["conv1_v5"],
          "min_bit_equal_share": k3_min_share,
          "ms": k3["1x768x2560"]["kernel"][f"{default_mode}_{th0}x{tq0}"],
          "plain_ms": k3["1x768x2560"]["plain"][default_mode],

@@ -45,7 +45,7 @@ Caffe database to a record shard), `compute_mean`, `resize_images` and
 `cmd_resize_images` / `cmd_extract_features` (cli.py:1169-1182,
 :1220-1232, :1053-1072, :1235-1266) over `tools.py`; `extract_features`
 runs the trunk and heads of --model / --zoo (a cascade's base) in
-float32 on the card and writes HDF5, so it needs h5py. The prototxt
+float32 on the card and writes HDF5 (`io/hdf5.py`). The prototxt
 tools `summary` (shapes from the generic net builder's `Net.init` on
 --device), `draw` (Graphviz DOT, `utils/draw.py`), `upgrade_net_proto` /
 `upgrade_solver_proto` (`config/upgrade.py`) and `plot_log` (a PNG of a
@@ -730,8 +730,8 @@ def cmd_time(args):
 
 def _read_image(path):
     """The decoded image, or None where the file does not decode (as
-    cv2.imread returns None); a format that needs cv2 without it, or a
-    JPEG mode data/jpeg.py does not decode, raises."""
+    cv2.imread returns None); a BMP, TIFF or WEBP file, or a JPEG mode
+    data/jpeg.py does not decode, raises."""
     from mscnn_torch.data import image_io
 
     try:
@@ -1404,7 +1404,7 @@ def cmd_extract_features(args):
     """Dump named activations over an image dir to HDF5
     (tools/extract_features.cpp analog): the trunk and heads of --model /
     --zoo (a cascade's base) in float32, on --device (the card by
-    default). Needs h5py."""
+    default)."""
     from mscnn_torch import tools as TL
     from mscnn_torch.config import zoo_import as Z
     from mscnn_torch.io import checkpoint as CKPT

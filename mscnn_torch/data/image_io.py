@@ -34,8 +34,9 @@ array`): gray (PGM, gray JPEG, gray PNG of any depth) stays one channel
 alpha; a tRNS chunk becomes alpha for RGB and palette images, as
 `png_set_tRNS_to_alpha` does), 16-bit PNG samples stay uint16; no EXIF
 orientation is applied (`tests/test_torch_lmdb.py`). BMP, TIFF and WEBP
-go to cv2 where it can be imported; without it the call raises, naming
-the file and its format. `shape` reads an image's height and width from
+raise NotImplementedError naming the file and its format (cv2 decodes
+them; the port imports no cv2), bytes of no known format ValueError.
+`shape` reads an image's height and width from
 its header alone.
 
 `imencode_png` writes 8-bit gray, BGR or BGRA as `cv2.imencode(".png")`
@@ -330,20 +331,12 @@ def _decode_png(data: bytes, name: str, unchanged: bool = False) -> np.ndarray:
     return jpeg.orient(rgb[..., ::-1], orientation)     # png_set_bgr
 
 
-def _with_cv2(data: bytes, name: str, fmt: str, unchanged: bool) -> np.ndarray:
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(
-            f"could not read image {name}: it is {fmt} (this module decodes "
-            f"JPEG, PNG, PPM and PGM), and other formats need the cv2 "
-            f"module, which is not installed") from e
-    img = cv2.imdecode(np.frombuffer(data, np.uint8),
-                       cv2.IMREAD_UNCHANGED if unchanged else cv2.IMREAD_COLOR)
-    if img is None:
-        raise ValueError(f"could not read image {name}: cv2 cannot decode "
-                         f"this {fmt} data")
-    return img
+def _refuse(name: str, fmt: str):
+    if fmt == "unknown":        # cv2.imdecode returns None
+        raise ValueError(f"could not read image {name}: unknown format")
+    raise NotImplementedError(
+        f"could not read image {name}: it is a {fmt} file (this module "
+        f"decodes JPEG, PNG, PPM and PGM)")
 
 
 def imdecode(data: bytes, name: str = "<bytes>", truncated_ok: bool = False,
@@ -353,8 +346,8 @@ def imdecode(data: bytes, name: str = "<bytes>", truncated_ok: bool = False,
     `cv2.IMREAD_UNCHANGED` (module notes). Raises ValueError where the
     bytes do not decode or their header declares a larger image than cv2
     decodes (cv2 returns None or raises there), NotImplementedError for
-    a JPEG mode `data/jpeg.py` does not decode, ImportError for a format
-    that needs cv2 when cv2 is not installed; `name` goes in the message.
+    a JPEG mode `data/jpeg.py` does not decode and for BMP, TIFF and WEBP;
+    `name` goes in the message.
     truncated_ok: decode a JPEG that ends before its EOI marker as
     `cv2.imread` does (`imread` sets it)."""
     head = pnm_header(data)
@@ -366,8 +359,7 @@ def imdecode(data: bytes, name: str = "<bytes>", truncated_ok: bool = False,
     if fmt == "JPEG":
         return jpeg.decode(data, name, truncated_ok=truncated_ok,
                            unchanged=unchanged)
-    return _with_cv2(data, name, f"a {fmt} file" if fmt != "unknown"
-                     else "of an unknown format", unchanged)
+    _refuse(name, fmt)
 
 
 def _png_chunk(kind: bytes, body: bytes) -> bytes:

@@ -14,9 +14,8 @@ Where the port differs from the JAX module:
   * `load_image` is `data/image_io.py::imread`: it decodes JPEG, PNG and
     binary PPM (P6) / PGM (P5) itself and returns what `cv2.imread(path,
     cv2.IMREAD_COLOR)` returns (BGR uint8; a gray image repeated over 3
-    channels; EXIF orientation applied). BMP, TIFF and WEBP go through
-    cv2 where it can be imported; without it they raise, naming the file
-    and its format.
+    channels; EXIF orientation applied). BMP, TIFF and WEBP raise
+    NotImplementedError, naming the file and its format.
   * `MSCNNDataset(index_loader=)` reads an image by its index (a record
     shard's `RecordShard.read_image`, `data/records.py`), as the JAX
     module's does; `data/native_loader.py::WorkerLoader` gives the same

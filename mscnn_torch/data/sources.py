@@ -12,8 +12,8 @@ batches from the same seed.
 Images are read by `data/pipeline.py::load_image` (`data/image_io.py`,
 cv2's decode without cv2), and `WindowCropDataset`'s warp of the uint8
 patch is `data/resize.py::resize_bilinear_u8`, cv2's INTER_LINEAR bit for
-bit. h5py is imported by the HDF5 functions alone: without it (as on the
-card's machine) they raise ImportError. `LMDBDataset` / `LevelDBDataset`
+bit. `HDF5Dataset` / `write_hdf5` read and write HDF5 through the port's
+`io/hdf5.py` (numpy; the JAX module uses h5py). `LMDBDataset` / `LevelDBDataset`
 read Caffe Datum databases through the port's `io/lmdb.py` /
 `io/leveldb.py`, an encoded Datum decoded as cv2's IMREAD_UNCHANGED by
 `data/image_io.py`.
@@ -200,10 +200,10 @@ class HDF5Dataset:
     def __init__(self, files: Sequence[str], batch_size: int,
                  keys: Optional[Sequence[str]] = None, shuffle: bool = False,
                  seed: int = 0):
-        import h5py
+        from mscnn_torch.io import hdf5
         arrays: dict = {}
         for path in files:
-            with h5py.File(path, "r") as f:
+            with hdf5.File(path, "r") as f:
                 use = keys if keys is not None else list(f.keys())
                 for k in use:
                     arrays.setdefault(k, []).append(np.asarray(f[k]))
@@ -218,8 +218,8 @@ class HDF5Dataset:
 
 def write_hdf5(path: str, arrays: dict) -> None:
     """HDF5Output equivalent."""
-    import h5py
-    with h5py.File(path, "w") as f:
+    from mscnn_torch.io import hdf5
+    with hdf5.File(path, "w") as f:
         for k, v in arrays.items():
             f.create_dataset(k, data=np.asarray(v))
 

@@ -19,7 +19,7 @@ same silent skip of missing layers and the same shape rule.
 skipped and a stage-1 run that snapshots only BINARYPROTO leaves `train2`
 no stage-1 snapshot (ROADMAP Queue 3). `snapshot_hdf5` writes the
 reference's HDF5 pair and `restore_params` reads `.h5` / `.hdf5` weights
-(`io/hdf5_snapshot.py`); both need h5py and raise ImportError without it.
+(`io/hdf5_snapshot.py`, over the port's `io/hdf5.py`).
 """
 
 from __future__ import annotations

@@ -17,9 +17,8 @@ test_torch_hdf5_snapshot.py`). The layout is Caffe's:
 
 The blobs are the `.caffemodel`'s (`caffemodel._iter_layer_blobs` over the
 JAX-layout view of the port's tensors; `layouts`: a generic net's
-`param_layouts()`). h5py is imported inside each function: without it (the
-card's machine has none) they raise ImportError naming h5py, as
-`data/sources.py::HDF5Dataset` does.
+`param_layouts()`). The files are read and written by the port's
+`io/hdf5.py` (numpy), where the JAX module uses h5py.
 
 Where the port differs from the JAX loaders: each layer's blobs map back
 through `caffemodel.params_from_blobs` / `state_from_history`, as the
@@ -37,6 +36,7 @@ from typing import Optional
 import numpy as np
 
 from mscnn_torch.io import caffemodel as CM
+from mscnn_torch.io import hdf5
 
 
 def save_hdf5_weights(params, path: str, *, deconv_names=CM.DECONV_NAMES,
@@ -44,12 +44,11 @@ def save_hdf5_weights(params, path: str, *, deconv_names=CM.DECONV_NAMES,
                       layouts: Optional[dict] = None) -> int:
     """The port's params -> Caffe Net::ToHDF5 file. Returns layers
     written."""
-    import h5py
     jp = CM._to_jax(params, layouts)
     if fc_after_pool is None:
         fc_after_pool = CM._infer_fc_after_pool(jp)
     n = 0
-    with h5py.File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         data = f.create_group("data")
         for name, _ltype, blobs in CM._iter_layer_blobs(
                 jp, deconv_names, fc_after_pool):
@@ -66,8 +65,7 @@ def load_hdf5_weights(path: str, params, *, deconv_names=CM.DECONV_NAMES,
     """Caffe HDF5 weight file -> the port's params by layer name
     (CopyTrainedLayersFromHDF5 semantics, net.cpp:795-838: layers present
     in both are overwritten, others kept). Returns (params, report)."""
-    import h5py
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         data = f["data"]
         blobs = {name: [np.asarray(data[name][str(i)], np.float32)
                         for i in range(len(data[name]))]
@@ -83,12 +81,11 @@ def save_hdf5_solverstate(state, path: str, *, learned_net: str = "",
                           layouts: Optional[dict] = None) -> int:
     """The port's solver state ({"it", "h1"(, "h2")}) -> Caffe HDF5
     .solverstate.h5. Returns the number of history blobs written."""
-    import h5py
     h1 = CM._to_jax(state["h1"], layouts)
     if fc_after_pool is None:
         fc_after_pool = CM._infer_fc_after_pool(h1)
     n = 0
-    with h5py.File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         f.create_dataset("iter", data=np.asarray([int(state["it"])], np.int32))
         f.create_dataset("learned_net", data=np.bytes_(learned_net))
         f.create_dataset("current_step",
@@ -109,8 +106,7 @@ def load_hdf5_solverstate(path: str, state_template, *,
     """Caffe HDF5 .solverstate.h5 -> the port's solver state (positional
     history blobs in learnable-param order, RestoreSolverStateFromHDF5).
     Returns (state, iter)."""
-    import h5py
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         it = int(np.asarray(f["iter"]).reshape(-1)[0])
         hist_g = f["history"]
         hist = [np.asarray(hist_g[str(i)], np.float32)

@@ -6,8 +6,8 @@ exposes the exported deploy program (`io/aot.py`) over HTTP with no model
 code on the serving host.
 
 Concurrency model: a ThreadingHTTPServer decodes requests in parallel
-(`data/image_io.py`: JPEG, PNG, PPM and PGM without cv2; other formats through
-cv2 where it is installed); a single MicroBatcher thread owns the device
+(`data/image_io.py`: JPEG, PNG, PPM and PGM without cv2; other formats are
+refused with a 400); a single MicroBatcher thread owns the device
 and coalesces queued images into one batched program call (up to the
 artifact's static batch, with a short linger for stragglers). A batch-4
 artifact under 4+ concurrent clients therefore runs ~4 images a device
@@ -158,7 +158,7 @@ def make_handler(compiled, class_names: Optional[list] = None,
             raw = self.rfile.read(n)
             try:
                 img = image_io.imdecode(raw, "the request body")
-            except (ValueError, ImportError, NotImplementedError) as e:
+            except (ValueError, NotImplementedError) as e:
                 self._send(400, {"error": f"undecodable image: {e}"})
                 return
             thr = 0.0

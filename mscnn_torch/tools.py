@@ -22,9 +22,8 @@ encoded Datum as IMREAD_UNCHANGED), resized with `data/resize.py` (cv2's
 INTER_LINEAR) and encoded with `image_io.imencode` (cv2's PNG and JPEG
 bytes); the JAX module does all three with cv2. `extract_features` runs
 on the params' device (the card unless the caller built them elsewhere);
-its HDF5 output needs h5py, which the card's machine does not have: there
-it raises ImportError before an image is read. `feature_forward` is its
-forward alone and needs no h5py.
+its HDF5 output is written by the port's `io/hdf5.py` (numpy; the JAX
+module uses h5py). `feature_forward` is its forward alone.
 """
 
 from __future__ import annotations
@@ -298,21 +297,16 @@ def extract_features(params, cfg, image_paths: Sequence[str],
     output names (the per-branch LFCN heads). One float32 HDF5 dataset per
     blob, stacked over images ([N, H, W, C] NHWC), created at the first
     image; one image a forward, on the params' device. Returns
-    {name: shape of one image's blob}. Raises ImportError naming h5py
-    before any image is read where h5py is not installed."""
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError("extract_features writes HDF5 and needs the h5py "
-                          "module, which is not installed") from e
+    {name: shape of one image's blob}."""
     import torch
 
+    from mscnn_torch.io import hdf5
     from mscnn_torch.models import mscnn as M
 
     forward = feature_forward(params, cfg, blob_names)
     device = M.params_device(params)
     shapes = {}
-    with h5py.File(output, "w") as f:
+    with hdf5.File(output, "w") as f:
         dsets = {}
         for i, path in enumerate(image_paths):
             x = feature_input(image_io.imread(path), cfg, mean_values)

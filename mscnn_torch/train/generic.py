@@ -10,7 +10,7 @@ drives as it drives the MS-CNN step: step(state, batch, *, draws=None,
 generator=None) -> (state, metrics), with no host sync inside; with a
 mesh, the data-parallel step of `train/train_step.py` (one rank a device).
 
-Batch sources: ImageData, HDF5Data (h5py, NCHW arrays to NHWC),
+Batch sources: ImageData, HDF5Data (io/hdf5.py, NCHW arrays to NHWC),
 DummyData, WindowData and `Data` over a Caffe LMDB or LevelDB
 (`io/lmdb.py`, `io/leveldb.py`; a `backend: LEVELDB` over an LMDB
 environment is sniffed and read as LMDB, `_looks_like_lmdb`); MemoryData

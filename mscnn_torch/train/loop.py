@@ -17,8 +17,7 @@ counterpart of JAX's `fold_in(key, it)`, so a run resumed from a snapshot
 draws what the uninterrupted run drew. Snapshots go to the port's
 directory format by default; `snapshot_format: BINARYPROTO` writes the
 .caffemodel / .solverstate pair, `HDF5` the .caffemodel.h5 /
-.solverstate.h5 pair (io/checkpoint.py; h5py, which raises ImportError
-where it is not installed).
+.solverstate.h5 pair (io/checkpoint.py over io/hdf5.py).
 
 Data parallelism (`rank=`, one process a device, `parallel/distributed.
 py`): rank r's generators take r as a further word (JAX's `fold_in(key,

@@ -172,7 +172,7 @@ def test_load_image_errors(tmp_path, monkeypatch):
     # JPEG and PNG need no cv2 (data/jpeg.py, data/image_io.py)
     np.testing.assert_array_equal(TP.load_image(jpg), want)
     np.testing.assert_array_equal(TP.load_image(png), np.zeros((4, 4, 3), np.uint8))
-    with pytest.raises(ImportError, match=r"p\.bmp.*BMP.*cv2"):
+    with pytest.raises(NotImplementedError, match=r"p\.bmp.*BMP"):
         TP.load_image(bmp)
 
 

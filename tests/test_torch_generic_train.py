@@ -18,6 +18,8 @@ import io
 import os
 import re
 import shutil
+import sys
+from unittest import mock
 
 import cv2
 import jax
@@ -111,14 +113,16 @@ def _close_tree(got, want, what):
                                        err_msg=f"{what} {n}.{k}")
 
 
-def _steps(net_path, sspec, n=5, batch_size=None):
+def _steps(net_path, sspec, n=5, batch_size=None, hide=()):
     """n steps of each package's generic.setup from JAX's initial params;
     (JAX final params, port final params in JAX layouts, losses, port
-    net, the port's first batch)."""
+    net, the port's first batch). `hide`: modules made unimportable
+    while the port's setup runs (its sources read their files there)."""
     jstate, jstep, jsrc, _ = JG.setup(net_path, JSV.SolverSpec(**sspec),
                                       batch_size=batch_size)
-    tstate, tstep, tsrc, tnet = TG.setup(net_path, TSV.SolverSpec(**sspec),
-                                         batch_size=batch_size, device="cpu")
+    with mock.patch.dict(sys.modules, {m: None for m in hide}):
+        tstate, tstep, tsrc, tnet = TG.setup(net_path, TSV.SolverSpec(**sspec),
+                                             batch_size=batch_size, device="cpu")
     layouts = tnet.param_layouts()
     params = bridge.from_jax_net_params(_np(jstate["params"]), layouts)
     tstate = {"params": params,
@@ -161,8 +165,12 @@ def test_setup_dummydata_five_steps_match_jax(tmp_path):
 
 
 def test_setup_hdf5_five_steps_match_jax(tmp_path):
-    jp, tp, _, _, first = _steps(_net(tmp_path, "HDF5Data", _h5(tmp_path)),
-                                 SOLVER)
+    """The port writes the .h5 (write_hdf5) and reads it in setup with h5py
+    hidden (io/hdf5.py); JAX's setup reads the same file through h5py."""
+    with mock.patch.dict(sys.modules, {"h5py": None}):
+        source = _h5(tmp_path)
+    jp, tp, _, _, first = _steps(_net(tmp_path, "HDF5Data", source),
+                                 SOLVER, hide=("h5py",))
     assert tuple(first["data"].shape) == (8, 10, 10, 1)      # NHWC
     _close_tree(tp, jp, "after 5 steps")
 
@@ -432,9 +440,10 @@ def test_hdf5_sources_match_jax(tmp_path):
     data = {"data": rng.randn(6, 3).astype(np.float32),
             "label": np.arange(6, dtype=np.int64)}
     p1 = str(tmp_path / "a.h5")
-    TS.write_hdf5(p1, data)
-    j = JS.HDF5Dataset([p1, p1], 4, shuffle=True, seed=2)
-    t = TS.HDF5Dataset([p1, p1], 4, shuffle=True, seed=2)
+    with mock.patch.dict(sys.modules, {"h5py": None}):     # the port's io/hdf5.py
+        TS.write_hdf5(p1, data)
+        t = TS.HDF5Dataset([p1, p1], 4, shuffle=True, seed=2)
+    j = JS.HDF5Dataset([p1, p1], 4, shuffle=True, seed=2)   # h5py
     for _ in range(4):
         jb, tb = j.next_batch(), t.next_batch()
         for k in jb:

@@ -8,8 +8,8 @@ Up, Average, Paeth, and a mix of all five) and every colour type (gray,
 gray + alpha, RGB, RGBA, palette, with tRNS) at bit depths 1-16 is
 covered whatever a zlib or libpng build prefers. A JPEG decodes without
 cv2 (data/jpeg.py; its own tests are tests/test_torch_jpeg.py); BMP
-still needs cv2 and raises, naming the file and its format, where it is
-not installed.
+raises NotImplementedError, naming the file and its format (the port
+imports no cv2, so it does not hand BMP to cv2 where cv2 is installed).
 """
 
 import struct
@@ -176,6 +176,6 @@ def test_jpeg_needs_cv2_and_errors(tmp_path, monkeypatch):
     np.testing.assert_array_equal(IO.imread(jpg), want)
     with open(jpg, "rb") as f:
         np.testing.assert_array_equal(IO.imdecode(f.read()), want)
-    with pytest.raises(ImportError, match=r"b\.bmp.*BMP.*cv2"):
+    with pytest.raises(NotImplementedError, match=r"b\.bmp.*BMP"):
         IO.imread(bmp)
     assert IO.imread(png).shape == (16, 24, 3)      # PNG needs no cv2

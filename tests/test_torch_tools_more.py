@@ -14,9 +14,10 @@ resize tool, JPEG-encoded databases and feature extraction.
     the same order, shapes and dtypes (float32 NHWC, [N, H, W, C]), values
     within rtol 1e-5 and atol 1e-5 * max|ref| (float32 convolutions in two
     libraries; the files' bytes differ anyway, h5py stamps times).
-    Without h5py it raises ImportError naming h5py and the function before
-    an image is read; `cli extract_features` writes what the function
-    writes and prints JAX's lines.
+    With h5py hidden (the port writes HDF5 through its own io/hdf5.py) the
+    function and `cli extract_features` write files that h5py reads equal
+    to JAX's output; `cli extract_features` writes what the function writes
+    and prints JAX's lines.
 """
 
 import contextlib
@@ -171,17 +172,42 @@ def test_extract_features_values_match_jax(features, blob):
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
 
 
-def test_extract_features_needs_h5py_before_any_image(tmp_path, monkeypatch):
-    monkeypatch.setitem(sys.modules, "h5py", None)
-    params = {"conv1_1": {"w": torch.zeros(1)}}
-    with pytest.raises(ImportError, match="extract_features.*h5py"):
-        TT.extract_features(params, TZ.tiny_test_config(),
-                            [str(tmp_path / "missing.png")], ["conv4_3"],
-                            str(tmp_path / "f.h5"))
-    assert not (tmp_path / "f.h5").exists()
-    with pytest.raises(ImportError, match="extract_features.*h5py"):
-        TCLI.main(["extract_features", "--zoo", "tiny-test", "--device", "cpu",
-                   "--image-dir", str(tmp_path), "-o", str(tmp_path / "g.h5")])
+def test_extract_features_needs_h5py_before_any_image(features, images, tmp_path,
+                                                    monkeypatch):
+    """Once an ImportError check: with h5py hidden, extract_features (on the
+    features fixture's weights) and `cli extract_features` now write their
+    HDF5 through io/hdf5.py; h5py reads the function's file equal to JAX's
+    output (the tolerance of test_extract_features_values_match_jax) and
+    the CLI's equal to the function's on the same two images."""
+    d = tmp_path / "imgs"
+    d.mkdir()
+    for p in images["paths"]:
+        shutil.copy(p, d)
+    first = sorted(str(d / n) for n in os.listdir(d))[:2]
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "h5py", None)
+        shapes = TT.extract_features(features["params"], TZ.tiny_test_config(),
+                                     images["paths"], BLOBS, str(tmp_path / "f.h5"))
+        rc, _ = _run(TCLI.main, [
+            "extract_features", "--zoo", "tiny-test", "--device", "cpu",
+            "--image-dir", str(d), "--blobs", "conv4_3", "--iterations", "2",
+            "-o", str(tmp_path / "g.h5")])
+        ref = TT.extract_features(
+            TM.init_params(torch.Generator().manual_seed(0), TZ.tiny_test_config(),
+                           device="cpu"),
+            TZ.tiny_test_config(), first, ["conv4_3"], str(tmp_path / "r.h5"))
+    assert rc == 0 and ref == {"conv4_3": shapes["conv4_3"]}
+    assert list(shapes.items()) == list(features["jax"][0].items())
+    with h5py.File(str(tmp_path / "f.h5"), "r") as f:
+        assert list(f) == features["jax"][1]
+        for k, (dtype, want) in features["jax"][2].items():
+            assert f[k].dtype == dtype and f[k].shape == want.shape
+            np.testing.assert_allclose(f[k][...], want, rtol=1e-5,
+                                       atol=1e-5 * np.abs(want).max())
+    with h5py.File(str(tmp_path / "g.h5"), "r") as a, \
+            h5py.File(str(tmp_path / "r.h5"), "r") as b:
+        assert list(a) == list(b) == ["conv4_3"]
+        np.testing.assert_array_equal(a["conv4_3"][...], b["conv4_3"][...])
 
 
 def test_cli_extract_features_writes_the_function_output(images, tmp_path):
